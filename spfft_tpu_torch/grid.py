@@ -1,0 +1,119 @@
+"""The ``Grid`` public API object, local part.
+
+A Grid declares maximum transform extents and stick counts up front and hands
+out Transforms that must fit inside it (reference: include/spfft/grid.hpp:49-205).
+Buffers belong to PyTorch's allocator, so what remains is capacity validation
+and the binding of a processing unit to a ``torch.device``.
+"""
+from __future__ import annotations
+
+import torch
+
+from .errors import GPUNoDeviceError, InvalidParameterError, OverflowError_
+from .types import ProcessingUnit
+
+
+def device_for_processing_unit(processing_unit, device=None) -> torch.device:
+    """The ``torch.device`` a plan of ``processing_unit`` runs on.
+
+    An explicit ``device`` wins. HOST is the CPU; GPU is the current CUDA
+    device. Asking for the card where there is none raises
+    :class:`GPUNoDeviceError`; nothing falls back to the CPU.
+    """
+    pu = ProcessingUnit(processing_unit)
+    if device is not None:
+        device = torch.device(device)
+    elif pu == ProcessingUnit.HOST:
+        device = torch.device("cpu")
+    else:
+        device = torch.device("cuda")
+    if device.type == "cuda":
+        if not torch.cuda.is_available():
+            raise GPUNoDeviceError("ProcessingUnit.GPU asked for, but no CUDA device is available")
+        if device.index is None:
+            device = torch.device("cuda", torch.cuda.current_device())
+    return device
+
+
+class Grid:
+    """Capacity envelope and device binding for local transforms.
+
+    Reference ctor: include/spfft/grid.hpp:65-66.
+    """
+
+    def __init__(
+        self,
+        max_dim_x: int,
+        max_dim_y: int,
+        max_dim_z: int,
+        max_num_local_z_columns: int,
+        processing_unit: ProcessingUnit = ProcessingUnit.HOST,
+        max_num_threads: int = -1,
+        *,
+        device=None,
+    ):
+        if min(max_dim_x, max_dim_y, max_dim_z) < 1:
+            raise InvalidParameterError("grid dimensions must be positive")
+        if max_num_local_z_columns < 0:
+            raise InvalidParameterError("max_num_local_z_columns must be non-negative")
+        if max_dim_x * max_dim_y * max_dim_z >= 2**62:
+            raise OverflowError_("grid too large")
+        self._max_dim_x = int(max_dim_x)
+        self._max_dim_y = int(max_dim_y)
+        self._max_dim_z = int(max_dim_z)
+        self._max_num_local_z_columns = int(max_num_local_z_columns)
+        self._processing_unit = ProcessingUnit(processing_unit)
+        self._max_num_threads = max_num_threads
+        self._device = device_for_processing_unit(self._processing_unit, device)
+
+    @property
+    def max_dim_x(self) -> int:
+        return self._max_dim_x
+
+    @property
+    def max_dim_y(self) -> int:
+        return self._max_dim_y
+
+    @property
+    def max_dim_z(self) -> int:
+        return self._max_dim_z
+
+    @property
+    def max_num_local_z_columns(self) -> int:
+        return self._max_num_local_z_columns
+
+    @property
+    def max_local_z_length(self) -> int:
+        return self._max_dim_z
+
+    @property
+    def processing_unit(self) -> ProcessingUnit:
+        return self._processing_unit
+
+    @property
+    def max_num_threads(self) -> int:
+        return self._max_num_threads
+
+    @property
+    def device(self) -> torch.device:
+        return self._device
+
+    def create_transform(
+        self,
+        processing_unit,
+        transform_type,
+        dim_x,
+        dim_y,
+        dim_z,
+        num_local_elements=None,
+        indices=None,
+        **kwargs,
+    ):
+        """A transform bound to this grid (reference: include/spfft/grid.hpp:138-141);
+        keyword arguments are :class:`~spfft_tpu_torch.transform.Transform`'s."""
+        from .transform import Transform
+
+        return Transform(
+            processing_unit, transform_type, dim_x, dim_y, dim_z,
+            num_local_elements, indices, grid=self, **kwargs,
+        )
