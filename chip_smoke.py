@@ -7,16 +7,24 @@ Run from the root of a checkout, on a machine with an H100 and the CUDA toolkit:
 
 Phases, one JSON line each:
 
-1. the card (``nvidia-smi`` name and power limit) and the kernel build;
+1. the card (``nvidia-smi`` name and power limit), the kernel build, and
+   what ptxas reports for each kernel (registers, spills) and how many
+   tensor-core instructions (``HGMMA``, ``HMMA``) ``cuobjdump -sass`` finds;
 2. each kernel (K1 ``complex_matmul``, K2 ``row_gather``) at the shapes the
    main path gives it, against its plain PyTorch version on the same inputs,
-   with its time, the plain version's time, one PyTorch library call's time
-   and the least time the card could take (``bound_ms``); K1 once more in f64;
+   with its device time (``ms``: one call captured in a CUDA graph, replayed
+   ``REPLAYS`` times between two events), the plain version's and one
+   PyTorch library call's device time, the single-call time with the host's
+   share in it (``call_ms``), and the least time the card could take
+   (``bound_ms``; K1's on the TF32 tensor cores, ``fp32_bound_ms`` without
+   them); K1 at odd shapes and strides in f32, and once more in f64;
 3. the main path at full width: ``Transform(ProcessingUnit.GPU, ...)`` at
    256^3 with the spherical cutoff 0.659, C2C and R2C in float32, backward then
    forward(FULL), against a complex128 dense oracle on the host, with the
    kernels' launch counts from that run and the median ms per pair;
-4. the ``kernels`` line; last, the ``{"ok": true, "device": ...}`` line.
+4. one pair of each kind under ``torch.profiler``: the device's busy share
+   and the kernels that take its time;
+5. the ``kernels`` line; last, the ``{"ok": true, "device": ...}`` line.
 
 Exits non-zero, with no result line, when there is no CUDA device or any
 check fails.
@@ -24,6 +32,8 @@ check fails.
 from __future__ import annotations
 
 import json
+import re
+import shutil
 import statistics
 import subprocess
 import sys
@@ -37,9 +47,12 @@ SEED = 1234
 K1_RTOL = 1e-5  # kernel vs plain, max abs diff over max |plain|, float32
 K1_F64_RTOL = 1e-12
 ORACLE_RTOL = 1e-5
+REPLAYS = 20
 # H100 SXM published peaks (NVIDIA data sheet, 700 W): FP32 and FP64 outside
-# the tensor cores, and HBM3 bandwidth.
+# the tensor cores, dense TF32 on them, and HBM3 bandwidth.
 PEAK_FLOPS = {"float32": 67e12, "float64": 34e12}
+PEAK_TF32 = 495e12
+TF32_PASSES = 3  # 3xTF32: three tensor-core products per real product
 PEAK_BYTES = 3.35e12
 
 
@@ -47,8 +60,9 @@ def emit(obj) -> None:
     print(json.dumps(obj), flush=True)
 
 
-def timed_ms(fn, reps: int = 25, warmup: int = 3) -> float:
-    """Median of ``reps`` single-call CUDA-event timings after ``warmup`` calls."""
+def call_ms(fn, reps: int = 10, warmup: int = 3) -> float:
+    """Median of ``reps`` single-call CUDA-event timings after ``warmup`` calls:
+    the card's time plus whatever the host keeps it waiting."""
     import torch
 
     for _ in range(warmup):
@@ -64,13 +78,73 @@ def timed_ms(fn, reps: int = 25, warmup: int = 3) -> float:
     return statistics.median(times)
 
 
+def device_ms(fn, replays: int = REPLAYS) -> float:
+    """Device time of one call: warmed up (build, argtypes, allocator), then
+    captured in a CUDA graph and replayed ``replays`` times between two events."""
+    import torch
+
+    fn()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        fn()
+    graph.replay()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(replays):
+        graph.replay()
+    end.record()
+    end.synchronize()
+    del graph
+    return start.elapsed_time(end) / replays
+
+
 def check(ok: bool, what: str) -> None:
     if not ok:
         raise SystemExit(f"chip_smoke: FAILED: {what}")
 
 
+def build_report(names) -> dict:
+    """ptxas's registers and spills per kernel, from the build logs, and the
+    tensor-core instructions in each library's SASS."""
+    from spfft_tpu_torch import _build
+
+    demangle = shutil.which("c++filt")
+    report = {}
+    for name in names:
+        log = _build.build_log(name)
+        kernels = []
+        for entry, body in re.findall(
+            r"Compiling entry function '([^']+)'(.*?)(?=Compiling entry function|\Z)", log, re.S
+        ):
+            regs = re.search(r"Used (\d+) registers", body)
+            spill = re.search(r"(\d+) bytes spill stores", body)
+            kernels.append({"kernel": entry, "registers": int(regs.group(1)) if regs else None,
+                            "spill_store_bytes": int(spill.group(1)) if spill else None})
+        if demangle and kernels:
+            out = subprocess.run([demangle], input="\n".join(k["kernel"] for k in kernels),
+                                 capture_output=True, text=True).stdout.splitlines()
+            for k, d in zip(kernels, out):
+                k["kernel"] = d
+        cuobjdump = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+        sass = subprocess.run([cuobjdump, "-sass", str(_build._target(name))],
+                              capture_output=True, text=True).stdout
+        report[name] = {
+            "kernels": kernels,
+            "warnings": [ln.strip() for ln in log.splitlines()
+                         if "warning" in ln.lower() or "Performance Loss" in ln],
+            "sass_hgmma": len(re.findall(r"\bHGMMA\b", sass)),
+            "sass_hmma": len(re.findall(r"\bHMMA\b", sass)),
+        }
+    return report
+
+
 def k1_forms(plans):
-    """Every K1 form the main path launches: (name, plan kind, spec, x, w, want_imag)."""
+    """Every K1 form the main path launches: (name, plan kind, spec, x, constant, want_imag)."""
     import torch
 
     gen = torch.Generator(device="cuda").manual_seed(SEED)
@@ -100,7 +174,10 @@ def k1_key(ops, want_imag):
             bi is not None, want_imag)
 
 
-def k1_bound_ms(ops, want_imag) -> tuple[float, str]:
+def k1_bounds_ms(ops, want_imag) -> tuple[float, str, float]:
+    """(TF32 bound, what bounds it, FP32 bound): max(operations over the peak,
+    bytes over the memory rate), the operations 3xTF32's three tensor-core
+    products per real product on the TF32 peak, or one on the FP32 peak."""
     ar, ai, br, bi = ops
     batch, m, k = ar.shape
     n = br.shape[2]
@@ -108,14 +185,49 @@ def k1_bound_ms(ops, want_imag) -> tuple[float, str]:
     flops = 2 * products * batch * m * n * k
     item = ar.element_size()
     a_mats = batch if ar.stride(0) else 1
+    b_mats = batch if br.stride(0) else 1
     nbytes = item * (
         (1 + (ai is not None)) * a_mats * m * k
-        + (1 + (bi is not None)) * batch * k * n
+        + (1 + (bi is not None)) * b_mats * k * n
         + (1 + want_imag) * batch * m * n
     )
-    t_ops = flops / PEAK_FLOPS[str(ar.dtype).split(".")[1]]
     t_bytes = nbytes / PEAK_BYTES
-    return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
+    t_tf32 = TF32_PASSES * flops / PEAK_TF32
+    t_fp32 = flops / PEAK_FLOPS[str(ar.dtype).split(".")[1]]
+    bound_by = "operations" if t_tf32 >= t_bytes else "bytes"
+    return 1e3 * max(t_tf32, t_bytes), bound_by, 1e3 * max(t_fp32, t_bytes)
+
+
+def k1_err(ops, want_imag, constant=None):
+    """K1 against its plain version: (max abs diff, max |plain|), each per
+    part of the result (real, then imaginary when it is kept)."""
+    import torch
+    from spfft_tpu_torch.ops import complex_matmul as k1
+
+    got = k1.complex_matmul(*ops, want_imag, constant=constant)
+    want = k1.complex_matmul_plain(*ops, want_imag)
+    torch.cuda.synchronize()
+    parts = [(g, w) for g, w in zip(got, want) if w is not None]
+    return ([(g - w).abs().max().item() for g, w in parts],
+            [w.abs().max().item() for _, w in parts])
+
+
+def k1_feed_bytes(ops, w) -> int:
+    """Bytes the float32 kernel copies into shared memory for this call: per
+    output tile (128 rows of D by a Q tile of V) and K tile of 32, the D
+    tile's parts and the V tile's TF32 planes (csrc/complex_matmul.cu, tc::)."""
+    from spfft_tpu_torch.ops import complex_matmul as k1
+
+    ar, ai, br, bi = ops
+    batch, m, k = ar.shape
+    n = br.shape[2]
+    transposed = not k1._views(br, w.re)
+    p, q = (n, m) if transposed else (m, n)
+    d_parts = 1 + ((bi if transposed else ai) is not None)
+    planes = 2 * (1 + (w.im is not None))
+    bn, ceil = k1.tile_q(q), lambda a, b: -(-a // b)
+    tiles = batch * ceil(p, 128) * ceil(q, bn)
+    return 4 * tiles * ceil(k, k1.TILE_K) * k1.TILE_K * (128 * d_parts + bn * planes)
 
 
 def run_k1(name, spec, x, w, want_imag):
@@ -123,34 +235,65 @@ def run_k1(name, spec, x, w, want_imag):
     from spfft_tpu_torch.ops import complex_matmul as k1
     from spfft_tpu_torch.ops import fft as offt
 
-    ops, _ = offt.operands(spec, x[0], x[1], w[0], w[1])
-    cr, ci = k1.complex_matmul(*ops, want_imag)
-    pr, pi = k1.complex_matmul_plain(*ops, want_imag)
-    torch.cuda.synchronize()
-    err = (cr - pr).abs().max().item()
-    scale = pr.abs().max().item()
-    if want_imag:
-        err = max(err, (ci - pi).abs().max().item())
-        scale = max(scale, pi.abs().max().item())
+    ops, _ = offt.operands(spec, x[0], x[1], w.re, w.im)
+    errs, scales = k1_err(ops, want_imag, w)
+    err, scale = max(errs), max(scales)
     ar, ai, br, bi = ops
     a_c = torch.complex(ar[:1] if ar.stride(0) == 0 else ar, ai[:1] if ai.stride(0) == 0 else ai)
     b_c = torch.complex(br, bi if bi is not None else torch.zeros_like(br))
     lib = (lambda: torch.matmul(a_c, b_c)) if want_imag else (lambda: torch.matmul(a_c, b_c).real)
-    bound, bound_by = k1_bound_ms(ops, want_imag)
+    kernel = lambda: k1.complex_matmul(*ops, want_imag, constant=w)
+    bound, bound_by, fp32_bound = k1_bounds_ms(ops, want_imag)
     row = {
         "name": f"complex_matmul:{name}", "route": "cuda",
         "source": "spfft_tpu_torch/csrc/complex_matmul.cu",
         "replaces": "spfft_tpu/ops/pallas_fft.py:95",
         "shape": {"batch": ar.shape[0], "M": ar.shape[1], "K": ar.shape[2], "N": br.shape[2]},
         "max_abs_err": err, "rel_err": err / scale,
-        "ms": timed_ms(lambda: k1.complex_matmul(*ops, want_imag)),
-        "plain_ms": timed_ms(lambda: k1.complex_matmul_plain(*ops, want_imag)),
-        "library_ms": timed_ms(lib),
-        "bound_ms": bound, "bound_by": bound_by,
+        "ms": device_ms(kernel),
+        "plain_ms": device_ms(lambda: k1.complex_matmul_plain(*ops, want_imag)),
+        "library_ms": device_ms(lib),
+        "call_ms": call_ms(kernel),
+        "bound_ms": bound, "bound_by": bound_by, "fp32_bound_ms": fp32_bound,
     }
+    row["bound_share"] = row["bound_ms"] / row["ms"]
+    # what the tiles draw from L2 into shared memory, and at what rate
+    row["feed_bytes"] = k1_feed_bytes(ops, w)
+    row["feed_tb_s"] = row["feed_bytes"] / row["ms"] / 1e9
     emit({"phase": "kernel", **row})
     check(err <= K1_RTOL * scale, f"{row['name']} differs from its plain version: {err} vs {scale}")
     return row, k1_key(ops, want_imag)
+
+
+def run_k1_odd(phase, dtype, rtol):
+    """K1 at shapes that are not multiples of its tiles, with strides and
+    pointers that are not 16-byte aligned, against its plain version."""
+    import torch
+
+    g = torch.Generator(device="cuda").manual_seed(SEED + 2)
+    r = lambda *s: torch.randn(s, generator=g, device="cuda", dtype=dtype)
+    w_r, w_i = r(24, 40), r(24, 40)
+    shared = lambda w: w.mT.expand(3, -1, -1)
+    odd = lambda *s: r(*s[:-1], s[-1] + 1)[..., 1:]  # last axis contiguous, pointer off by one
+    cases = {
+        "300x64@64x64": ((r(1, 300, 64), r(1, 300, 64), r(1, 64, 64), r(1, 64, 64)), True),
+        "shared 40x24 @ 3x24x70": ((shared(w_r), shared(w_i), r(3, 24, 70), r(3, 24, 70)), True),
+        "shared @ real": ((shared(w_r), shared(w_i), r(3, 24, 70), None), True),
+        "shared, real part only": ((shared(w_r), shared(w_i), r(3, 24, 70), r(3, 24, 70)), False),
+        "unaligned 301x70@70x90": ((odd(1, 301, 70), odd(1, 301, 70), r(1, 70, 90), r(1, 70, 90)),
+                                   True),
+        "shared @ unaligned 3x24x177": ((shared(w_r), shared(w_i), odd(3, 24, 177), odd(3, 24, 177)),
+                                        True),
+        "batched 3x30x9 @ 3x9x50": ((r(3, 30, 9), r(3, 30, 9), r(3, 9, 50), r(3, 9, 50)), True),
+        "real @ transposed": ((r(2, 33, 45), None, r(2, 120, 45).mT, r(2, 120, 45).mT), True),
+    }
+    errs = {}
+    for name, (ops, want) in cases.items():
+        err, scale = k1_err(ops, want)
+        errs[name] = max(e / s for e, s in zip(err, scale))
+    worst = max(errs.values())
+    emit({"phase": phase, "name": "complex_matmul", "rel_err": errs})
+    check(worst <= rtol, f"complex_matmul {dtype} at odd shapes: rel err {worst}")
 
 
 def run_k2(name, src, idx):
@@ -170,18 +313,21 @@ def run_k2(name, src, idx):
     item = src[0].element_size()
     rows_read = torch.unique(il[valid]).numel()
     nbytes = 2 * item * width * (rows_read + idx.numel()) + idx.element_size() * idx.numel()
+    kernel = lambda: k2.row_gather(src[0], src[1], idx)
     row = {
         "name": f"row_gather:{name}", "route": "cuda",
         "source": "spfft_tpu_torch/csrc/row_gather.cu",
         "replaces": "programs/microbench_pallas_dma.py:140",
         "shape": {"rows": idx.numel(), "n_src": n_src, "width": width, "planes": 2},
         "max_abs_err": err, "bitwise_equal": exact,
-        "ms": timed_ms(lambda: k2.row_gather(src[0], src[1], idx)),
-        "plain_ms": timed_ms(lambda: (k2.row_gather_plain(src[0], idx),
-                                      k2.row_gather_plain(src[1], idx))),
-        "library_ms": timed_ms(lambda: torch.index_select(both, 1, il)),
+        "ms": device_ms(kernel),
+        "plain_ms": device_ms(lambda: (k2.row_gather_plain(src[0], idx),
+                                       k2.row_gather_plain(src[1], idx))),
+        "library_ms": device_ms(lambda: torch.index_select(both, 1, il)),
+        "call_ms": call_ms(kernel),
         "bound_ms": 1e3 * nbytes / PEAK_BYTES, "bound_by": "bytes",
     }
+    row["bound_share"] = row["bound_ms"] / row["ms"]
     emit({"phase": "kernel", **row})
     check(exact, f"{row['name']} is not bitwise equal to its plain version")
     return row, (idx.numel(), n_src, width, 2)
@@ -193,7 +339,8 @@ def storage(idx, dim):
 
 def main_path(sp, kind, t, triplets, full_triplets):
     """One backward + forward(FULL) through the entry points, checked against a
-    dense complex128 oracle; returns the launch counts of that run."""
+    dense complex128 oracle; returns the launch counts of that run and the
+    device values it ran on."""
     import torch
     from spfft_tpu_torch.ops import complex_matmul as k1
     from spfft_tpu_torch.ops import row_gather as k2
@@ -257,7 +404,46 @@ def main_path(sp, kind, t, triplets, full_triplets):
     check(oracle_err <= ORACLE_RTOL, f"{kind} backward vs dense oracle: {oracle_err}")
     check(rt_err <= ORACLE_RTOL, f"{kind} round trip: {rt_err}")
     check(n_k1 == 6 and n_k2 == 2, f"{kind} launches: {n_k1} K1, {n_k2} K2 (expected 6 and 2)")
-    return counts
+    return counts, values_dev
+
+
+def profile_pair(sp, kind, t, values_dev) -> None:
+    """One backward+forward(FULL) pair under torch.profiler: the share of the
+    window the device is busy, and the kernels by device time."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        t.backward(values_dev)
+        t.forward(scaling=sp.ScalingType.FULL)
+        torch.cuda.synchronize()
+        window_ms = 1e3 * (time.perf_counter() - t0)
+    kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    spans = sorted((e.time_range.start, e.time_range.end) for e in kernels)
+    busy_us, reach = 0.0, None
+    for start, end in spans:  # union of the kernels' intervals
+        if reach is None or start > reach:
+            busy_us += end - start
+            reach = end
+        elif end > reach:
+            busy_us += end - reach
+            reach = end
+    by_name = {}
+    for e in kernels:
+        name = e.name if len(e.name) <= 90 else e.name[:87] + "..."
+        ms, n = by_name.get(name, (0.0, 0))
+        by_name[name] = (ms + (e.time_range.end - e.time_range.start) / 1e3, n + 1)
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:12]
+    emit({
+        "phase": "profile", "transform": kind, "window_ms": window_ms,
+        "device_busy_ms": busy_us / 1e3 if spans else None,
+        "device_busy_share": busy_us / 1e3 / window_ms if spans else None,
+        "kernels": len(kernels),
+        "top": [{"name": k, "ms": ms, "count": n} for k, (ms, n) in top],
+    })
 
 
 def main() -> int:
@@ -268,7 +454,6 @@ def main() -> int:
         return 2
     import spfft_tpu_torch as sp
     from spfft_tpu_torch import _build
-    from spfft_tpu_torch.ops import complex_matmul as k1
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -280,9 +465,10 @@ def main() -> int:
     print(card, flush=True)
     emit({"phase": "card", "nvidia_smi": card, "torch": torch.__version__,
           "cuda": torch.version.cuda, "kind": torch.cuda.get_device_name(0)})
+    names = ["complex_matmul", "row_gather"]
     t0 = time.perf_counter()
-    _build.build_all(["complex_matmul", "row_gather"])
-    emit({"phase": "build", "seconds": time.perf_counter() - t0})
+    _build.build_all(names)
+    emit({"phase": "build", "seconds": time.perf_counter() - t0, **build_report(names)})
 
     t0 = time.perf_counter()
     triplets = {
@@ -313,32 +499,15 @@ def main() -> int:
         rows.append((row, kind, "row_gather", key))
         row, key = run_k2(f"{kind}/pack", planes, ex._stick_keys)
         rows.append((row, kind, "row_gather", key))
-
-    # K1 in float64, small: every form, against the plain version
-    g64 = torch.Generator(device="cuda").manual_seed(SEED + 2)
-    r = lambda *s: torch.randn(s, generator=g64, device="cuda", dtype=torch.float64)
-    f64_err = 0.0
-    w_r, w_i = r(24, 40), r(24, 40)
-    shared = lambda w: w.mT.expand(3, -1, -1)
-    for ops, want in (
-        ((r(1, 300, 64), r(1, 300, 64), r(1, 64, 64), r(1, 64, 64)), True),
-        ((shared(w_r), shared(w_i), r(3, 24, 70), r(3, 24, 70)), True),
-        ((shared(w_r), shared(w_i), r(3, 24, 70), None), True),
-        ((shared(w_r), shared(w_i), r(3, 24, 70), r(3, 24, 70)), False),
-    ):
-        cr, ci = k1.complex_matmul(*ops, want)
-        pr, pi = k1.complex_matmul_plain(*ops, want)
-        err = (cr - pr).abs().max().item() / pr.abs().max().item()
-        if want:
-            err = max(err, (ci - pi).abs().max().item() / pi.abs().max().item())
-        f64_err = max(f64_err, err)
-    emit({"phase": "kernel_f64", "name": "complex_matmul", "rel_err": f64_err})
-    check(f64_err <= K1_F64_RTOL, f"complex_matmul float64 rel err {f64_err}")
+    run_k1_odd("kernel_f32_odd", torch.float32, K1_RTOL)
+    run_k1_odd("kernel_f64", torch.float64, K1_F64_RTOL)
 
     # ---- the main path, each transform type with the counts set to 0 before it ----
-    counts = {}
+    counts, values = {}, {}
     for kind, t in plans.items():
-        counts[kind] = main_path(sp, kind, t, triplets[kind], triplets["c2c"])
+        counts[kind], values[kind] = main_path(sp, kind, t, triplets[kind], triplets["c2c"])
+    for kind, t in plans.items():
+        profile_pair(sp, kind, t, values[kind])
 
     kernels = []
     for row, kind, kernel, key in rows:
@@ -346,7 +515,9 @@ def main() -> int:
         check(launches > 0, f"{row['name']} was not launched by the main path")
         kernels.append({k: row[k] for k in (
             "name", "route", "source", "replaces", "max_abs_err", "ms", "plain_ms",
-            "bound_ms", "bound_by", "library_ms")} | {"launches": launches})
+            "bound_ms", "bound_by", "library_ms", "call_ms", "bound_share")}
+            | {"launches": launches}
+            | ({"fp32_bound_ms": row["fp32_bound_ms"]} if "fp32_bound_ms" in row else {}))
     emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

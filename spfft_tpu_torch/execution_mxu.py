@@ -25,6 +25,7 @@ import torch
 from .execution import ExecutionBase
 from .ops import compression, symmetry
 from .ops import fft as offt
+from .ops.complex_matmul import Constant
 from .ops.row_gather import row_gather
 from .parameters import LocalParameters
 from .types import ScalingType
@@ -51,12 +52,14 @@ class MxuLocalExecution(ExecutionBase):
         A = offt.compact_x_extent(ux.size, p.dim_x_freq)
         self.num_x_active = A
 
-        pair = lambda w: self.put_pair(w)
+        # Each stage's DFT matrix, prepared once for K1 (on a float32 CUDA
+        # plan: split into TF32 parts and laid out in the kernel's tiles).
+        const = lambda w: Constant(*self.put_pair(w))
         wz_b, wy_b, wy_f, wz_f = offt.zy_stage_matrices(Z, p.dim_y, p.total_size, rt)
-        self._wz_b, self._wy_b, self._wy_f = pair(wz_b), pair(wy_b), pair(wy_f)
-        self._wz_f = {s: pair(w) for s, w in wz_f.items()}
+        self._wz_b, self._wy_b, self._wy_f = const(wz_b), const(wy_b), const(wy_f)
+        self._wz_f = {s: const(w) for s, w in wz_f.items()}
         wx_b, wx_f = offt.x_stage_matrices(p.dim_x, ux, A, self.is_r2c, rt)
-        self._wx_b, self._wx_f = pair(wx_b), pair(wx_f)
+        self._wx_b, self._wx_f = const(wx_b), const(wx_f)
 
         # The x == 0 plane's slot, where R2C plane symmetry acts.
         x0 = np.flatnonzero(ux == 0) if S else np.empty(0)
@@ -108,24 +111,29 @@ class MxuLocalExecution(ExecutionBase):
         sim = compression.decompress(values_im, self._vi, p.num_sticks, p.dim_z)
         if self.is_r2c and self._zero_stick_id is not None:
             self._stick_symmetry(sre, sim)
-        sre, sim = offt.complex_matmul(sre, sim, *self._wz_b, "sz,zk->sk")
+        w = self._wz_b
+        sre, sim = offt.complex_matmul(sre, sim, *w.pair, "sz,zk->sk", constant=w)
         gre, gim = self._expand(sre, sim)
         if self.is_r2c and self._x0_slot is not None:
             self._plane_symmetry(gre, gim)
-        gre, gim = offt.complex_matmul(gre, gim, *self._wy_b, "yxz,yk->kxz")
+        w = self._wy_b
+        gre, gim = offt.complex_matmul(gre, gim, *w.pair, "yxz,yk->kxz", constant=w)
+        w = self._wx_b
         if self.is_r2c:
-            return offt.real_out_matmul(gre, gim, *self._wx_b, "kxz,xl->klz")
-        return offt.complex_matmul(gre, gim, *self._wx_b, "kxz,xl->klz")
+            return offt.real_out_matmul(gre, gim, *w.pair, "kxz,xl->klz", constant=w)
+        return offt.complex_matmul(gre, gim, *w.pair, "kxz,xl->klz", constant=w)
 
     def forward_pair(self, space_re, space_im, scaling=ScalingType.NONE):
         """``(Y, X, Z)`` space (``space_im`` None for R2C) -> (re, im) packed values."""
+        w = self._wx_f
         if self.is_r2c:
-            gre, gim = offt.real_in_matmul(space_re, *self._wx_f, "yxz,xk->ykz")
+            gre, gim = offt.real_in_matmul(space_re, *w.pair, "yxz,xk->ykz", constant=w)
         else:
-            gre, gim = offt.complex_matmul(space_re, space_im, *self._wx_f, "yxz,xk->ykz")
-        gre, gim = offt.complex_matmul(gre, gim, *self._wy_f, "ykz,yl->lkz")
+            gre, gim = offt.complex_matmul(space_re, space_im, *w.pair, "yxz,xk->ykz",
+                                           constant=w)
+        w = self._wy_f
+        gre, gim = offt.complex_matmul(gre, gim, *w.pair, "ykz,yl->lkz", constant=w)
         sre, sim = self._pack(gre, gim)
-        sre, sim = offt.complex_matmul(
-            sre, sim, *self._wz_f[ScalingType(scaling)], "sz,zk->sk"
-        )
+        w = self._wz_f[ScalingType(scaling)]
+        sre, sim = offt.complex_matmul(sre, sim, *w.pair, "sz,zk->sk", constant=w)
         return compression.compress(sre, self._vi), compression.compress(sim, self._vi)

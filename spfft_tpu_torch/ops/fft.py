@@ -161,25 +161,26 @@ def operands(spec: str, xr, xi, wr, wi):
     raise InvalidParameterError(f"no stage contraction for spec {spec!r}")
 
 
-def contract(spec: str, xr, xi, wr, wi, want_imag: bool = True):
+def contract(spec: str, xr, xi, wr, wi, want_imag: bool = True, constant=None):
     """``(xr + i xi)`` contracted with ``(wr + i wi)`` by ``spec``, as one K1
     launch on strided views. ``xi``/``wi`` of None are real parts; returns
-    ``(yr, yi)`` with ``yi`` None when ``want_imag`` is False."""
+    ``(yr, yi)`` with ``yi`` None when ``want_imag`` is False. ``constant`` is
+    the plan's :class:`~.complex_matmul.Constant` of ``(wr, wi)``, if it has one."""
     ops, shape = operands(spec, xr, xi, wr, wi)
-    cr, ci = _k1(*ops, want_imag)
+    cr, ci = _k1(*ops, want_imag, constant=constant)
     return cr.reshape(shape), (None if ci is None else ci.reshape(shape))
 
 
-def complex_matmul(xr, xi, wr, wi, spec: str):
+def complex_matmul(xr, xi, wr, wi, spec: str, constant=None):
     """Complex data with a complex matrix: the four-product form, one launch."""
-    return contract(spec, xr, xi, wr, wi)
+    return contract(spec, xr, xi, wr, wi, constant=constant)
 
 
-def real_in_matmul(x, wr, wi, spec: str):
+def real_in_matmul(x, wr, wi, spec: str, constant=None):
     """Real data with a complex matrix (R2C forward x-stage)."""
-    return contract(spec, x, None, wr, wi)
+    return contract(spec, x, None, wr, wi, constant=constant)
 
 
-def real_out_matmul(xr, xi, a, b, spec: str):
+def real_out_matmul(xr, xi, a, b, spec: str, constant=None):
     """Real part ``xr@A - xi@B`` only (C2R backward x-stage)."""
-    return contract(spec, xr, xi, a, b, want_imag=False)[0]
+    return contract(spec, xr, xi, a, b, want_imag=False, constant=constant)[0]
