@@ -7,31 +7,46 @@ Run from the root of a checkout, on a machine with an H100 and the CUDA toolkit:
 
 Phases, one JSON line each:
 
-1. the card (``nvidia-smi`` name and power limit), the kernel build, and
-   what ptxas reports for each kernel (registers, spills) and how many
+1. the card (``nvidia-smi`` name and power limit), the kernel build (K1 at
+   its three precisions and K2, one ``nvcc`` each, in parallel), and what
+   ptxas reports for each kernel (registers, spills) and how many
    tensor-core instructions (``HGMMA``, ``HMMA``) ``cuobjdump -sass`` finds;
-2. each kernel (K1 ``complex_matmul``, K2 ``row_gather``) at the shapes the
-   main path gives it, against its plain PyTorch version on the same inputs,
-   with its device time (``ms``: one call captured in a CUDA graph, replayed
-   ``REPLAYS`` times between two events), the plain version's and one
-   PyTorch library call's device time, the single-call time with the host's
-   share in it (``call_ms``), and the least time the card could take
-   (``bound_ms``; K1's on the TF32 tensor cores, ``fp32_bound_ms`` without
-   them); K1 at odd shapes and strides in f32, and once more in f64;
-3. the main path at full width: ``Transform(ProcessingUnit.GPU, ...)`` at
-   256^3 with the spherical cutoff 0.659, C2C and R2C in float32, backward then
-   forward(FULL), against a complex128 dense oracle on the host, with the
-   kernels' launch counts from that run and the median ms per pair;
-4. one pair of each kind under ``torch.profiler``: the device's busy share
-   and the kernels that take its time;
-5. the ``kernels`` line; last, the ``{"ok": true, "device": ...}`` line.
+2. the plans, all at 256^3 in float32 (``PLANS``): C2C and R2C at the
+   spherical cutoff 0.659 with the dense y stage (``SPFFT_TPU_SPARSE_Y_BLOCKS=0``)
+   and with the JAX package's choice (blocked sparse-y) at ``precision``
+   "highest", "high" and "default", and C2C at 0.5 (per-slot sparse-y, and
+   dense beside it); each plan's y variant, bucket shapes and Sy are
+   asserted (``EXPECT``);
+3. each kernel (K1 ``complex_matmul``, K2 ``row_gather``) at the shapes the
+   main path gives it, against its plain PyTorch version on the same inputs
+   (K1 "highest": the exact float32 products; "high"/"default": the bf16x3 /
+   bf16x1 arithmetic), with its device time (``ms``: one call captured in a
+   CUDA graph, replayed ``REPLAYS`` times between two events), the plain
+   version's and one PyTorch library call's device time (K1: cuBLAS
+   complex64 in FP32; for the bf16 rows also with TF32 allowed), for K1
+   "highest"/"high" how far the other precision's arithmetic lies from the
+   plain version (it must fail the bar that the kernel passes), the
+   single-call time with the host's share in it (``call_ms``), and the least
+   time the card could take (``bound_ms``: K1's on the TF32 tensor cores, or
+   the BF16 ones for "high"/"default"; ``fp32_bound_ms`` without them); K1 at
+   odd shapes and strides at each float32 precision, and once more in f64;
+4. the main path at full width: ``Transform(ProcessingUnit.GPU, ...)`` for
+   every plan, backward then forward(FULL), against a complex128 dense oracle
+   on the host (one per transform and radius), with the kernels' launch
+   counts from that run;
+5. one pair of every plan under ``torch.profiler``: the device's busy share
+   and the kernels that take its time; then the plans' pair times, the plans
+   taking turns, for comparisons within the run;
+6. the ``kernels`` line; last, the ``{"ok": true, "device": ...}`` line.
 
 Exits non-zero, with no result line, when there is no CUDA device or any
 check fails.
 """
 from __future__ import annotations
 
+import contextlib
 import json
+import os
 import re
 import shutil
 import statistics
@@ -42,18 +57,45 @@ import time
 import numpy as np
 
 DIMS = (256, 256, 256)
-RADIUS = 0.659
 SEED = 1234
-K1_RTOL = 1e-5  # kernel vs plain, max abs diff over max |plain|, float32
+# kernel vs its plain version, max abs diff over max |plain|, float32: below
+# the gap between the "highest" and "high" arithmetics (2.2e-6 to 4.7e-6 at
+# the main path's forms on an H100), so that a body of the wrong precision
+# fails it; the kernels' own differences reach about 1e-6
+K1_RTOL = 1.5e-6
 K1_F64_RTOL = 1e-12
-ORACLE_RTOL = 1e-5
+# backward against the dense oracle, and the round trip, per precision
+ORACLE_RTOL = {"highest": 1e-5, "high": 1e-4, "default": 2e-2}
 REPLAYS = 20
 # H100 SXM published peaks (NVIDIA data sheet, 700 W): FP32 and FP64 outside
-# the tensor cores, dense TF32 on them, and HBM3 bandwidth.
+# the tensor cores, dense TF32 and BF16 on them, and HBM3 bandwidth.
 PEAK_FLOPS = {"float32": 67e12, "float64": 34e12}
-PEAK_TF32 = 495e12
-TF32_PASSES = 3  # 3xTF32: three tensor-core products per real product
+PEAK_TC = {"highest": 495e12, "high": 989e12, "default": 989e12}  # TF32, BF16, BF16
+TC_PASSES = {"highest": 3, "high": 3, "default": 1}  # tensor-core products per real product
+OTHER = {"highest": "high", "high": "highest"}  # the precision a K1 row must not pass as
 PEAK_BYTES = 3.35e12
+LIBRARIES = ["complex_matmul", "complex_matmul_bf16x3", "complex_matmul_bf16x1", "row_gather"]
+BLOCKS_OFF = {"SPFFT_TPU_SPARSE_Y_BLOCKS": "0"}
+# (name, transform, radius, precision, knobs while the plan is made, y plan)
+PLANS = [
+    ("c2c", "c2c", 0.659, "highest", BLOCKS_OFF, "dense"),
+    ("r2c", "r2c", 0.659, "highest", BLOCKS_OFF, "dense"),
+    ("c2c-blocked", "c2c", 0.659, "highest", {}, "blocked"),
+    ("r2c-blocked", "r2c", 0.659, "highest", {}, "blocked"),
+    ("c2c-r0.5", "c2c", 0.5, "highest", {}, "per-slot"),
+    ("c2c-r0.5-dense", "c2c", 0.5, "highest", {"SPFFT_TPU_SPARSE_Y": "0", **BLOCKS_OFF}, "dense"),
+    ("c2c-blocked-high", "c2c", 0.659, "high", {}, "blocked"),
+    ("r2c-blocked-high", "r2c", 0.659, "high", {}, "blocked"),
+    ("c2c-blocked-default", "c2c", 0.659, "default", {}, "blocked"),
+    ("r2c-blocked-default", "r2c", 0.659, "default", {}, "blocked"),
+]
+# What the JAX package's planner chooses at 256^3 (its buckets (Ag, Syg), or Sy)
+EXPECT = {
+    ("c2c", 0.659): [(42, 176), (42, 168), (42, 152), (43, 120)],
+    ("r2c", 0.659): [(21, 176), (21, 168), (21, 152), (21, 112), (1, 256)],
+    ("c2c", 0.5): 136,
+}
+SLOTS_OUT, SLOTS_IN = "ajz,ajk->kaz", "yaz,ajy->ajz"
 
 
 def emit(obj) -> None:
@@ -108,6 +150,21 @@ def check(ok: bool, what: str) -> None:
         raise SystemExit(f"chip_smoke: FAILED: {what}")
 
 
+@contextlib.contextmanager
+def knobs(env):
+    """The process environment with ``env`` set, restored afterwards."""
+    saved = {k: os.environ.get(k) for k in env}
+    os.environ.update(env)
+    try:
+        yield
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
 def build_report(names) -> dict:
     """ptxas's registers and spills per kernel, from the build logs, and the
     tensor-core instructions in each library's SASS."""
@@ -138,74 +195,113 @@ def build_report(names) -> dict:
             "warnings": [ln.strip() for ln in log.splitlines()
                          if "warning" in ln.lower() or "Performance Loss" in ln],
             "sass_hgmma": len(re.findall(r"\bHGMMA\b", sass)),
+            "sass_hgmma_bf16": len(re.findall(r"\bHGMMA\.\S*BF16", sass)),
+            "sass_hgmma_first": next((ln.strip() for ln in sass.splitlines() if "HGMMA" in ln), None),
             "sass_hmma": len(re.findall(r"\bHMMA\b", sass)),
         }
     return report
 
 
-def k1_forms(plans):
-    """Every K1 form the main path launches: (name, plan kind, spec, x, constant, want_imag)."""
+def k1_forms(name, t):
+    """Every K1 form plan ``name`` launches that gets a row: (row name, spec,
+    data pair, constant, want_imag, out pair or None). Dense plans: all four
+    of their forms; the blocked and per-slot plans at "highest": their y
+    forms; at "high"/"default": all (the non-y three and the y forms)."""
     import torch
 
     gen = torch.Generator(device="cuda").manual_seed(SEED)
+    ex, p = t._exec, t.params
+    S, A, Y, X, Z = p.num_sticks, ex.num_x_active, p.dim_y, p.dim_x, p.dim_z
+    rnd = lambda *shape: torch.randn(shape, generator=gen, device="cuda")
+    pair = lambda *shape: (rnd(*shape), rnd(*shape))
+    r2c = ex.is_r2c
     forms = []
-    for kind, t in plans.items():
-        ex = t._exec
-        p = t.params
-        S, A, Y, X, Z = p.num_sticks, ex.num_x_active, p.dim_y, p.dim_x, p.dim_z
-        rnd = lambda *shape: torch.randn(shape, generator=gen, device="cuda")
-        pair = lambda *shape: (rnd(*shape), rnd(*shape))
-        forms.append((f"{kind}/z", kind, "sz,zk->sk", pair(S, Z), ex._wz_b, True))
-        forms.append((f"{kind}/y", kind, "yxz,yk->kxz", pair(Y, A, Z), ex._wy_b, True))
-        if kind == "c2c":
-            forms.append((f"{kind}/x_backward", kind, "kxz,xl->klz", pair(Y, A, Z), ex._wx_b, True))
-            forms.append((f"{kind}/x_forward", kind, "yxz,xk->ykz", pair(Y, X, Z), ex._wx_f, True))
+    if ex.y_plan == "dense" or ex.precision != "highest":
+        forms.append((f"{name}/z", "sz,zk->sk", pair(S, Z), ex._wz_b, True, None))
+        if ex.y_plan == "dense":
+            forms.append((f"{name}/y", "yxz,yk->kxz", pair(Y, A, Z), ex._wy_b, True, None))
+        if r2c:
+            forms.append((f"{name}/x_backward_real_out", "kxz,xl->klz", pair(Y, A, Z), ex._wx_b,
+                          False, None))
+            forms.append((f"{name}/x_forward_real_in", "yxz,xk->ykz", (rnd(Y, X, Z), None),
+                          ex._wx_f, True, None))
         else:
-            forms.append((f"{kind}/x_backward_real_out", kind, "kxz,xl->klz", pair(Y, A, Z),
-                          ex._wx_b, False))
-            forms.append((f"{kind}/x_forward_real_in", kind, "yxz,xk->ykz", (rnd(Y, X, Z), None),
-                          ex._wx_f, True))
+            forms.append((f"{name}/x_backward", "kxz,xl->klz", pair(Y, A, Z), ex._wx_b, True, None))
+            forms.append((f"{name}/x_forward", "yxz,xk->ykz", pair(Y, X, Z), ex._wx_f, True, None))
+    if ex.y_plan == "per-slot":
+        forms.append((f"{name}/slot_backward", SLOTS_OUT, pair(A, ex.sy, Z), ex._wy_b, True, None))
+        forms.append((f"{name}/slot_forward", SLOTS_IN, pair(Y, A, Z), ex._wy_f, True, None))
+    elif ex.y_plan == "blocked":
+        grid, col = pair(Y, A, Z), 0
+        for b, (ag, syg, wb, wf) in enumerate(ex.buckets):
+            cols = tuple(g[:, col:col + ag] for g in grid)  # the grid columns it writes or reads
+            forms.append((f"{name}/bucket{b}_backward", SLOTS_OUT, pair(ag, syg, Z), wb, True, cols))
+            forms.append((f"{name}/bucket{b}_forward", SLOTS_IN, cols, wf, True, None))
+            col += ag
     return forms
 
 
-def k1_key(ops, want_imag):
+def k1_operands(spec, x, w):
+    """K1's operands of stage ``spec`` on data ``x`` with plan constant ``w``."""
+    from spfft_tpu_torch.ops import fft as offt
+
+    return offt.operands(spec, x[0], x[1], *offt.constant_operands(spec, w))[0]
+
+
+def k1_key(ops, want_imag, precision):
     ar, ai, br, bi = ops
     return (ar.shape[0], ar.shape[1], ar.shape[2], br.shape[2], ai is not None,
-            bi is not None, want_imag)
+            bi is not None, want_imag, precision)
 
 
-def k1_bounds_ms(ops, want_imag) -> tuple[float, str, float]:
-    """(TF32 bound, what bounds it, FP32 bound): max(operations over the peak,
-    bytes over the memory rate), the operations 3xTF32's three tensor-core
-    products per real product on the TF32 peak, or one on the FP32 peak."""
+def k1_bounds_ms(ops, want_imag, precision, w) -> tuple[float, str, float]:
+    """(tensor-core bound, what bounds it, FP32 bound): max(operations over
+    the peak, bytes over the memory rate); the operations are the precision's
+    tensor-core products per real product on the TF32 ("highest") or BF16
+    peak, or one product per real product on the FP32 peak. The bytes count
+    the data and the result in float32 and the plan constant ``w`` as the
+    precision needs it: one bf16 plane per part at "default" (its tiles are
+    made once per plan), 4 bytes per element else."""
+    from spfft_tpu_torch.ops import complex_matmul as k1
+
     ar, ai, br, bi = ops
     batch, m, k = ar.shape
     n = br.shape[2]
     products = 4 if (ai is not None and bi is not None and want_imag) else 2
     flops = 2 * products * batch * m * n * k
     item = ar.element_size()
+    v_item = 2 if precision == "default" else item
+    a_item, b_item = (item, v_item) if k1._views(br, w.re) else (v_item, item)
     a_mats = batch if ar.stride(0) else 1
     b_mats = batch if br.stride(0) else 1
-    nbytes = item * (
-        (1 + (ai is not None)) * a_mats * m * k
-        + (1 + (bi is not None)) * b_mats * k * n
-        + (1 + want_imag) * batch * m * n
+    nbytes = (
+        a_item * (1 + (ai is not None)) * a_mats * m * k
+        + b_item * (1 + (bi is not None)) * b_mats * k * n
+        + item * (1 + want_imag) * batch * m * n
     )
     t_bytes = nbytes / PEAK_BYTES
-    t_tf32 = TF32_PASSES * flops / PEAK_TF32
+    t_tc = TC_PASSES[precision] * flops / PEAK_TC[precision]
     t_fp32 = flops / PEAK_FLOPS[str(ar.dtype).split(".")[1]]
-    bound_by = "operations" if t_tf32 >= t_bytes else "bytes"
-    return 1e3 * max(t_tf32, t_bytes), bound_by, 1e3 * max(t_fp32, t_bytes)
+    bound_by = "operations" if t_tc >= t_bytes else "bytes"
+    return 1e3 * max(t_tc, t_bytes), bound_by, 1e3 * max(t_fp32, t_bytes)
 
 
-def k1_err(ops, want_imag, constant=None):
+def k1_plain(precision):
+    """K1's plain version at ``precision``: the exact float32 products for
+    "highest" (FP32 accuracy is its contract), the bf16 arithmetic else."""
+    from spfft_tpu_torch.ops import complex_matmul as k1
+
+    return k1.complex_matmul_plain if precision == "highest" else k1.ARITHMETIC[precision]
+
+
+def k1_err(ops, want_imag, constant=None, precision="highest", out=None):
     """K1 against its plain version: (max abs diff, max |plain|), each per
     part of the result (real, then imaginary when it is kept)."""
     import torch
     from spfft_tpu_torch.ops import complex_matmul as k1
 
-    got = k1.complex_matmul(*ops, want_imag, constant=constant)
-    want = k1.complex_matmul_plain(*ops, want_imag)
+    got = k1.complex_matmul(*ops, want_imag, constant=constant, precision=precision, out=out)
+    want = k1_plain(precision)(*ops, want_imag)
     torch.cuda.synchronize()
     parts = [(g, w) for g, w in zip(got, want) if w is not None]
     return ([(g - w).abs().max().item() for g, w in parts],
@@ -213,9 +309,9 @@ def k1_err(ops, want_imag, constant=None):
 
 
 def k1_feed_bytes(ops, w) -> int:
-    """Bytes the float32 kernel copies into shared memory for this call: per
-    output tile (128 rows of D by a Q tile of V) and K tile of 32, the D
-    tile's parts and the V tile's TF32 planes (csrc/complex_matmul.cu, tc::)."""
+    """Bytes the tensor-core kernel copies into shared memory for this call:
+    per output tile (128 rows of D by a Q tile of V) and K tile, the D tile's
+    float32 parts and the V tile's planes (csrc/k1_tc.cuh)."""
     from spfft_tpu_torch.ops import complex_matmul as k1
 
     ar, ai, br, bi = ops
@@ -224,51 +320,73 @@ def k1_feed_bytes(ops, w) -> int:
     transposed = not k1._views(br, w.re)
     p, q = (n, m) if transposed else (m, n)
     d_parts = 1 + ((bi if transposed else ai) is not None)
-    planes = 2 * (1 + (w.im is not None))
+    tk = w.tiles.shape[-1]
+    v_row = tk * w.tiles.element_size()  # bytes of one V tile row: 128
+    v_rows = w.tiles.shape[3]  # planes
     bn, ceil = k1.tile_q(q), lambda a, b: -(-a // b)
     tiles = batch * ceil(p, 128) * ceil(q, bn)
-    return 4 * tiles * ceil(k, k1.TILE_K) * k1.TILE_K * (128 * d_parts + bn * planes)
+    return tiles * ceil(k, tk) * (128 * tk * 4 * d_parts + bn * v_rows * v_row)
 
 
-def run_k1(name, spec, x, w, want_imag):
+def run_k1(name, spec, x, w, want_imag, precision, out=None):
     import torch
     from spfft_tpu_torch.ops import complex_matmul as k1
     from spfft_tpu_torch.ops import fft as offt
 
-    ops, _ = offt.operands(spec, x[0], x[1], w.re, w.im)
-    errs, scales = k1_err(ops, want_imag, w)
+    ops = k1_operands(spec, x, w)
+    outv = None if out is None else tuple(offt.result_view(spec, o) for o in out)
+    errs, scales = k1_err(ops, want_imag, w, precision, outv)
     err, scale = max(errs), max(scales)
     ar, ai, br, bi = ops
-    a_c = torch.complex(ar[:1] if ar.stride(0) == 0 else ar, ai[:1] if ai.stride(0) == 0 else ai)
+    whole = lambda t: t[:1] if t.stride(0) == 0 else t
+    a_c = torch.complex(whole(ar), whole(ai) if ai is not None else torch.zeros_like(whole(ar)))
     b_c = torch.complex(br, bi if bi is not None else torch.zeros_like(br))
     lib = (lambda: torch.matmul(a_c, b_c)) if want_imag else (lambda: torch.matmul(a_c, b_c).real)
-    kernel = lambda: k1.complex_matmul(*ops, want_imag, constant=w)
-    bound, bound_by, fp32_bound = k1_bounds_ms(ops, want_imag)
+    kernel = lambda: k1.complex_matmul(*ops, want_imag, constant=w, precision=precision, out=outv)
+    plain = k1_plain(precision)
+    bound, bound_by, fp32_bound = k1_bounds_ms(ops, want_imag, precision, w)
     row = {
         "name": f"complex_matmul:{name}", "route": "cuda",
-        "source": "spfft_tpu_torch/csrc/complex_matmul.cu",
-        "replaces": "spfft_tpu/ops/pallas_fft.py:95",
+        "source": "spfft_tpu_torch/csrc/" + k1.LIBRARIES[precision][0] + ".cu",
+        "replaces": "spfft_tpu/ops/pallas_fft.py:95", "precision": precision,
         "shape": {"batch": ar.shape[0], "M": ar.shape[1], "K": ar.shape[2], "N": br.shape[2]},
         "max_abs_err": err, "rel_err": err / scale,
         "ms": device_ms(kernel),
-        "plain_ms": device_ms(lambda: k1.complex_matmul_plain(*ops, want_imag)),
-        "library_ms": device_ms(lib),
+        "plain_ms": device_ms(lambda: plain(*ops, want_imag)),
+        "library_ms": device_ms(lib), "library_math": "cuBLAS complex64, allow_tf32=False",
         "call_ms": call_ms(kernel),
         "bound_ms": bound, "bound_by": bound_by, "fp32_bound_ms": fp32_bound,
     }
+    if precision != "highest":
+        torch.backends.cuda.matmul.allow_tf32 = True
+        try:
+            row["library_tf32_ms"] = device_ms(lib)
+        finally:
+            torch.backends.cuda.matmul.allow_tf32 = False
     row["bound_share"] = row["bound_ms"] / row["ms"]
     # what the tiles draw from L2 into shared memory, and at what rate
     row["feed_bytes"] = k1_feed_bytes(ops, w)
     row["feed_tb_s"] = row["feed_bytes"] / row["ms"] / 1e9
+    if precision in OTHER:
+        # the other float32-accurate arithmetic on the same inputs: the bar
+        # must tell it from this precision's
+        want, alt = plain(*ops, want_imag), k1_plain(OTHER[precision])(*ops, want_imag)
+        row["other_arithmetic_rel_err"] = max(
+            (a - b).abs().max().item() for a, b in zip(alt, want) if b is not None) / scale
     emit({"phase": "kernel", **row})
     check(err <= K1_RTOL * scale, f"{row['name']} differs from its plain version: {err} vs {scale}")
-    return row, k1_key(ops, want_imag)
+    if precision in OTHER:
+        check(row["other_arithmetic_rel_err"] > K1_RTOL,
+              f"{row['name']}: the {OTHER[precision]} arithmetic passes the {precision} bar")
+    return row, k1_key(ops, want_imag, precision)
 
 
-def run_k1_odd(phase, dtype, rtol):
+def run_k1_odd(phase, dtype, rtol, precision="highest"):
     """K1 at shapes that are not multiples of its tiles, with strides and
-    pointers that are not 16-byte aligned, against its plain version."""
+    pointers that are not 16-byte aligned, with a constant per batch entry and
+    with strided outputs, against its plain version."""
     import torch
+    from spfft_tpu_torch.ops import complex_matmul as k1
 
     g = torch.Generator(device="cuda").manual_seed(SEED + 2)
     r = lambda *s: torch.randn(s, generator=g, device="cuda", dtype=dtype)
@@ -286,14 +404,26 @@ def run_k1_odd(phase, dtype, rtol):
                                         True),
         "batched 3x30x9 @ 3x9x50": ((r(3, 30, 9), r(3, 30, 9), r(3, 9, 50), r(3, 9, 50)), True),
         "real @ transposed": ((r(2, 33, 45), None, r(2, 120, 45).mT, r(2, 120, 45).mT), True),
+        "per-batch 5x(130,70)^T @ 5x130x90": ((r(5, 130, 70).mT, r(5, 130, 70).mT, r(5, 130, 90),
+                                              r(5, 130, 90)), True),
     }
     errs = {}
     for name, (ops, want) in cases.items():
-        err, scale = k1_err(ops, want)
+        err, scale = k1_err(ops, want, precision=precision)
         errs[name] = max(e / s for e, s in zip(err, scale))
+    # a strided output: columns of a wider grid, as the sparse-y stages write
+    ops = (r(4, 60, 36).mT, r(4, 60, 36).mT, r(4, 60, 50), r(4, 60, 50))
+    grid = [r(36, 7, 50) for _ in range(2)]
+    before = [gr.clone() for gr in grid]
+    out = tuple(gr[:, 2:6].permute(1, 0, 2) for gr in grid)
+    err, scale = k1_err(ops, True, precision=precision, out=out)
+    errs["strided out 4x36x50 in a 36x7x50 grid"] = max(e / s for e, s in zip(err, scale))
+    untouched = all(torch.equal(gr[:, c], b[:, c]) for gr, b in zip(grid, before) for c in (0, 1, 6))
     worst = max(errs.values())
-    emit({"phase": phase, "name": "complex_matmul", "rel_err": errs})
-    check(worst <= rtol, f"complex_matmul {dtype} at odd shapes: rel err {worst}")
+    emit({"phase": phase, "name": "complex_matmul", "precision": precision, "rel_err": errs,
+          "strided_out_left_other_columns": untouched})
+    check(worst <= rtol, f"complex_matmul {dtype} {precision} at odd shapes: rel err {worst}")
+    check(untouched, f"complex_matmul {dtype} {precision} wrote outside its strided output")
 
 
 def run_k2(name, src, idx):
@@ -333,42 +463,76 @@ def run_k2(name, src, idx):
     return row, (idx.numel(), n_src, width, 2)
 
 
+def k2_forms(name, t, gen):
+    """Every K2 form plan ``name`` launches: (row name, source pair, index)."""
+    import torch
+
+    ex, p = t._exec, t.params
+    S, A, Y, Z = p.num_sticks, ex.num_x_active, p.dim_y, p.dim_z
+    rnd = lambda rows: [torch.randn((rows, Z), generator=gen, device="cuda") for _ in range(2)]
+    if ex.y_plan == "dense":
+        return [(f"{name}/expand", rnd(S), ex._yx_map), (f"{name}/pack", rnd(Y * A), ex._stick_keys)]
+    if ex.y_plan == "blocked":
+        rows = ex._bucket_rows.numel()
+        return [(f"{name}/bucket_gather", rnd(S), ex._bucket_rows),
+                (f"{name}/regather", rnd(rows), ex._row_of_stick)]
+    return []
+
+
 def storage(idx, dim):
     return np.where(idx < 0, idx + dim, idx)
 
 
-def main_path(sp, kind, t, triplets, full_triplets):
-    """One backward + forward(FULL) through the entry points, checked against a
-    dense complex128 oracle; returns the launch counts of that run and the
-    device values it ran on."""
-    import torch
-    from spfft_tpu_torch.ops import complex_matmul as k1
-    from spfft_tpu_torch.ops import row_gather as k2
+def oracle(kind, radius):
+    """Triplets, values and the complex128 dense oracle of the backward
+    transform of one (transform, radius)."""
+    import spfft_tpu_torch as sp
 
     Z, Y, X = DIMS[2], DIMS[1], DIMS[0]
     N = X * Y * Z
     rng = np.random.default_rng(SEED)
+    triplets = sp.create_spherical_cutoff_triplets(*DIMS, radius, hermitian_symmetry=kind == "r2c")
     if kind == "c2c":
         values = rng.standard_normal(len(triplets)) + 1j * rng.standard_normal(len(triplets))
         dense = np.zeros((Z, Y, X), np.complex128)
         t3 = np.asarray(triplets)
         dense[storage(t3[:, 2], Z), storage(t3[:, 1], Y), storage(t3[:, 0], X)] = values
-        oracle = np.fft.ifftn(dense) * N
+        want = np.fft.ifftn(dense) * N
     else:
         # hermitian-consistent values: the spectrum of a real field, cut to the
         # sphere (symmetric under k -> -k, no Nyquist plane at this radius)
         spectrum = np.fft.fftn(rng.standard_normal((Z, Y, X)))
-        tf = np.asarray(full_triplets)
+        tf = np.asarray(sp.create_spherical_cutoff_triplets(*DIMS, radius))
         zf, yf, xf = storage(tf[:, 2], Z), storage(tf[:, 1], Y), storage(tf[:, 0], X)
         dense = np.zeros((Z, Y, X), np.complex128)
         dense[zf, yf, xf] = spectrum[zf, yf, xf]
-        oracle = (np.fft.ifftn(dense) * N).real
+        want = (np.fft.ifftn(dense) * N).real
         th = np.asarray(triplets)
         values = spectrum[storage(th[:, 2], Z), storage(th[:, 1], Y), th[:, 0]]
         del spectrum
     del dense
-    values_dev = torch.as_tensor(values.astype(np.complex64), device="cuda")
+    return triplets, values, want
 
+
+def expected_launches(ex) -> tuple[int, int]:
+    """(K1, K2) launches of one backward+forward pair of the engine's y plan."""
+    if ex.y_plan == "dense":
+        return 6, 2
+    if ex.y_plan == "per-slot":
+        return 6, 0
+    return 2 * len(ex.buckets) + 4, 2
+
+
+def main_path(sp, name, t, precision, values, want):
+    """One backward + forward(FULL) through the entry points, checked against
+    the dense oracle; returns the launch counts of that run and the device
+    values it ran on."""
+    import torch
+    from spfft_tpu_torch.ops import complex_matmul as k1
+    from spfft_tpu_torch.ops import row_gather as k2
+
+    values_dev = torch.as_tensor(values.astype(np.complex64), device="cuda")
+    torch.cuda.synchronize()
     k1.launches.clear()
     k2.launches.clear()
     space = t.backward(values_dev)
@@ -376,38 +540,58 @@ def main_path(sp, kind, t, triplets, full_triplets):
     torch.cuda.synchronize()
     counts = {"complex_matmul": dict(k1.launches), "row_gather": dict(k2.launches)}
 
+    Z, Y, X = DIMS[2], DIMS[1], DIMS[0]
     space_h = space.cpu().numpy()
-    check(space_h.shape == (Z, Y, X) and np.isfinite(space_h).all(), f"{kind} space shape/finite")
+    check(space_h.shape == (Z, Y, X) and np.isfinite(space_h).all(), f"{name} space shape/finite")
     back_h = back.cpu().numpy()
-    check(back_h.shape == (len(triplets),) and np.isfinite(back_h).all(), f"{kind} values shape/finite")
-    oracle_err = float(np.abs(space_h - oracle).max() / np.abs(oracle).max())
+    check(back_h.shape == (len(values),) and np.isfinite(back_h).all(), f"{name} values shape/finite")
+    oracle_err = float(np.abs(space_h - want).max() / np.abs(want).max())
     rt_err = float(np.abs(back_h - values).max() / np.abs(values).max())
     n_k1 = sum(counts["complex_matmul"].values())
     n_k2 = sum(counts["row_gather"].values())
-
-    pair_ms = []
-    for i in range(12):
-        t0 = time.perf_counter()
-        t.backward(values_dev)
-        t.forward(scaling=sp.ScalingType.FULL)
-        torch.cuda.synchronize()
-        if i >= 2:
-            pair_ms.append(1e3 * (time.perf_counter() - t0))
+    precisions = sorted({key[-1] for key in counts["complex_matmul"]})
+    ex = t._exec
     emit({
-        "phase": "main_path", "transform": kind, "dims": list(DIMS), "radius": RADIUS,
-        "dtype": "float32", "num_values": len(triplets), "num_sticks": t.params.num_sticks,
+        "phase": "main_path", "plan": name, "transform": t.transform_type.name.lower(),
+        "dims": list(DIMS), "dtype": "float32", "precision": precision, "y_plan": ex.y_plan,
+        "describe": t.describe(), "num_values": len(values), "num_sticks": t.params.num_sticks,
         "num_x_active": t.num_x_active, "oracle_rel_err": oracle_err, "roundtrip_rel_err": rt_err,
-        "launches": {"complex_matmul": n_k1, "row_gather": n_k2},
-        "pair_ms_median": statistics.median(pair_ms), "pair_ms": pair_ms,
+        "bar": ORACLE_RTOL[precision], "launches": {"complex_matmul": n_k1, "row_gather": n_k2},
+        "k1_precisions": precisions,
         "peak_mem_bytes": torch.cuda.max_memory_allocated(),
     })
-    check(oracle_err <= ORACLE_RTOL, f"{kind} backward vs dense oracle: {oracle_err}")
-    check(rt_err <= ORACLE_RTOL, f"{kind} round trip: {rt_err}")
-    check(n_k1 == 6 and n_k2 == 2, f"{kind} launches: {n_k1} K1, {n_k2} K2 (expected 6 and 2)")
+    bar = ORACLE_RTOL[precision]
+    check(oracle_err <= bar, f"{name} backward vs dense oracle: {oracle_err} (bar {bar})")
+    check(rt_err <= bar, f"{name} round trip: {rt_err} (bar {bar})")
+    want_k1, want_k2 = expected_launches(ex)
+    check(n_k1 == want_k1 and n_k2 == want_k2,
+          f"{name} launches: {n_k1} K1, {n_k2} K2 (expected {want_k1} and {want_k2})")
+    check(precisions == [precision], f"{name} ran K1 at {precisions}, not {precision}")
     return counts, values_dev
 
 
-def profile_pair(sp, kind, t, values_dev) -> None:
+def interleaved_pair_ms(sp, plans, values, rounds: int = 6, pairs: int = 4) -> dict:
+    """Median ms per backward+forward(FULL) pair of every plan, host clock,
+    the plans taking turns (forward order, then reversed, ``rounds`` times,
+    ``pairs`` timed pairs after one untimed pair at each turn), so that the
+    host's drift falls on all of them alike."""
+    import torch
+
+    times = {name: [] for name in plans}
+    for r in range(rounds):
+        for name in (list(plans) if r % 2 == 0 else list(reversed(plans))):
+            t = plans[name][0]
+            for i in range(pairs + 1):
+                t0 = time.perf_counter()
+                t.backward(values[name])
+                t.forward(scaling=sp.ScalingType.FULL)
+                torch.cuda.synchronize()
+                if i:
+                    times[name].append(1e3 * (time.perf_counter() - t0))
+    return {name: statistics.median(v) for name, v in times.items()}
+
+
+def profile_pair(sp, name, t, values_dev) -> dict:
     """One backward+forward(FULL) pair under torch.profiler: the share of the
     window the device is busy, and the kernels by device time."""
     import torch
@@ -433,17 +617,22 @@ def profile_pair(sp, kind, t, values_dev) -> None:
             reach = end
     by_name = {}
     for e in kernels:
-        name = e.name if len(e.name) <= 90 else e.name[:87] + "..."
-        ms, n = by_name.get(name, (0.0, 0))
-        by_name[name] = (ms + (e.time_range.end - e.time_range.start) / 1e3, n + 1)
+        short = e.name if len(e.name) <= 90 else e.name[:87] + "..."
+        ms, n = by_name.get(short, (0.0, 0))
+        by_name[short] = (ms + (e.time_range.end - e.time_range.start) / 1e3, n + 1)
     top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:12]
-    emit({
-        "phase": "profile", "transform": kind, "window_ms": window_ms,
+    of = lambda *keys: sum((e.time_range.end - e.time_range.start) / 1e3 for e in kernels
+                           if any(k in e.name for k in keys))
+    row = {
+        "phase": "profile", "plan": name, "window_ms": window_ms,
         "device_busy_ms": busy_us / 1e3 if spans else None,
         "device_busy_share": busy_us / 1e3 / window_ms if spans else None,
+        "k1_ms": of("tc_kernel", "complex_matmul_kernel"), "k2_ms": of("row_gather_kernel"),
         "kernels": len(kernels),
         "top": [{"name": k, "ms": ms, "count": n} for k, (ms, n) in top],
-    })
+    }
+    emit(row)
+    return row
 
 
 def main() -> int:
@@ -457,6 +646,7 @@ def main() -> int:
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    started = time.perf_counter()
 
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -465,59 +655,80 @@ def main() -> int:
     print(card, flush=True)
     emit({"phase": "card", "nvidia_smi": card, "torch": torch.__version__,
           "cuda": torch.version.cuda, "kind": torch.cuda.get_device_name(0)})
-    names = ["complex_matmul", "row_gather"]
     t0 = time.perf_counter()
-    _build.build_all(names)
-    emit({"phase": "build", "seconds": time.perf_counter() - t0, **build_report(names)})
+    _build.build_all(LIBRARIES)
+    report = build_report(LIBRARIES)
+    emit({"phase": "build", "seconds": time.perf_counter() - t0, **report})
+    for name in LIBRARIES[:3]:
+        check(report[name]["sass_hgmma"] > 0, f"{name} has no HGMMA instruction")
+    # each library runs its precision's arithmetic: TF32 for "highest", BF16 below
+    check(report["complex_matmul"]["sass_hgmma_bf16"] == 0, "complex_matmul has BF16 HGMMA")
+    for name in LIBRARIES[1:3]:
+        check(report[name]["sass_hgmma_bf16"] > 0, f"{name} has no BF16 HGMMA instruction")
 
+    # ---- the plans: each y variant as the JAX package's planner makes it ----
     t0 = time.perf_counter()
-    triplets = {
-        "c2c": sp.create_spherical_cutoff_triplets(*DIMS, RADIUS),
-        "r2c": sp.create_spherical_cutoff_triplets(*DIMS, RADIUS, hermitian_symmetry=True),
-    }
-    plans = {
-        kind: sp.Transform(sp.ProcessingUnit.GPU, getattr(sp.TransformType, kind.upper()),
-                           *DIMS, indices=trip, dtype=np.float32)
-        for kind, trip in triplets.items()
-    }
-    emit({"phase": "plan", "seconds": time.perf_counter() - t0,
-          **{f"{k}_sticks": t.params.num_sticks for k, t in plans.items()},
-          **{f"{k}_x_active": t.num_x_active for k, t in plans.items()}})
+    data, plans = {}, {}
+    for name, kind, radius, precision, env, y_plan in PLANS:
+        if (kind, radius) not in data:
+            data[kind, radius] = oracle(kind, radius)
+        with knobs(env):
+            t = sp.Transform(sp.ProcessingUnit.GPU, getattr(sp.TransformType, kind.upper()),
+                             *DIMS, indices=data[kind, radius][0], dtype=np.float32,
+                             precision=precision)
+        ex = t._exec
+        got = ex.sy if ex.y_plan == "per-slot" else (
+            [(ag, syg) for ag, syg, _, _ in ex.buckets] if ex.y_plan == "blocked" else None)
+        emit({"phase": "plan", "plan": name, "precision": precision, "y_plan": ex.y_plan,
+              "num_sticks": t.params.num_sticks, "num_x_active": t.num_x_active,
+              "buckets_or_sy": got, "describe": t.describe()})
+        check(ex.y_plan == y_plan, f"{name} engaged {ex.y_plan}, not {y_plan}")
+        if y_plan != "dense":
+            check(got == EXPECT[kind, radius], f"{name}: {got}, not {EXPECT[kind, radius]}")
+        plans[name] = (t, precision, (kind, radius))
+    emit({"phase": "plans", "seconds": time.perf_counter() - t0})
 
     # ---- kernels against their plain versions, at the main path's shapes ----
-    rows = []  # (row, kind, launch-count key)
-    for name, kind, spec, x, w, want_imag in k1_forms(plans):
-        row, key = run_k1(name, spec, x, w, want_imag)
-        rows.append((row, kind, "complex_matmul", key))
+    rows = []  # (row, plan, kernel, launch-count key)
+    for name, (t, precision, _) in plans.items():
+        for form, spec, x, w, want_imag, out in k1_forms(name, t):
+            row, key = run_k1(form, spec, x, w, want_imag, precision, out)
+            rows.append((row, name, "complex_matmul", key))
     gen = torch.Generator(device="cuda").manual_seed(SEED + 1)
-    for kind, t in plans.items():
-        ex, p = t._exec, t.params
-        S, A, Y, Z = p.num_sticks, ex.num_x_active, p.dim_y, p.dim_z
-        sticks = [torch.randn((S, Z), generator=gen, device="cuda") for _ in range(2)]
-        planes = [torch.randn((Y * A, Z), generator=gen, device="cuda") for _ in range(2)]
-        row, key = run_k2(f"{kind}/expand", sticks, ex._yx_map)
-        rows.append((row, kind, "row_gather", key))
-        row, key = run_k2(f"{kind}/pack", planes, ex._stick_keys)
-        rows.append((row, kind, "row_gather", key))
-    run_k1_odd("kernel_f32_odd", torch.float32, K1_RTOL)
+    for name in ("c2c", "r2c", "c2c-blocked", "r2c-blocked", "c2c-r0.5-dense"):
+        for form, src, idx in k2_forms(name, plans[name][0], gen):
+            row, key = run_k2(form, src, idx)
+            rows.append((row, name, "row_gather", key))
+    for precision in ("highest", "high", "default"):
+        run_k1_odd(f"kernel_f32_odd_{precision}", torch.float32, K1_RTOL, precision)
     run_k1_odd("kernel_f64", torch.float64, K1_F64_RTOL)
 
-    # ---- the main path, each transform type with the counts set to 0 before it ----
+    # ---- the main path, every plan with the counts set to 0 just before it ----
     counts, values = {}, {}
-    for kind, t in plans.items():
-        counts[kind], values[kind] = main_path(sp, kind, t, triplets[kind], triplets["c2c"])
-    for kind, t in plans.items():
-        profile_pair(sp, kind, t, values[kind])
+    for name, (t, precision, key) in plans.items():
+        _, vals, want = data[key]
+        counts[name], values[name] = main_path(sp, name, t, precision, vals, want)
+    del data
+    busy = {name: profile_pair(sp, name, t, values[name]) for name, (t, _, _) in plans.items()}
+    turns = interleaved_pair_ms(sp, plans, values)
+    emit({"phase": "compare", "what": "median ms per pair (host clock), the plans taking turns; "
+          "device busy ms and K1/K2 ms of one profiled pair; same run", **{
+              name: {"pair_ms_in_turns": turns[name],
+                     "device_busy_ms": busy[name]["device_busy_ms"],
+                     "k1_ms": busy[name]["k1_ms"], "k2_ms": busy[name]["k2_ms"]}
+              for name in plans}})
 
     kernels = []
-    for row, kind, kernel, key in rows:
-        launches = counts[kind][kernel].get(key, 0)
-        check(launches > 0, f"{row['name']} was not launched by the main path")
+    for row, name, kernel, key in rows:
+        launches = counts[name][kernel].get(key, 0)
+        check(launches > 0, f"{row['name']} was not launched by the main path of {name}")
         kernels.append({k: row[k] for k in (
             "name", "route", "source", "replaces", "max_abs_err", "ms", "plain_ms",
             "bound_ms", "bound_by", "library_ms", "call_ms", "bound_share")}
             | {"launches": launches}
-            | ({"fp32_bound_ms": row["fp32_bound_ms"]} if "fp32_bound_ms" in row else {}))
+            | {k: row[k] for k in ("precision", "fp32_bound_ms", "library_math", "library_tf32_ms")
+               if k in row})
+    emit({"phase": "done", "seconds": time.perf_counter() - started})
     emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

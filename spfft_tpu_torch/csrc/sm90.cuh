@@ -1,16 +1,18 @@
 // Hopper (sm_90a) building blocks for the port's kernels, in inline PTX:
 // cp.async, bulk and tensor-map (TMA) copies into shared memory, mbarriers, the TF32
-// rounding of the 3xTF32 split, the wgmma
+// and BF16 roundings of the split, the wgmma
 // shared-memory descriptor of a K-major 128-byte-swizzled tile, and wgmma
-// m64nNk8 TF32 with A from registers and B from shared memory.
+// m64nNk8 TF32 and m64nNk16 BF16 with A from registers and B from shared memory.
 //
 // Fragment layouts (one warpgroup = 4 warps; warp w of it, lane = 4 g + t):
-//   A (64 x 8, registers a[0..3]): a[0] = (16w + g, t), a[1] = (16w + g + 8, t),
+//   A, TF32 (64 x 8, registers a[0..3]): a[0] = (16w + g, t), a[1] = (16w + g + 8, t),
 //     a[2] = (16w + g, t + 4), a[3] = (16w + g + 8, t + 4).
+//   A, BF16 (64 x 16, registers a[0..3] of two values each, the lower k in
+//     the low half): a[j] = (16w + g + 8 (j % 2), 2t + 8 (j / 2) + {0, 1}).
 //   D (64 x N, registers d[0..N/2)): d[4j + 2h + c] = (16w + g + 8h, 8j + 2t + c).
-// B is N rows of 32 tf32 (128 bytes) each, K contiguous, rows at a 128-byte
-// pitch in 1024-byte-aligned groups of 8, with the 16-byte chunk c of row r
-// stored at chunk c ^ (r % 8) (the 128-byte swizzle).
+// B is N rows of 128 bytes each (32 tf32 or 64 bf16), K contiguous, rows at a
+// 128-byte pitch in 1024-byte-aligned groups of 8, with the 16-byte chunk c of
+// row r stored at chunk c ^ (r % 8) (the 128-byte swizzle).
 #pragma once
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -96,6 +98,17 @@ __device__ __forceinline__ uint32_t tf32_rna(float x) {
   return r;
 }
 
+// Two floats rounded to BF16 (to nearest, ties to even) and packed, x0 in the
+// low half.
+__device__ __forceinline__ uint32_t bf16x2_rn(float x0, float x1) {
+  uint32_t r;
+  asm("cvt.rn.bf16x2.f32 %0, %1, %2;\n" : "=r"(r) : "f"(x1), "f"(x0));
+  return r;
+}
+// The two BF16 values of a pair, as floats (exact).
+__device__ __forceinline__ float bf16_low(uint32_t v) { return __uint_as_float(v << 16); }
+__device__ __forceinline__ float bf16_high(uint32_t v) { return __uint_as_float(v & 0xFFFF0000u); }
+
 __device__ __forceinline__ void wgmma_fence() {
   asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
 }
@@ -161,6 +174,58 @@ template <> struct WgmmaTf32<88> {
         "%32, %33, %34, %35, %36, %37, %38, %39, "
         "%40, %41, %42, %43"
         "}, {%44, %45, %46, %47}, %48, p, %50, 1;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+          "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+          "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+          "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(scale_d), "n"(SCALE_A));
+  }
+};
+
+// d = SCALE_A * A . B (+ d unless scale_d is 0) for a 64 x N x 16 BF16 tile,
+// A from registers, B K-major (no transpose).
+template <int N> struct WgmmaBf16;
+
+template <> struct WgmmaBf16<64> {
+  template <int SCALE_A>
+  static __device__ __forceinline__ void mma(float (&d)[32], const uint32_t (&a)[4], uint64_t desc_b,
+                                          int scale_d) {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "setp.ne.b32 p, %37, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+        "{"
+        "%0, %1, %2, %3, %4, %5, %6, %7, "
+        "%8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23, "
+        "%24, %25, %26, %27, %28, %29, %30, %31"
+        "}, {%32, %33, %34, %35}, %36, p, %38, 1, 0;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+          "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(scale_d), "n"(SCALE_A));
+  }
+};
+
+template <> struct WgmmaBf16<88> {
+  template <int SCALE_A>
+  static __device__ __forceinline__ void mma(float (&d)[44], const uint32_t (&a)[4], uint64_t desc_b,
+                                          int scale_d) {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "setp.ne.b32 p, %49, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n88k16.f32.bf16.bf16 "
+        "{"
+        "%0, %1, %2, %3, %4, %5, %6, %7, "
+        "%8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23, "
+        "%24, %25, %26, %27, %28, %29, %30, %31, "
+        "%32, %33, %34, %35, %36, %37, %38, %39, "
+        "%40, %41, %42, %43"
+        "}, {%44, %45, %46, %47}, %48, p, %50, 1, 0;\n}\n"
         : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
           "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
           "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),

@@ -10,12 +10,18 @@ strides: ``expand`` gives a shared matrix (batch stride 0) and ``.mT`` a
 transposed one, with no copy. ``ai``/``bi`` of ``None`` is a real operand;
 ``want_imag=False`` keeps only the real part of the product.
 
-In float32 the kernel runs 3xTF32 on the tensor cores: every f32 value is
-split into two TF32 parts (:func:`split_tf32`) and each real product is
-``lo.hi + hi.lo + hi.hi`` with FP32 sums (:func:`complex_matmul_3xtf32` is
-that arithmetic in PyTorch). One operand, the shared DFT matrix of a stage,
-goes to the kernel prepared: split and laid out in tiles
-(:func:`tile_constant`), once per plan in a :class:`Constant`.
+In float32 the kernel runs on the tensor cores at one of three precisions,
+the JAX package's names: ``"highest"`` is 3xTF32, every f32 value split into
+two TF32 parts (:func:`split_tf32`) and each real product
+``lo.hi + hi.lo + hi.hi`` with FP32 sums, at FP32 accuracy
+(:func:`complex_matmul_3xtf32` is that arithmetic in PyTorch); ``"high"`` is
+the same with BF16 parts (:func:`split_bf16`, :func:`complex_matmul_bf16x3`);
+``"default"`` is one BF16 product ``hi.hi`` (:func:`complex_matmul_bf16x1`).
+Float64 ignores the precision. One operand, the DFT matrix of a stage (shared
+by the batch, or one per batch entry), goes to the kernel prepared: split and
+laid out in tiles (:func:`tile_constant`), once per plan in a
+:class:`Constant`. Results go to new tensors or, through ``out=``, into
+strided views that the caller owns.
 """
 from __future__ import annotations
 
@@ -28,12 +34,21 @@ from .. import _build
 from ..errors import GPULaunchError, InvalidParameterError
 
 # Launches of the CUDA kernel, keyed by (batch, M, K, N, a_imag, b_imag,
-# want_imag). The wrapper adds one where it launches and nowhere else.
+# want_imag, precision). The wrapper adds one where it launches and nowhere else.
 launches: collections.Counter = collections.Counter()
 
 _DTYPES = (torch.float32, torch.float64)
-# K per stage of the float32 kernel (csrc/complex_matmul.cu, tc::BK).
+PRECISIONS = ("highest", "high", "default")
+# Per float32 precision: the library (csrc/<name>.cu) and its C entry point.
+LIBRARIES = {
+    "highest": ("complex_matmul", "spfft_complex_matmul_tf32x3"),
+    "high": ("complex_matmul_bf16x3", "spfft_complex_matmul_bf16x3"),
+    "default": ("complex_matmul_bf16x1", "spfft_complex_matmul_bf16x1"),
+}
+# K per stage of the tensor-core kernel (csrc/k1_tc.cuh, tc::bk): one
+# 128-byte row of V, 32 tf32 or 64 bf16.
 TILE_K = 32
+TILE_K_BF16 = 64
 
 
 def supports(batch: int, m: int, k: int, n: int, dtype) -> bool:
@@ -88,13 +103,57 @@ def split_tf32(x):
 
 
 def complex_matmul_3xtf32(ar, ai, br, bi, want_imag: bool = True):
-    """The float32 kernel's arithmetic in PyTorch: every real product
+    """The "highest" kernel's arithmetic in PyTorch: every real product
     ``a.b`` is ``a_lo.b_hi + a_hi.b_lo + a_hi.b_hi`` of TF32 parts, summed in
     float32 (the products of two TF32 values are exact in float32)."""
-    parts = lambda t: None if t is None else split_tf32(t)
+    return _split_products(split_tf32, 3, ar, ai, br, bi, want_imag)
+
+
+def _split_products(split, passes, ar, ai, br, bi, want_imag):
+    """The four-product form with every real product ``a.b`` built from the
+    parts of ``split``: ``a_lo.b_hi + a_hi.b_lo + a_hi.b_hi`` (``passes`` 3)
+    or ``a_hi.b_hi`` (1), summed in float32."""
     mm = lambda x, y: torch.einsum("bmk,bkn->bmn", x, y)
-    dot = lambda a, b: mm(a[1], b[0]) + mm(a[0], b[1]) + mm(a[0], b[0])
+    if passes == 3:
+        dot = lambda a, b: mm(a[1], b[0]) + mm(a[0], b[1]) + mm(a[0], b[0])
+    else:
+        dot = lambda a, b: mm(a[0], b[0])
+    parts = lambda t: None if t is None else split(t)
     return _four_products(dot, parts(ar), parts(ai), parts(br), parts(bi), want_imag)
+
+
+# ---- the bf16 split ("high", "default") -------------------------------------------
+
+
+def round_bf16(x):
+    """float32 -> the nearest BF16 value (ties to even, as ``cvt.rn.bf16.f32``),
+    still float32: the low 16 bits are zero."""
+    return x.to(torch.bfloat16).to(torch.float32)
+
+
+def split_bf16(x):
+    """``x = hi + lo`` to within about 2^-16 |x|, both BF16: ``hi`` is ``x``
+    rounded, ``lo`` the rounded remainder (``x - hi`` is exact in float32)."""
+    hi = round_bf16(x)
+    return hi, round_bf16(x - hi)
+
+
+def complex_matmul_bf16x3(ar, ai, br, bi, want_imag: bool = True):
+    """The "high" kernel's arithmetic in PyTorch: every real product ``a.b``
+    is ``a_lo.b_hi + a_hi.b_lo + a_hi.b_hi`` of BF16 parts (:func:`split_bf16`),
+    summed in float32 (the products of two BF16 values are exact in float32)."""
+    return _split_products(split_bf16, 3, ar, ai, br, bi, want_imag)
+
+
+def complex_matmul_bf16x1(ar, ai, br, bi, want_imag: bool = True):
+    """The "default" kernel's arithmetic in PyTorch: every real product
+    ``a.b`` is ``a_hi.b_hi`` of the BF16 roundings, summed in float32."""
+    return _split_products(split_bf16, 1, ar, ai, br, bi, want_imag)
+
+
+# The float32 kernel's arithmetic at each precision.
+ARITHMETIC = {"highest": complex_matmul_3xtf32, "high": complex_matmul_bf16x3,
+              "default": complex_matmul_bf16x1}
 
 
 def tile_q(q: int) -> int:
@@ -103,40 +162,53 @@ def tile_q(q: int) -> int:
     return min((-(-q // bn) * bn, bn) for bn in (64, 88))[1]
 
 
-def tile_constant(vr, vi=None):
-    """A constant ``V`` (``(K, Q)`` or ``(batch, K, Q)``, float32) in the
-    float32 kernel's layout: ``(batch, Q/bn, K/32, planes, bn, 32)`` with
-    planes re_hi, re_lo[, im_hi, im_lo] from :func:`split_tf32`, each tile
-    ``V^T`` (K-major), zero-padded to whole tiles, its 16-byte chunk c of row r
-    at chunk ``c ^ (r % 8)`` (wgmma's 128-byte swizzle). One (Q tile, K tile)
-    is one contiguous block, so that a linear copy puts it in shared memory as
-    the kernel reads it."""
+def tile_constant(vr, vi=None, precision: str = "highest"):
+    """A constant ``V`` (``(K, Q)`` or ``(batch, K, Q)``, float32, any
+    strides) in the tensor-core kernel's layout at ``precision``:
+    ``(batch, Q/bn, K/tk, planes, bn, tk)``, each tile ``V^T`` (K-major),
+    zero-padded to whole tiles, one 128-byte row per q. ``"highest"``: float32
+    TF32 parts from :func:`split_tf32`, tk = 32, planes re_hi, re_lo[, im_hi,
+    im_lo]. ``"high"``: bfloat16 parts from :func:`split_bf16`, tk = 64, the
+    same planes. ``"default"``: bfloat16, tk = 64, planes re[, im] rounded.
+    The 16-byte chunk c of row r sits at chunk ``c ^ (r % 8)`` (wgmma's
+    128-byte swizzle). One (Q tile, K tile) is one contiguous block, so that a
+    linear copy puts it in shared memory as the kernel reads it."""
     parts = [vr] if vi is None else [vr, vi]
     v = torch.stack([p if p.dim() == 3 else p[None] for p in parts], 1)  # (b, parts, K, Q)
     b, _, k, q = v.shape
+    v = v.float()
+    if precision == "highest":
+        tk, dtype, split = TILE_K, torch.float32, split_tf32
+    elif precision in ("high", "default"):
+        tk, dtype = TILE_K_BF16, torch.bfloat16
+        split = split_bf16 if precision == "high" else (lambda t: (round_bf16(t),))
+    else:
+        raise InvalidParameterError(f"unknown matmul precision {precision!r}")
     bn = tile_q(q)
-    qt, kt = -(-q // bn), -(-k // TILE_K)
-    planes = torch.stack(split_tf32(v.float()), 2).flatten(1, 2)  # (b, planes, K, Q)
+    qt, kt = -(-q // bn), -(-k // tk)
+    planes = torch.stack(split(v), 2).flatten(1, 2).to(dtype)  # (b, planes, K, Q)
     npl = planes.shape[1]
-    t = planes.new_zeros((b, npl, qt * bn, kt * TILE_K))
+    t = planes.new_zeros((b, npl, qt * bn, kt * tk))
     t[:, :, :q, :k] = planes.mT
-    t = t.reshape(b, npl, qt, bn, kt, TILE_K).permute(0, 2, 4, 1, 3, 5)
+    t = t.reshape(b, npl, qt, bn, kt, tk).permute(0, 2, 4, 1, 3, 5)
+    chunk = 16 // planes.element_size()  # values per 16-byte chunk
     r = torch.arange(bn, device=v.device)[:, None]
-    c = torch.arange(TILE_K, device=v.device)[None, :]
-    swizzle = (((c >> 2) ^ (r & 7)) << 2) | (c & 3)  # (bn, 32): logical k of chunk slot
+    c = torch.arange(tk, device=v.device)[None, :]
+    swizzle = ((c // chunk) ^ (r & 7)) * chunk + c % chunk  # (bn, tk): logical k of the slot
     return torch.gather(t, 5, swizzle.expand(t.shape)).contiguous()
 
 
 class Constant:
-    """A stage's DFT matrix ``V`` (``(K, Q)``), shared by every launch of a
-    plan: the raw ``(re, im)`` pair, which the plain version and the operand
-    views use, and on a CUDA float32 plan its tiles (:func:`tile_constant`),
-    made once here."""
+    """A stage's DFT matrix ``V`` (``(K, Q)``, or ``(batch, K, Q)`` with one
+    matrix per batch entry), shared by every launch of a plan: the raw
+    ``(re, im)`` pair, which the plain version and the operand views use, and
+    on a CUDA float32 plan its tiles at the plan's ``precision``
+    (:func:`tile_constant`), made once here."""
 
-    def __init__(self, re, im=None):
-        self.re, self.im = re, im
+    def __init__(self, re, im=None, precision: str = "highest"):
+        self.re, self.im, self.precision = re, im, precision
         f32_cuda = re.device.type == "cuda" and re.dtype == torch.float32
-        self.tiles = tile_constant(re, im) if f32_cuda else None
+        self.tiles = tile_constant(re, im, precision) if f32_cuda else None
 
     @property
     def pair(self):
@@ -163,49 +235,80 @@ def _check(ar, ai, br, bi):
     return batch, m, k, br.shape[2]
 
 
-def complex_matmul(ar, ai, br, bi, want_imag: bool = True, constant: Constant | None = None):
+def _check_out(out, batch, m, n, want_imag, like):
+    cr, ci = out
+    if cr is None or (ci is None) == want_imag:
+        raise InvalidParameterError("complex_matmul out is (re, im), im None without want_imag")
+    for t in (cr, ci):
+        if t is not None and (t.shape != (batch, m, n) or t.dtype != like.dtype
+                              or t.device != like.device or t.stride() != cr.stride()):
+            raise InvalidParameterError(
+                f"complex_matmul out must be ({batch}, {m}, {n}) {like.dtype} on {like.device}, "
+                "both parts with the same strides"
+            )
+
+
+def complex_matmul(ar, ai, br, bi, want_imag: bool = True, constant: Constant | None = None,
+                   precision: str = "highest", out=None):
     """``C[b] = A[b] @ B[b]`` -> ``(cr, ci)`` of shape ``(batch, M, N)``.
 
     ``ci`` is ``None`` when ``want_imag`` is False. CPU tensors take
     :func:`complex_matmul_plain`; CUDA tensors launch the kernel or raise.
+    ``precision`` picks the float32 kernel (float64 ignores it).
     ``constant`` is the :class:`Constant` that ``B`` or ``A^T`` views (every
-    batch the same matrix): the float32 kernel takes its prepared tiles.
+    batch the same matrix, or one per batch), prepared at ``precision``.
     Without it, the float32 kernel prepares the shared operand, or ``B``,
-    on each call.
+    on each call. ``out`` is a ``(cr, ci)`` pair of ``(batch, M, N)`` tensors
+    of any strides (the same for both) that receives the result.
     """
     batch, m, k, n = _check(ar, ai, br, bi)
+    if precision not in PRECISIONS:
+        raise InvalidParameterError(f"unknown matmul precision {precision!r}")
+    if out is not None:
+        _check_out(out, batch, m, n, want_imag, ar)
     if ar.device.type == "cpu":
-        return complex_matmul_plain(ar, ai, br, bi, want_imag)
+        result = complex_matmul_plain(ar, ai, br, bi, want_imag)
+        if out is None:
+            return result
+        for o, r in zip(out, result):
+            if o is not None:
+                o.copy_(r)
+        return out
     if ar.device.type != "cuda":
         raise InvalidParameterError(f"complex_matmul runs on cpu or cuda, not {ar.device}")
+    if out is None:
+        cr = torch.empty((batch, m, n), dtype=ar.dtype, device=ar.device)
+        out = (cr, torch.empty_like(cr) if want_imag else None)
+    cr, ci = out
     if batch == 0 or m == 0 or n == 0:
-        empty = torch.empty((batch, m, n), dtype=ar.dtype, device=ar.device)
-        return empty, (torch.empty_like(empty) if want_imag else None)
+        return cr, ci
     if not supports(batch, m, k, n, ar.dtype):
         raise InvalidParameterError(
             f"complex_matmul kernel does not take batch={batch} M={m} K={k} N={n} {ar.dtype}"
         )
-    cr = torch.empty((batch, m, n), dtype=ar.dtype, device=ar.device)
-    ci = torch.empty_like(cr) if want_imag else None
-    lib = _library()
     ptr = lambda t: None if t is None else t.data_ptr()
     with torch.cuda.device(ar.device):
         stream = torch.cuda.current_stream(ar.device).cuda_stream
         if ar.dtype == torch.float64:
-            err = lib.spfft_complex_matmul_f64(
+            precision = "highest"  # one body at every precision
+            err = _library("highest").spfft_complex_matmul_f64(
                 ar.data_ptr(), ptr(ai), *ar.stride(), br.data_ptr(), ptr(bi), *br.stride(),
                 cr.data_ptr(), ptr(ci), *cr.stride(), batch, m, n, k, stream,
             )
         else:
-            err = _launch_tf32x3(lib, ar, ai, br, bi, cr, ci, constant, stream)
+            entry = getattr(_library(precision), LIBRARIES[precision][1])
+            err = _launch_tc(entry, ar, ai, br, bi, cr, ci, constant, stream, precision)
     if err:
         raise GPULaunchError(f"complex_matmul launch failed: cudaError {err}")
-    launches[(batch, m, k, n, ai is not None, bi is not None, want_imag)] += 1
+    launches[(batch, m, k, n, ai is not None, bi is not None, want_imag, precision)] += 1
     return cr, ci
 
 
 def _views(t, w) -> bool:
-    """True if every batch of the 3-D ``t`` is the 2-D tensor ``w`` itself."""
+    """True if every batch of the 3-D ``t`` is ``w`` itself: the 2-D ``w``
+    (shared by the batch), or the 3-D ``w`` batch for batch."""
+    if w.dim() == 3:
+        return t.shape == w.shape and t.stride() == w.stride() and t.data_ptr() == w.data_ptr()
     return (
         (t.shape[0] == 1 or t.stride(0) == 0) and t.shape[1:] == w.shape
         and t.stride()[1:] == w.stride() and t.data_ptr() == w.data_ptr()
@@ -216,9 +319,10 @@ def _shared(t) -> bool:
     return t.shape[0] == 1 or t.stride(0) == 0
 
 
-def _launch_tf32x3(lib, ar, ai, br, bi, cr, ci, constant, stream) -> int:
-    """O = D @ V on the float32 kernel: V is the constant side (B, or A^T
-    when the constant is A's transpose), D the data side."""
+def _launch_tc(entry, ar, ai, br, bi, cr, ci, constant, stream, precision="highest") -> int:
+    """O = D @ V on the float32 tensor-core kernel ``entry`` of
+    ``precision``: V is the constant side (B, or A^T when the constant is A's
+    transpose), D the data side."""
     batch, m, k = ar.shape
     n = br.shape[2]
     if constant is not None:
@@ -230,12 +334,18 @@ def _launch_tf32x3(lib, ar, ai, br, bi, cr, ci, constant, stream) -> int:
             raise InvalidParameterError("complex_matmul constant is neither B nor A^T")
         if constant.tiles is None or (constant.im is None) != ((ai if transposed else bi) is None):
             raise InvalidParameterError("complex_matmul constant does not match its operand")
-        tiles = constant.tiles
+        if constant.precision != precision:
+            raise InvalidParameterError(
+                f"complex_matmul constant prepared for {constant.precision!r}, not {precision!r}"
+            )
+        tiles, v_im = constant.tiles, constant.im is not None
     else:
         transposed = _shared(ar) and not _shared(br)
         v_r, v_i = (ar.mT, None if ai is None else ai.mT) if transposed else (br, bi)
         tiles = tile_constant(v_r[:1] if _shared(v_r) else v_r,
-                              None if v_i is None else (v_i[:1] if _shared(v_i) else v_i))
+                              None if v_i is None else (v_i[:1] if _shared(v_i) else v_i),
+                              precision)
+        v_im = v_i is not None
     if transposed:  # C^T = B^T A^T: D = B^T (N x K), O = C^T
         d_r, d_i, p, q = br.mT, (None if bi is None else bi.mT), n, m
         o_strides = (cr.stride(0), cr.stride(2), cr.stride(1))
@@ -247,24 +357,28 @@ def _launch_tf32x3(lib, ar, ai, br, bi, cr, ci, constant, stream) -> int:
     inner, outer = (d_sk, d_sp) if kmajor else (d_sp, d_sk)
     aligned = all(t.data_ptr() % 16 == 0 for t in (d_r, d_i) if t is not None)
     tma = inner == 1 and outer % 4 == 0 and (batch == 1 or d_sb % 4 == 0) and aligned
-    v_sb = tiles.stride(0) if tiles.shape[0] > 1 else 0
-    return lib.spfft_complex_matmul_tf32x3(
+    v_sb = tiles.stride(0) * tiles.element_size() if tiles.shape[0] > 1 else 0
+    return entry(
         d_r.data_ptr(), None if d_i is None else d_i.data_ptr(), d_sb, d_sp, d_sk,
-        int(kmajor), int(tma), tiles.data_ptr(), v_sb, int(tiles.shape[3] == 4), tiles.shape[4],
+        int(kmajor), int(tma), tiles.data_ptr(), v_sb, int(v_im), tiles.shape[4],
         cr.data_ptr(), None if ci is None else ci.data_ptr(), *o_strides,
         batch, p, q, k, stream,
     )
 
 
-def _library():
-    lib = _build.library("complex_matmul")
-    f64, tf32 = lib.spfft_complex_matmul_f64, lib.spfft_complex_matmul_tf32x3
-    if not f64.argtypes:
-        p, i64, i32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
-        f64.argtypes = [p, p, i64, i64, i64, p, p, i64, i64, i64,
-                        p, p, i64, i64, i64, i64, i64, i64, i64, p]
-        f64.restype = ctypes.c_int
-        tf32.argtypes = [p, p, i64, i64, i64, i32, i32, p, i64, i32, i32,
-                         p, p, i64, i64, i64, i64, i64, i64, i64, p]
-        tf32.restype = ctypes.c_int
+def _library(precision: str):
+    """The loaded library of K1 at ``precision`` (float64's body is in the
+    "highest" one), its argument types set."""
+    name, entry = LIBRARIES[precision]
+    lib = _build.library(name)
+    p, i64, i32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
+    fn = getattr(lib, entry)
+    if not fn.argtypes:
+        fn.argtypes = [p, p, i64, i64, i64, i32, i32, p, i64, i32, i32,
+                       p, p, i64, i64, i64, i64, i64, i64, i64, p]
+        fn.restype = ctypes.c_int
+    if precision == "highest" and not lib.spfft_complex_matmul_f64.argtypes:
+        lib.spfft_complex_matmul_f64.argtypes = [p, p, i64, i64, i64, p, p, i64, i64, i64,
+                                                 p, p, i64, i64, i64, i64, i64, i64, i64, p]
+        lib.spfft_complex_matmul_f64.restype = ctypes.c_int
     return lib

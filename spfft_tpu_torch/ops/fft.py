@@ -19,12 +19,23 @@ from __future__ import annotations
 
 import numpy as np
 
+from .. import knobs
 from ..errors import InvalidParameterError
 from ..types import ScalingType
+from .complex_matmul import PRECISIONS
 from .complex_matmul import complex_matmul as _k1
 
-# Padding quantum of the active-x extent (the JAX package's SPFFT_TPU_XPAD default).
-X_PAD_QUANTUM = 8
+
+def resolve_precision(precision) -> str:
+    """A matrix-product precision name, any case, -> ``"highest"``, ``"high"``
+    or ``"default"`` (the JAX package's ``lax.Precision`` names). Float32 runs
+    K1 at that precision: FP32-accurate 3xTF32, bf16x3 or one bf16 pass."""
+    key = str(precision).lower()
+    if key not in PRECISIONS:
+        raise InvalidParameterError(
+            f"unknown matmul precision {precision!r} (expected one of {sorted(PRECISIONS)})"
+        )
+    return key
 
 
 def c2c_matrix(n: int, sign: int, scale: float = 1.0, row_perm=None, num_rows=None):
@@ -95,8 +106,10 @@ def zy_stage_matrices(dim_z: int, dim_y: int, total_size: int, real_dtype):
 
 def compact_x_extent(num_unique: int, dim_x_freq: int) -> int:
     """Active-x extent of the unique-x compaction: the count of x rows that
-    carry a stick, padded to :data:`X_PAD_QUANTUM` and capped at the full extent."""
-    a = -(-max(1, int(num_unique)) // X_PAD_QUANTUM) * X_PAD_QUANTUM
+    carry a stick, padded to the ``SPFFT_TPU_XPAD`` quantum (default 8) and
+    capped at the full extent."""
+    quantum = knobs.get_int("SPFFT_TPU_XPAD")
+    a = -(-max(1, int(num_unique)) // quantum) * quantum
     return min(a, dim_x_freq)
 
 
@@ -131,20 +144,188 @@ def x_stage_matrices(dim_x: int, ux, num_rows: int, r2c: bool, real_dtype):
     return wx_b, wx_f
 
 
+# ---- sparse-y planning ---------------------------------------------------------
+# The y stage contracts only the rows that carry sticks. Copied from the JAX
+# package (spfft_tpu/ops/fft.py), numpy only, with the same engagement policy.
+
+# Per-slot sparse-y engages below Sy/Y = 0.6 (the integer test 5 Sy < 3 Y in
+# plan_sparse_y); the value that describe_sparse_y reports.
+SPARSE_Y_CROSSOVER = 0.6
+
+
+def sparse_y_blocked_frac() -> float:
+    """Blocked sparse-y engages when its padded bucket rows stay under this
+    fraction of the dense extent (``SPFFT_TPU_SPARSE_Y_BLOCKED_FRAC``, 0.8)."""
+    return knobs.get_float("SPFFT_TPU_SPARSE_Y_BLOCKED_FRAC")
+
+
+def describe_sparse_y(per_slot: bool, blocked_buckets, sy: int = 0) -> dict:
+    """The engaged sparse-y variant and the thresholds that chose it."""
+    if per_slot:
+        card = {"variant": "per-slot", "sy": int(sy)}
+    elif blocked_buckets is not None:
+        card = {"variant": "blocked", "num_buckets": len(blocked_buckets)}
+    else:
+        card = {"variant": "dense"}
+    card["crossover_sy_over_y"] = SPARSE_Y_CROSSOVER
+    card["blocked_engage_frac"] = sparse_y_blocked_frac()
+    return card
+
+
+def plan_sparse_y(xslot, ys, num_x_active: int, dim_y: int, real_dtype):
+    """Per-slot sparse-y (C2C only; the caller gates): the sticks of each
+    active-x slot in an ``(A, Sy, Z)`` table, so that the y-DFT contracts only
+    them. ``SPFFT_TPU_SPARSE_Y`` is ``0`` (off), ``1`` (forced) or ``auto``
+    (engage when ``5 Sy < 3 Y``). Returns None when it does not engage, else
+    ``(Sy, row_of_stick, wy_backward_pair, wy_forward_pair)``: stick i sits at
+    table row ``row_of_stick[i] = slot * Sy + j``, and the pairs are the
+    ``(A, Sy, Y)`` per-slot DFT rows (zero on padding rows)."""
+    mode = knobs.get_str("SPFFT_TPU_SPARSE_Y")
+    xslot = np.asarray(xslot, dtype=np.int64)
+    if mode == "0" or xslot.size == 0:
+        return None
+    A, Y = int(num_x_active), int(dim_y)
+    cnt = np.bincount(xslot, minlength=A)
+    sy_max = compact_x_extent(int(cnt.max()), Y)
+    if sy_max >= Y or (mode != "1" and not (5 * sy_max < 3 * Y)):
+        return None
+    order = np.argsort(xslot, kind="stable")
+    j = np.empty(xslot.size, dtype=np.int64)
+    j[order] = np.arange(xslot.size) - np.repeat(np.cumsum(cnt) - cnt, cnt)
+    row_of = xslot * sy_max + j
+    y_flat = np.full(A * sy_max, -1, dtype=np.int64)
+    y_flat[row_of] = np.asarray(ys, dtype=np.int64)
+    wyb = matrix_pair(c2c_matrix(Y, +1, row_perm=y_flat).reshape(A, sy_max, Y), real_dtype)
+    wyf = matrix_pair(c2c_matrix(Y, -1, row_perm=y_flat).reshape(A, sy_max, Y), real_dtype)
+    return sy_max, row_of, wyb, wyf
+
+
+def plan_sparse_y_blocked(xslot, ys, dim_y: int, real_dtype, num_sticks: int,
+                          dense_rows: int, dense_slots=()):
+    """Blocked sparse-y: the active-x slots sorted by stick count and cut into
+    ``G`` buckets (``SPFFT_TPU_SPARSE_Y_BLOCKS``: ``auto`` is 4 at
+    ``dim_y <= 256``, else 8; ``0`` disables; a positive integer forces G),
+    each padded to its own largest slot (quantum 8). The stick table stays
+    exact; each bucket's y-DFT is one batched ``(Ag, Syg, Z) x (Ag, Syg, Y)``
+    contraction, written into the ``(Y, A, Z)`` grid in bucket-major slot
+    order (the x-stage matrices fold that order). Engages under ``auto`` when
+    the padded rows are under ``SPFFT_TPU_SPARSE_Y_BLOCKED_FRAC`` of
+    ``dense_rows`` (A x Y).
+
+    ``dense_slots`` (R2C's x == 0 slot) each become a trailing ``(1, Y)``
+    bucket with the plain dense y matrices, their sticks at their natural y,
+    so that the hermitian fill sees the whole plane.
+
+    Returns None when it does not engage, else a dict: ``slot_perm`` (the
+    original slot of each bucket-major position), ``buckets`` (per bucket
+    ``(row_idx (Ag, Syg) int32 into the stick table, index num_sticks a zero
+    row; wyb pair (Ag, Syg, Y); wyf pair)``), ``row_of_stick`` ((S,) int32:
+    each stick's row in the buckets' concatenated flats) and ``dense_flat``
+    ({dense slot: its flat row offset}).
+    """
+    mode = knobs.get_str("SPFFT_TPU_SPARSE_Y_BLOCKS")
+    if mode == "0":
+        return None
+    if mode != "auto":
+        try:
+            forced_g = int(mode)
+        except ValueError:
+            forced_g = -1
+        if forced_g < 1:
+            raise InvalidParameterError(
+                f"SPFFT_TPU_SPARSE_Y_BLOCKS={mode!r}: expected 'auto', '0' "
+                "(disable), or a positive bucket count"
+            )
+    xslot = np.asarray(xslot, dtype=np.int64)
+    ys = np.asarray(ys, dtype=np.int64)
+    if xslot.size == 0:
+        return None
+    n_slots = int(xslot.max()) + 1
+    counts = np.bincount(xslot, minlength=n_slots)
+    dense_slots = tuple(int(s) for s in dense_slots if 0 <= int(s) < n_slots)
+    sortable = np.asarray([s for s in range(n_slots) if s not in set(dense_slots)],
+                          dtype=np.int64)
+    G = (4 if dim_y <= 256 else 8) if mode == "auto" else forced_g
+    G = min(G, sortable.size) if sortable.size else 0
+    order = sortable[np.argsort(-counts[sortable], kind="stable")]
+    bounds = np.linspace(0, order.size, G + 1).astype(np.int64)
+    sy_of = lambda c: min(dim_y, -(-max(1, int(c)) // 8) * 8)
+    padded_rows = sum(
+        (bounds[g + 1] - bounds[g]) * sy_of(counts[order[bounds[g]]])
+        for g in range(G)
+        if bounds[g + 1] > bounds[g]
+    ) + len(dense_slots) * dim_y
+    if mode == "auto" and padded_rows >= sparse_y_blocked_frac() * dense_rows:
+        return None
+    by_slot = np.argsort(xslot, kind="stable")
+    cum = np.cumsum(counts) - counts
+    j_of = np.empty(xslot.size, dtype=np.int64)
+    j_of[by_slot] = np.arange(xslot.size) - cum[xslot[by_slot]]
+    buckets = []
+    offsets = np.zeros(n_slots, dtype=np.int64)
+    flat_off = 0
+    for g in range(G):
+        lo, hi = int(bounds[g]), int(bounds[g + 1])
+        if hi <= lo:
+            continue
+        slots_g = order[lo:hi]
+        Ag = hi - lo
+        Syg = sy_of(counts[slots_g].max() if Ag else 1)
+        row_idx = np.full((Ag, Syg), num_sticks, dtype=np.int64)
+        y_flat = np.full(Ag * Syg, -1, dtype=np.int64)
+        for a_local, s in enumerate(slots_g):
+            members = by_slot[cum[s] : cum[s] + counts[s]]
+            row_idx[a_local, : counts[s]] = members
+            y_flat[a_local * Syg : a_local * Syg + counts[s]] = ys[members]
+            offsets[s] = flat_off + a_local * Syg
+        wyb = matrix_pair(c2c_matrix(dim_y, +1, row_perm=y_flat).reshape(Ag, Syg, dim_y),
+                          real_dtype)
+        wyf = matrix_pair(c2c_matrix(dim_y, -1, row_perm=y_flat).reshape(Ag, Syg, dim_y),
+                          real_dtype)
+        buckets.append((row_idx.astype(np.int32), wyb, wyf))
+        flat_off += Ag * Syg
+    dense_flat = {}
+    for s in dense_slots:
+        row_idx = np.full((1, dim_y), num_sticks, dtype=np.int64)
+        members = by_slot[cum[s] : cum[s] + counts[s]]
+        row_idx[0, ys[members]] = members
+        wyb = matrix_pair(c2c_matrix(dim_y, +1).reshape(1, dim_y, dim_y), real_dtype)
+        wyf = matrix_pair(c2c_matrix(dim_y, -1).reshape(1, dim_y, dim_y), real_dtype)
+        buckets.append((row_idx.astype(np.int32), wyb, wyf))
+        dense_flat[s] = flat_off
+        flat_off += dim_y
+    row_of_stick = offsets[xslot] + j_of
+    for s in dense_slots:
+        members = by_slot[cum[s] : cum[s] + counts[s]]
+        row_of_stick[members] = dense_flat[s] + ys[members]
+    return {
+        "slot_perm": np.concatenate([order, np.asarray(dense_slots, dtype=np.int64)]),
+        "buckets": buckets,
+        "row_of_stick": row_of_stick.astype(np.int32),
+        "dense_flat": dense_flat,
+    }
+
+
 # ---- the stage contractions ---------------------------------------------------
 # Each spec is the einsum of one engine stage; each maps onto one K1 launch:
 #   "sz,zk->sk"                  sticks (S, Z) @ W (Z, Z)
 #   "yxz,yk->kxz", "ykz,yl->lkz" W^T (Y, Y) @ G viewed as (Y, A*Z)
 #   "kxz,xl->klz", "yxz,xk->ykz" batched over the leading axis: W^T @ G[b]
+#   "ajz,ajk->kaz"               per slot or bucket a: W[a]^T @ X[a], written
+#                                into column a of the (Y, A, Z) grid
+#   "yaz,ajy->ajz"               per slot or bucket a: W[a] @ G[:, a, :], read
+#                                from column a of the grid
 
 _ROWS = ("sz,zk->sk",)
 _LEFT = ("yxz,yk->kxz", "ykz,yl->lkz")
 _BATCHED_LEFT = ("kxz,xl->klz", "yxz,xk->ykz")
+_SLOTS_OUT = "ajz,ajk->kaz"
+_SLOTS_IN = "yaz,ajy->ajz"
 
 
 def operands(spec: str, xr, xi, wr, wi):
     """The K1 operands ``(ar, ai, br, bi)`` of stage ``spec`` as strided views
-    (no copy), and the shape its ``(batch, M, N)`` result takes."""
+    (no copy), and the shape its result takes."""
     opt = lambda t, f: None if t is None else f(t)
     if spec in _ROWS:
         ops = (xr[None], opt(xi, lambda t: t[None]), wr[None], opt(wi, lambda t: t[None]))
@@ -158,29 +339,67 @@ def operands(spec: str, xr, xi, wr, wi):
         nb = xr.shape[0]
         shared = lambda t: t.mT.expand(nb, -1, -1)
         return (shared(wr), opt(wi, shared), xr, xi), (nb, wr.shape[1], xr.shape[2])
+    if spec == _SLOTS_OUT:
+        ops = (wr.mT, opt(wi, lambda t: t.mT), xr, xi)
+        return ops, (wr.shape[2], xr.shape[0], xr.shape[2])
+    if spec == _SLOTS_IN:
+        cols = lambda t: t.permute(1, 0, 2)
+        return (wr, wi, cols(xr), opt(xi, cols)), (wr.shape[0], wr.shape[1], xr.shape[2])
     raise InvalidParameterError(f"no stage contraction for spec {spec!r}")
 
 
-def contract(spec: str, xr, xi, wr, wi, want_imag: bool = True, constant=None):
+def constant_operands(spec: str, constant):
+    """The einsum operand ``(wr, wi)`` of stage ``spec`` that the plan's
+    :class:`~.complex_matmul.Constant` holds: V itself, or V^T for the stage
+    whose matrix is the left factor of the product (``"yaz,ajy->ajz"``,
+    where K1's constant side is W^T)."""
+    if spec == _SLOTS_IN:
+        return constant.re.mT, (None if constant.im is None else constant.im.mT)
+    return constant.pair
+
+
+def result_view(spec: str, out):
+    """The ``(batch, M, N)`` view of K1's result in ``out``, a tensor of the
+    einsum's output shape: a view, so that K1 writes straight into ``out``."""
+    if spec in _ROWS:
+        return out[None]
+    if spec in _LEFT:
+        return out.view(out.shape[0], -1)[None]
+    if spec == _SLOTS_OUT:
+        return out.permute(1, 0, 2)
+    return out
+
+
+def contract(spec: str, xr, xi, wr, wi, want_imag: bool = True, constant=None,
+             precision: str = "highest", out=None):
     """``(xr + i xi)`` contracted with ``(wr + i wi)`` by ``spec``, as one K1
     launch on strided views. ``xi``/``wi`` of None are real parts; returns
     ``(yr, yi)`` with ``yi`` None when ``want_imag`` is False. ``constant`` is
-    the plan's :class:`~.complex_matmul.Constant` of ``(wr, wi)``, if it has one."""
+    the plan's :class:`~.complex_matmul.Constant` of ``(wr, wi)``, if it has
+    one. ``out`` is an ``(re, im)`` pair (``im`` None without ``want_imag``)
+    of the einsum's output shape, any strides, that K1 writes into; else the
+    result is a new contiguous pair."""
     ops, shape = operands(spec, xr, xi, wr, wi)
-    cr, ci = _k1(*ops, want_imag, constant=constant)
-    return cr.reshape(shape), (None if ci is None else ci.reshape(shape))
+    if out is None:
+        new = lambda: xr.new_empty(shape)
+        out = (new(), new() if want_imag else None)
+    views = tuple(None if t is None else result_view(spec, t) for t in out)
+    _k1(*ops, want_imag, constant=constant, precision=precision, out=views)
+    return out
 
 
-def complex_matmul(xr, xi, wr, wi, spec: str, constant=None):
+def complex_matmul(xr, xi, wr, wi, spec: str, constant=None, precision: str = "highest",
+                   out=None):
     """Complex data with a complex matrix: the four-product form, one launch."""
-    return contract(spec, xr, xi, wr, wi, constant=constant)
+    return contract(spec, xr, xi, wr, wi, constant=constant, precision=precision, out=out)
 
 
-def real_in_matmul(x, wr, wi, spec: str, constant=None):
+def real_in_matmul(x, wr, wi, spec: str, constant=None, precision: str = "highest"):
     """Real data with a complex matrix (R2C forward x-stage)."""
-    return contract(spec, x, None, wr, wi, constant=constant)
+    return contract(spec, x, None, wr, wi, constant=constant, precision=precision)
 
 
-def real_out_matmul(xr, xi, a, b, spec: str, constant=None):
+def real_out_matmul(xr, xi, a, b, spec: str, constant=None, precision: str = "highest"):
     """Real part ``xr@A - xi@B`` only (C2R backward x-stage)."""
-    return contract(spec, xr, xi, a, b, want_imag=False, constant=constant)[0]
+    return contract(spec, xr, xi, a, b, want_imag=False, constant=constant,
+                    precision=precision)[0]

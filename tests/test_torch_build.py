@@ -9,7 +9,9 @@ from spfft_tpu_torch import _build
 
 def test_sources_follow_local_includes():
     names = lambda n: [p.name for p in _build.sources(n)]
-    assert names("complex_matmul") == ["complex_matmul.cu", "sm90.cuh"]
+    assert names("complex_matmul") == ["complex_matmul.cu", "k1_tc.cuh", "sm90.cuh"]
+    for bf16 in ("complex_matmul_bf16x3", "complex_matmul_bf16x1"):
+        assert names(bf16) == [f"{bf16}.cu", "k1_tc.cuh", "sm90.cuh"]
     assert names("row_gather") == ["row_gather.cu"]
 
 

@@ -111,7 +111,9 @@ STAGE_CONSTANTS = ["_wz_b", "_wy_b", "_wy_f", "_wz_f:NONE", "_wz_f:FULL", "_wx_b
 
 @pytest.mark.parametrize("attr", STAGE_CONSTANTS)
 @pytest.mark.parametrize("kind", ["c2c", "r2c"])
-def test_plan_constants_prepare_to_their_matrices(kind, attr):
+def test_plan_constants_prepare_to_their_matrices(kind, attr, monkeypatch):
+    monkeypatch.setenv("SPFFT_TPU_SPARSE_Y", "0")  # the dense y plan: 2-D y constants
+    monkeypatch.setenv("SPFFT_TPU_SPARSE_Y_BLOCKS", "0")
     ex = _plan(kind)._exec
     name, _, scaling = attr.partition(":")
     const = getattr(ex, name)
@@ -204,7 +206,7 @@ def _launch_args(spec, xshape, wshape, real_in=False, want_imag=True, offset=0):
     cr = torch.empty(batch, m, n)
     ci = torch.empty_like(cr) if want_imag else None
     rec = _Recorder()
-    assert k1._launch_tf32x3(rec, ar, ai, br, bi, cr, ci, w, 0) == 0
+    assert k1._launch_tc(rec.spfft_complex_matmul_tf32x3, ar, ai, br, bi, cr, ci, w, 0) == 0
     args = dict(zip(_ARG_NAMES, rec.args))
     assert args["v"] == w.tiles.data_ptr() and args["v_sb"] == 0
     return args, cr
@@ -244,8 +246,8 @@ def test_launch_rejects_a_constant_of_another_operand():
     w.tiles = k1.tile_constant(w.re, w.im)
     x = torch.randn(1, 5, 8)
     with pytest.raises(terr.InvalidParameterError):
-        k1._launch_tf32x3(_Recorder(), x, x, torch.randn(1, 8, 8), None,
-                          torch.empty(1, 5, 8), None, w, 0)
+        k1._launch_tc(_Recorder().spfft_complex_matmul_tf32x3, x, x, torch.randn(1, 8, 8),
+                      None, torch.empty(1, 5, 8), None, w, 0)
 
 
 def test_jax_scaling_types_line_up():

@@ -121,7 +121,7 @@ def test_gpu_without_cuda_raises():
 
 
 @pytest.mark.parametrize("kwargs", [
-    {"engine": "xla"}, {"engine": "fftw"}, {"precision": "high"}, {"dtype": np.float16},
+    {"engine": "xla"}, {"engine": "fftw"}, {"precision": "medium"}, {"dtype": np.float16},
     {"local_z_length": 3},
 ])
 def test_invalid_options_raise(kwargs):
