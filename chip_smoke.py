@@ -32,12 +32,23 @@ Phases, one JSON line each:
    odd shapes and strides at each float32 precision, and once more in f64;
 4. the main path at full width: ``Transform(ProcessingUnit.GPU, ...)`` for
    every plan, backward then forward(FULL), against a complex128 dense oracle
-   on the host (one per transform and radius), with the kernels' launch
-   counts from that run;
-5. one pair of every plan under ``torch.profiler``: the device's busy share
-   and the kernels that take its time; then the plans' pair times, the plans
-   taking turns, for comparisons within the run;
-6. the ``kernels`` line; last, the ``{"ok": true, "device": ...}`` line.
+   on the host (one per transform and radius). Each plan runs fused (its
+   default: one CUDA graph per direction, captured at the first call) and
+   has a ``fuse=False`` twin that runs node by node. The kernels' launch
+   counts come from the twin's pair, where each launch counts once; the
+   fused plan's first pair (warm-up and capture) must count exactly twice
+   as many, its second pair (replays) none, and both must be bitwise equal
+   to the twin's results. Two more plans, ``c2c-xla`` and ``r2c-xla``, run
+   the ``torch.fft`` engine (cuFFT; no K1 or K2 launch);
+5. a result handed out stays put across a later call (fused C2C and R2C);
+   ``backward_batch``/``forward_batch`` with B = 4 against the per-request
+   calls (one batched dispatch per direction, ms per transform against the
+   loop); ``multi_transform_backward``/``_forward`` of the C2C and R2C
+   headline plans against their single calls;
+6. one pair of every plan and twin under ``torch.profiler``: the device's
+   busy share and the kernels that take its time; then the pair times, all
+   plans taking turns, for comparisons within the run;
+7. the ``kernels`` line; last, the ``{"ok": true, "device": ...}`` line.
 
 Exits non-zero, with no result line, when there is no CUDA device or any
 check fails.
@@ -89,6 +100,10 @@ PLANS = [
     ("c2c-blocked-default", "c2c", 0.659, "default", {}, "blocked"),
     ("r2c-blocked-default", "r2c", 0.659, "default", {}, "blocked"),
 ]
+# The torch.fft engine's plans: (name, transform, radius)
+XLA_PLANS = [("c2c-xla", "c2c", 0.659), ("r2c-xla", "r2c", 0.659)]
+STAGED = "~staged"  # the name suffix of a plan's fuse=False twin
+BATCH = 4
 # What the JAX package's planner chooses at 256^3 (its buckets (Ag, Syg), or Sy)
 EXPECT = {
     ("c2c", 0.659): [(42, 176), (42, 168), (42, 152), (43, 120)],
@@ -523,46 +538,133 @@ def expected_launches(ex) -> tuple[int, int]:
     return 2 * len(ex.buckets) + 4, 2
 
 
-def main_path(sp, name, t, precision, values, want):
-    """One backward + forward(FULL) through the entry points, checked against
-    the dense oracle; returns the launch counts of that run and the device
-    values it ran on."""
-    import torch
+def launch_counts():
     from spfft_tpu_torch.ops import complex_matmul as k1
     from spfft_tpu_torch.ops import row_gather as k2
 
-    values_dev = torch.as_tensor(values.astype(np.complex64), device="cuda")
-    torch.cuda.synchronize()
+    return {"complex_matmul": dict(k1.launches), "row_gather": dict(k2.launches)}
+
+
+def clear_counts() -> None:
+    from spfft_tpu_torch import ir
+    from spfft_tpu_torch.ops import complex_matmul as k1
+    from spfft_tpu_torch.ops import row_gather as k2
+
     k1.launches.clear()
     k2.launches.clear()
+    ir.dispatches.clear()
+
+
+def run_pair(sp, t, values_dev) -> dict:
+    """One backward + forward(FULL) through the entry points, counted from 0;
+    the launch and dispatch counts of that pair, its results, and the most
+    memory it held above what was allocated before it."""
+    import torch
+    from spfft_tpu_torch import ir
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    before = torch.cuda.memory_allocated()
+    clear_counts()
     space = t.backward(values_dev)
     back = t.forward(scaling=sp.ScalingType.FULL)
     torch.cuda.synchronize()
-    counts = {"complex_matmul": dict(k1.launches), "row_gather": dict(k2.launches)}
+    return {"counts": launch_counts(), "dispatches": {f"{m}:{d}": n for (m, d), n in
+                                                      ir.dispatches.items()},
+            "space": space, "back": back,
+            "peak_extra_bytes": torch.cuda.max_memory_allocated() - before}
+
+
+def total(counts) -> int:
+    return sum(sum(c.values()) for c in counts.values())
+
+
+def equal(a, b) -> tuple[bool, float]:
+    """(bitwise equal, max abs diff) of two tensors on the card."""
+    import torch
+
+    return torch.equal(a, b), float((a - b).abs().max().item())
+
+
+def copy_out_ms(t) -> dict:
+    """Device time of the copies a fused call hands out: the static outputs
+    of the backward and forward(FULL) graphs, cloned."""
+    import spfft_tpu_torch as sp
+
+    programs = t._exec._ir._programs
+    out = {}
+    for key, label in ((("backward", None, None), "backward"),
+                       (("forward", sp.ScalingType.FULL, None), "forward")):
+        static = programs[key]._captured[2]
+        static = static if isinstance(static, tuple) else (static,)
+        out[label] = device_ms(lambda: [o.clone() for o in static])
+        out[label + "_bytes"] = sum(2 * o.numel() * o.element_size() for o in static)
+    return out
+
+
+def main_path(sp, name, t, twin, precision, values, want):
+    """The main path of one plan: its staged twin's pair (each launch counts
+    once: the launch counts of the kernels line), then the fused plan's first
+    pair (warm-up and capture: exactly twice the twin's launches) and second
+    pair (replays: no launch on the host), each against the dense oracle and
+    bitwise against the twin. Returns the twin's launch counts and the
+    device values."""
+    import torch
+
+    values_dev = torch.as_tensor(values.astype(np.complex64), device="cuda")
+    staged = run_pair(sp, twin, values_dev)
+    first = run_pair(sp, t, values_dev)
+    second = run_pair(sp, t, values_dev)
 
     Z, Y, X = DIMS[2], DIMS[1], DIMS[0]
-    space_h = space.cpu().numpy()
+    space_h = first["space"].cpu().numpy()
     check(space_h.shape == (Z, Y, X) and np.isfinite(space_h).all(), f"{name} space shape/finite")
-    back_h = back.cpu().numpy()
+    back_h = first["back"].cpu().numpy()
     check(back_h.shape == (len(values),) and np.isfinite(back_h).all(), f"{name} values shape/finite")
     oracle_err = float(np.abs(space_h - want).max() / np.abs(want).max())
     rt_err = float(np.abs(back_h - values).max() / np.abs(values).max())
-    n_k1 = sum(counts["complex_matmul"].values())
-    n_k2 = sum(counts["row_gather"].values())
+    counts = staged["counts"]
+    n_k1, n_k2 = sum(counts["complex_matmul"].values()), sum(counts["row_gather"].values())
     precisions = sorted({key[-1] for key in counts["complex_matmul"]})
     ex = t._exec
-    emit({
-        "phase": "main_path", "plan": name, "transform": t.transform_type.name.lower(),
-        "dims": list(DIMS), "dtype": "float32", "precision": precision, "y_plan": ex.y_plan,
-        "describe": t.describe(), "num_values": len(values), "num_sticks": t.params.num_sticks,
+    twice = {k: {key: 2 * n for key, n in c.items()} for k, c in counts.items()}
+    vs_staged = {part: equal(first[part], staged[part]) for part in ("space", "back")}
+    replay_same = all(equal(second[part], first[part])[0] for part in ("space", "back"))
+    row = {
+        "phase": "main_path", "plan": name, "engine": t.engine,
+        "transform": t.transform_type.name.lower(), "dims": list(DIMS), "dtype": "float32",
+        "precision": precision, "y_plan": getattr(ex, "y_plan", None), "describe": t.describe(),
+        "num_values": len(values), "num_sticks": t.params.num_sticks,
         "num_x_active": t.num_x_active, "oracle_rel_err": oracle_err, "roundtrip_rel_err": rt_err,
-        "bar": ORACLE_RTOL[precision], "launches": {"complex_matmul": n_k1, "row_gather": n_k2},
+        "bar": ORACLE_RTOL[precision],
+        "launches": {"complex_matmul": n_k1, "row_gather": n_k2, "from": "the staged twin's pair"},
+        "launches_first_fused_pair": total(first["counts"]),
+        "launches_second_fused_pair": total(second["counts"]),
+        "dispatches": {"staged": staged["dispatches"], "fused_first": first["dispatches"],
+                       "fused_second": second["dispatches"]},
+        "fused_vs_staged": {p: {"bitwise": b, "max_abs_diff": d} for p, (b, d) in vs_staged.items()},
         "k1_precisions": precisions,
-        "peak_mem_bytes": torch.cuda.max_memory_allocated(),
-    })
+        "peak_extra_bytes": {"staged_pair": staged["peak_extra_bytes"],
+                             "fused_first_pair": first["peak_extra_bytes"],
+                             "fused_pair": second["peak_extra_bytes"]},
+        "copy_out_ms": copy_out_ms(t),
+    }
+    emit(row)
     bar = ORACLE_RTOL[precision]
+    check(t.fused and not twin.fused, f"{name}: the plan is not fused or its twin not staged")
     check(oracle_err <= bar, f"{name} backward vs dense oracle: {oracle_err} (bar {bar})")
     check(rt_err <= bar, f"{name} round trip: {rt_err} (bar {bar})")
+    check(all(b for b, _ in vs_staged.values()),
+          f"{name}: fused and staged results differ: {vs_staged}")
+    check(replay_same, f"{name}: the replayed pair differs from the captured one")
+    check(second["dispatches"] == {"fused:backward": 1, "fused:forward": 1},
+          f"{name}: fused dispatches {second['dispatches']}")
+    check(total(second["counts"]) == 0, f"{name}: a replayed pair launched on the host")
+    if t.engine == "xla":
+        check(total(counts) == 0 and total(first["counts"]) == 0, f"{name} launched K1 or K2")
+        return counts, values_dev
+    check(first["counts"] == twice,
+          f"{name}: first fused pair launched {first['counts']}, not twice the twin's {counts}")
     want_k1, want_k2 = expected_launches(ex)
     check(n_k1 == want_k1 and n_k2 == want_k2,
           f"{name} launches: {n_k1} K1, {n_k2} K2 (expected {want_k1} and {want_k2})")
@@ -570,17 +672,107 @@ def main_path(sp, name, t, precision, values, want):
     return counts, values_dev
 
 
+def results_stay_put(sp, name, t, values_dev) -> None:
+    """Two backwards on different values: the first one's results, native
+    (``backward_pair``) and public, are unchanged after the second."""
+    import torch
+
+    other = values_dev.roll(1) * (0.5 - 0.25j)
+    native = t.backward_pair(values_dev.real, values_dev.imag)
+    native = native if isinstance(native, tuple) else (native,)
+    kept_native = [x.clone() for x in native]
+    public = t.backward(values_dev)
+    kept_public = public.clone()
+    later = t.backward_pair(other.real, other.imag)
+    later = later if isinstance(later, tuple) else (later,)
+    t.backward(other)
+    torch.cuda.synchronize()
+    stayed = all(torch.equal(a, b) for a, b in zip(native, kept_native)) and torch.equal(
+        public, kept_public)
+    differ = not torch.equal(later[0], native[0])
+    emit({"phase": "results_stay_put", "plan": name, "stayed": stayed,
+          "second_result_differs": differ})
+    check(stayed and differ, f"{name}: a result changed after a later call")
+
+
+def batch_phase(sp, name, t, values_dev, rounds: int = 6) -> dict:
+    """``backward_batch``/``forward_batch(FULL)`` of ``BATCH`` requests
+    against the per-request calls: bitwise equal, one batched dispatch per
+    direction; then ms per transform, batch against a loop of single pairs,
+    the two taking turns."""
+    import torch
+    from spfft_tpu_torch import ir
+
+    full = sp.ScalingType.FULL
+    vals = [values_dev.roll(b) for b in range(BATCH)]
+    singles = [t.backward(v).clone() for v in vals]
+    fsingles = [t.forward(s, full) for s in singles]
+    torch.cuda.synchronize()
+    ir.dispatches.clear()
+    spaces = t.backward_batch(vals)
+    freqs = t.forward_batch(spaces, full)
+    torch.cuda.synchronize()
+    dispatches = {f"{m}:{d}": n for (m, d), n in ir.dispatches.items()}
+    same = [equal(a, b) for a, b in zip(spaces + freqs, singles + fsingles)]
+
+    def batch():
+        t.forward_batch(t.backward_batch(vals), full)
+
+    def loop():
+        for v in vals:
+            t.forward(t.backward(v), full)
+
+    times = {"batch": [], "loop": []}
+    for r in range(rounds):
+        for label, fn in (("batch", batch), ("loop", loop))[::1 if r % 2 == 0 else -1]:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            times[label].append(1e3 * (time.perf_counter() - t0) / BATCH)
+    row = {"phase": "batch", "plan": name, "batch": BATCH, "dispatches": dispatches,
+           "bitwise_equal_to_single_calls": all(b for b, _ in same),
+           "max_abs_diff": max(d for _, d in same),
+           "ms_per_transform_pair": {k: statistics.median(v) for k, v in times.items()},
+           "timing": f"host clock, median of {rounds} turns; both forwards read the "
+                     "(Z, Y, X) spaces their backwards returned"}
+    emit(row)
+    check(dispatches == {"batched:backward": 1, "batched:forward": 1},
+          f"{name}: batch dispatches {dispatches}")
+    check(row["bitwise_equal_to_single_calls"], f"{name}: batch differs from single calls")
+    return row
+
+
+def multi_transform_phase(sp, names, plans, values) -> None:
+    """The headline C2C and R2C plans in one multi-transform batch, against
+    their single calls."""
+    import torch
+
+    ts = [plans[n][0] for n in names]
+    vals = [values[n] for n in names]
+    singles = [t.backward(v).clone() for t, v in zip(ts, vals)]
+    fsingles = [t.forward(scaling=sp.ScalingType.FULL) for t in ts]
+    spaces = sp.multi_transform_backward(ts, vals)
+    freqs = sp.multi_transform_forward(ts, None, sp.ScalingType.FULL)
+    torch.cuda.synchronize()
+    same = [equal(a, b) for a, b in zip(spaces + freqs, singles + fsingles)]
+    emit({"phase": "multi_transform", "plans": list(names),
+          "bitwise_equal_to_single_calls": all(b for b, _ in same),
+          "max_abs_diff": max(d for _, d in same)})
+    check(all(b for b, _ in same), "multi-transform results differ from the single calls")
+
+
 def interleaved_pair_ms(sp, plans, values, rounds: int = 6, pairs: int = 4) -> dict:
-    """Median ms per backward+forward(FULL) pair of every plan, host clock,
-    the plans taking turns (forward order, then reversed, ``rounds`` times,
-    ``pairs`` timed pairs after one untimed pair at each turn), so that the
-    host's drift falls on all of them alike."""
+    """Median ms per backward+forward(FULL) pair of every plan (``plans``:
+    name -> Transform), host clock, the plans taking turns (forward order,
+    then reversed, ``rounds`` times, ``pairs`` timed pairs after one untimed
+    pair at each turn), so that the host's drift falls on all of them alike."""
     import torch
 
     times = {name: [] for name in plans}
     for r in range(rounds):
         for name in (list(plans) if r % 2 == 0 else list(reversed(plans))):
-            t = plans[name][0]
+            t = plans[name]
             for i in range(pairs + 1):
                 t0 = time.perf_counter()
                 t.backward(values[name])
@@ -667,30 +859,42 @@ def main() -> int:
         check(report[name]["sass_hgmma_bf16"] > 0, f"{name} has no BF16 HGMMA instruction")
 
     # ---- the plans: each y variant as the JAX package's planner makes it ----
+    # every plan fused (the default) with a fuse=False twin under name + STAGED
     t0 = time.perf_counter()
-    data, plans = {}, {}
+    data, plans, twins = {}, {}, {}
+    make = lambda kind, radius, **kw: sp.Transform(
+        sp.ProcessingUnit.GPU, getattr(sp.TransformType, kind.upper()), *DIMS,
+        indices=data[kind, radius][0], dtype=np.float32, **kw)
     for name, kind, radius, precision, env, y_plan in PLANS:
         if (kind, radius) not in data:
             data[kind, radius] = oracle(kind, radius)
         with knobs(env):
-            t = sp.Transform(sp.ProcessingUnit.GPU, getattr(sp.TransformType, kind.upper()),
-                             *DIMS, indices=data[kind, radius][0], dtype=np.float32,
-                             precision=precision)
+            t = make(kind, radius, precision=precision)
+            twins[name] = make(kind, radius, precision=precision, fuse=False)
         ex = t._exec
         got = ex.sy if ex.y_plan == "per-slot" else (
             [(ag, syg) for ag, syg, _, _ in ex.buckets] if ex.y_plan == "blocked" else None)
         emit({"phase": "plan", "plan": name, "precision": precision, "y_plan": ex.y_plan,
               "num_sticks": t.params.num_sticks, "num_x_active": t.num_x_active,
               "buckets_or_sy": got, "describe": t.describe()})
-        check(ex.y_plan == y_plan, f"{name} engaged {ex.y_plan}, not {y_plan}")
+        check(t.engine == "mxu", f"{name}: auto resolved to {t.engine} on the card")
+        check(ex.y_plan == y_plan and twins[name]._exec.y_plan == y_plan,
+              f"{name} engaged {ex.y_plan}, not {y_plan}")
         if y_plan != "dense":
             check(got == EXPECT[kind, radius], f"{name}: {got}, not {EXPECT[kind, radius]}")
         plans[name] = (t, precision, (kind, radius))
+    for name, kind, radius in XLA_PLANS:
+        t = make(kind, radius, engine="xla")
+        twins[name] = make(kind, radius, engine="xla", fuse=False)
+        emit({"phase": "plan", "plan": name, "engine": "xla", "describe": t.describe()})
+        plans[name] = (t, "highest", (kind, radius))
     emit({"phase": "plans", "seconds": time.perf_counter() - t0})
 
     # ---- kernels against their plain versions, at the main path's shapes ----
     rows = []  # (row, plan, kernel, launch-count key)
     for name, (t, precision, _) in plans.items():
+        if t.engine != "mxu":
+            continue
         for form, spec, x, w, want_imag, out in k1_forms(name, t):
             row, key = run_k1(form, spec, x, w, want_imag, precision, out)
             rows.append((row, name, "complex_matmul", key))
@@ -703,20 +907,34 @@ def main() -> int:
         run_k1_odd(f"kernel_f32_odd_{precision}", torch.float32, K1_RTOL, precision)
     run_k1_odd("kernel_f64", torch.float64, K1_F64_RTOL)
 
-    # ---- the main path, every plan with the counts set to 0 just before it ----
+    # ---- the main path, every plan and its twin with the counts set to 0 just before ----
     counts, values = {}, {}
     for name, (t, precision, key) in plans.items():
         _, vals, want = data[key]
-        counts[name], values[name] = main_path(sp, name, t, precision, vals, want)
+        counts[name], values[name] = main_path(sp, name, t, twins[name], precision, vals, want)
     del data
-    busy = {name: profile_pair(sp, name, t, values[name]) for name, (t, _, _) in plans.items()}
-    turns = interleaved_pair_ms(sp, plans, values)
-    emit({"phase": "compare", "what": "median ms per pair (host clock), the plans taking turns; "
-          "device busy ms and K1/K2 ms of one profiled pair; same run", **{
-              name: {"pair_ms_in_turns": turns[name],
-                     "device_busy_ms": busy[name]["device_busy_ms"],
-                     "k1_ms": busy[name]["k1_ms"], "k2_ms": busy[name]["k2_ms"]}
-              for name in plans}})
+    for name in ("c2c-blocked", "r2c-blocked"):
+        results_stay_put(sp, name, plans[name][0], values[name])
+    batches = {name: batch_phase(sp, name, plans[name][0], values[name])
+               for name in ("c2c-blocked", "r2c-blocked")}
+    multi_transform_phase(sp, ("c2c-blocked", "r2c-blocked"), plans, values)
+
+    # ---- the profile, and the pair times with every plan and twin taking turns ----
+    every = {**{n: v[0] for n, v in plans.items()}, **{n + STAGED: t for n, t in twins.items()}}
+    values.update({n + STAGED: values[n] for n in twins})
+    busy = {name: profile_pair(sp, name, t, values[name]) for name, t in every.items()}
+    turns = interleaved_pair_ms(sp, every, values)
+    emit({"phase": "compare", "what": "median ms per pair (host clock), all plans and their "
+          "staged twins taking turns (6 rounds, 4 timed pairs per turn); device busy ms and "
+          "K1/K2 ms of one profiled pair; same run", **{
+              name: {"pair_ms_in_turns": turns[name], "device_busy_ms": busy[name]["device_busy_ms"],
+                     "staged_pair_ms_in_turns": turns[name + STAGED],
+                     "staged_device_busy_ms": busy[name + STAGED]["device_busy_ms"],
+                     "k1_ms": busy[name]["k1_ms"], "k2_ms": busy[name]["k2_ms"],
+                     "kernels": busy[name]["kernels"],
+                     "staged_kernels": busy[name + STAGED]["kernels"]}
+              for name in plans},
+          "batch_ms_per_transform_pair": {n: b["ms_per_transform_pair"] for n, b in batches.items()}})
 
     kernels = []
     for row, name, kernel, key in rows:

@@ -1,10 +1,14 @@
 """spfft_tpu_torch: the sparse 3-D FFT of spfft_tpu, in PyTorch, on an NVIDIA H100.
 
-The port of the JAX package's local transform on its accelerator engine: every
-DFT stage is a matrix product (kernel K1, ``csrc/complex_matmul.cu``) and the
-stick <-> plane moves are row gathers (kernel K2, ``csrc/row_gather.cu``),
-both CUDA C++ for ``sm_90a``, built with ``nvcc`` on first use. On CPU tensors
+The port of the JAX package's local transform. On its accelerator engine
+(``engine="mxu"``, the default on the card) every DFT stage is a matrix
+product (kernel K1, ``csrc/complex_matmul.cu``) and the stick <-> plane moves
+are row gathers (kernel K2, ``csrc/row_gather.cu``), both CUDA C++ for
+``sm_90a``, built with ``nvcc`` on first use. On CPU tensors
 (``ProcessingUnit.HOST``) each kernel's plain PyTorch version runs instead.
+``engine="xla"`` (the default on the CPU) is the ``torch.fft`` engine. Each
+direction runs as one program (:mod:`spfft_tpu_torch.ir`; on the card one
+CUDA-graph replay), or node by node with ``fuse=False``.
 
     import spfft_tpu_torch as sp
     trip = sp.create_spherical_cutoff_triplets(64, 64, 64, 0.659)
@@ -42,13 +46,21 @@ from .errors import (  # noqa: F401
     VerificationError,
 )
 from .grid import Grid, device_for_processing_unit  # noqa: F401
+from .multi_transform import (  # noqa: F401
+    dispatch_backward,
+    dispatch_forward,
+    finalize_backward,
+    finalize_forward,
+    multi_transform_backward,
+    multi_transform_forward,
+)
 from .indices import (  # noqa: F401
     check_stick_duplicates,
     convert_index_triplets,
     create_spherical_cutoff_triplets,
 )
 from .parameters import LocalParameters, from_jax_params, make_local_parameters  # noqa: F401
-from .transform import Transform  # noqa: F401
+from .transform import Transform, TransformFloat  # noqa: F401
 from .types import (  # noqa: F401
     ExecType,
     IndexFormat,

@@ -33,7 +33,8 @@ no transpose anywhere in the pipeline.
 
 Backward: decompress -> stick symmetry (R2C) -> z -> y (with its plane
 symmetry for R2C) -> x (C2R for R2C). Forward reverses it; the FULL scaling
-rides the forward-z matrix.
+rides the forward-z matrix. Each step is a stage body (``_st_*``, ``_expand``,
+``_pack``, ``_compress``) that ``ir.lower`` makes a node of.
 """
 from __future__ import annotations
 
@@ -52,12 +53,14 @@ _SLOTS_OUT, _SLOTS_IN = "ajz,ajk->kaz", "yaz,ajy->ajz"
 
 
 class MxuLocalExecution(ExecutionBase):
-    """Single-device pipeline for one plan. Pair I/O on the plan's device;
-    space-domain tensors are ``(Y, X, Z)`` native."""
+    """Single-device pipeline for one plan, run as its stage graphs
+    (:mod:`spfft_tpu_torch.ir`). Pair I/O on the plan's device; space-domain
+    tensors are ``(Y, X, Z)`` native."""
 
     NATIVE_LAYOUT = "yxz"
 
-    def __init__(self, params: LocalParameters, real_dtype, device, precision="highest"):
+    def __init__(self, params: LocalParameters, real_dtype, device, precision="highest",
+                 fuse=None):
         super().__init__(params, real_dtype, device)
         p = params
         rt = self.real_dtype
@@ -134,6 +137,7 @@ class MxuLocalExecution(ExecutionBase):
             self._yx_map = self.put(yx_map)
             # pack: stick id -> (y, slot) row
             self._stick_keys = self.put(keys.astype(np.int32))
+        self._init_ir(fuse)
 
     # ---- introspection ----------------------------------------------------------
 
@@ -152,12 +156,30 @@ class MxuLocalExecution(ExecutionBase):
             "sparse_y": offt.describe_sparse_y(bool(self.sy), self.buckets, self.sy),
         }
 
-    # ---- stages ---------------------------------------------------------------
+    # ---- stage bodies (the nodes of ir.lower._lower_local_mxu) ----------------------
+    # The same K1/K2 launches as one hand-ordered pipeline would make. The
+    # hermitian fills write in place, each into an edge that no other node
+    # reads (this call's decompress, expand or bucket-gather buffers).
 
     def _mm(self, xr, xi, w, spec, out=None):
         """One K1 stage with the plan constant ``w``."""
         return offt.complex_matmul(xr, xi, *offt.constant_operands(spec, w), spec, constant=w,
                                    precision=self.precision, out=out)
+
+    def _st_decompress(self, values_re, values_im):
+        """Packed values -> the (table rows, Z) stick table."""
+        p, dt = self.params, self.torch_dtype
+        return tuple(compression.decompress(v.to(dt), self._vi, self._table_rows, p.dim_z)
+                     for v in (values_re, values_im))
+
+    def _st_stick_symmetry(self, sre, sim):
+        # in place: the decompress edge is read by this node alone
+        i = self._zero_stick_id
+        sre[i], sim[i] = symmetry.hermitian_fill_1d_pair(sre[i], sim[i], axis=0)
+        return sre, sim
+
+    def _st_z_backward(self, sre, sim):
+        return self._mm(sre, sim, self._wz_b, "sz,zk->sk")
 
     def _expand(self, sre, sim):
         """(S, Z) sticks -> (Y, A, Z) active-x planes: one K2 launch."""
@@ -166,36 +188,27 @@ class MxuLocalExecution(ExecutionBase):
         shape = (p.dim_y, self.num_x_active, p.dim_z)
         return gre.reshape(shape), gim.reshape(shape)
 
-    def _pack(self, gre, gim):
-        """(Y, A, Z) planes -> (S, Z) sticks: one K2 launch."""
-        rows = self.params.dim_y * self.num_x_active
-        z = self.params.dim_z
-        return row_gather(gre.reshape(rows, z), gim.reshape(rows, z), self._stick_keys)
-
-    def _stick_symmetry(self, sre, sim):
-        # in place: sre/sim are this call's own decompress buffers
-        i = self._zero_stick_id
-        sre[i], sim[i] = symmetry.hermitian_fill_1d_pair(sre[i], sim[i], axis=0)
-
-    def _plane_symmetry(self, gre, gim):
-        # in place: gre/gim are this call's own expand buffers
+    def _st_plane_symmetry(self, gre, gim):
+        # in place: the expand edge is read by this node alone
         s = self._x0_slot
         gre[:, s, :], gim[:, s, :] = symmetry.hermitian_fill_1d_pair(
             gre[:, s, :], gim[:, s, :], axis=0
         )
+        return gre, gim
 
-    def _y_backward(self, sre, sim):
-        """(table rows, Z) sticks after z -> the (Y, A, Z) grid after y."""
+    def _st_y_dense_backward(self, gre, gim):
+        return self._mm(gre, gim, self._wy_b, "yxz,yk->kxz")
+
+    def _st_y_sparse_backward(self, sre, sim):
+        """Per slot: the y-DFT straight off the (A, Sy, Z) table into the grid."""
+        A, Z = self.num_x_active, self.params.dim_z
+        return self._mm(sre.view(A, self.sy, Z), sim.view(A, self.sy, Z), self._wy_b, _SLOTS_OUT)
+
+    def _st_y_blocked_backward(self, sre, sim):
+        """One K2 gather builds every bucket's (Ag, Syg, Z) table, then one K1
+        launch per bucket writes its columns of the (Y, A, Z) grid."""
         p = self.params
         Y, A, Z = p.dim_y, self.num_x_active, p.dim_z
-        if self.sy:
-            return self._mm(sre.view(A, self.sy, Z), sim.view(A, self.sy, Z), self._wy_b,
-                            _SLOTS_OUT)
-        if self.buckets is None:
-            gre, gim = self._expand(sre, sim)
-            if self.is_r2c and self._x0_slot is not None:
-                self._plane_symmetry(gre, gim)
-            return self._mm(gre, gim, self._wy_b, "yxz,yk->kxz")
         tre, tim = row_gather(sre, sim, self._bucket_rows)
         gre, gim = sre.new_empty((Y, A, Z)), sim.new_empty((Y, A, Z))
         cols = sum(ag for ag, _, _, _ in self.buckets)
@@ -203,20 +216,49 @@ class MxuLocalExecution(ExecutionBase):
         row = col = 0
         for b, (ag, syg, wb, _) in enumerate(self.buckets):
             xr, xi = (t[row:row + ag * syg].view(ag, syg, Z) for t in (tre, tim))
-            if b == self._x0_bucket:  # R2C: the x == 0 plane, its rows at their own y
+            if b == self._x0_bucket:
+                # R2C: the x == 0 plane, its rows at their own y; in place in
+                # this node's own gather buffer
                 xr[0], xi[0] = symmetry.hermitian_fill_1d_pair(xr[0], xi[0], axis=0)
             self._mm(xr, xi, wb, _SLOTS_OUT, out=(gre[:, col:col + ag], gim[:, col:col + ag]))
             row, col = row + ag * syg, col + ag
         return gre, gim
 
-    def _y_forward(self, gre, gim):
-        """The (Y, A, Z) grid after x -> (table rows, Z) sticks before z."""
+    def _st_x_backward(self, gre, gim):
+        """The (Y, A, Z) grid -> (Y, X, Z) space: (re, im), or real for R2C."""
+        w = self._wx_b
+        if self.is_r2c:
+            return offt.real_out_matmul(gre, gim, *w.pair, "kxz,xl->klz", constant=w,
+                                        precision=self.precision)
+        return self._mm(gre, gim, w, "kxz,xl->klz")
+
+    def _st_x_forward(self, space_re, space_im):
+        """(Y, X, Z) space (``space_im`` None for R2C) -> the (Y, A, Z) grid."""
+        w = self._wx_f
+        if self.is_r2c:
+            return offt.real_in_matmul(space_re, *w.pair, "yxz,xk->ykz", constant=w,
+                                       precision=self.precision)
+        return self._mm(space_re, space_im, w, "yxz,xk->ykz")
+
+    def _st_y_dense_forward(self, gre, gim):
+        return self._mm(gre, gim, self._wy_f, "ykz,yl->lkz")
+
+    def _pack(self, gre, gim):
+        """(Y, A, Z) planes -> (S, Z) sticks: one K2 launch."""
+        rows = self.params.dim_y * self.num_x_active
+        z = self.params.dim_z
+        return row_gather(gre.reshape(rows, z), gim.reshape(rows, z), self._stick_keys)
+
+    def _st_y_sparse_forward(self, gre, gim):
+        """Per slot: the y-DFT from the grid straight into the stick table."""
         Z = self.params.dim_z
-        if self.sy:
-            sre, sim = self._mm(gre, gim, self._wy_f, _SLOTS_IN)
-            return sre.view(-1, Z), sim.view(-1, Z)
-        if self.buckets is None:
-            return self._pack(*self._mm(gre, gim, self._wy_f, "ykz,yl->lkz"))
+        sre, sim = self._mm(gre, gim, self._wy_f, _SLOTS_IN)
+        return sre.view(-1, Z), sim.view(-1, Z)
+
+    def _st_y_blocked_forward(self, gre, gim):
+        """One K1 launch per bucket into one flat buffer, then one K2 regather
+        to the sticks."""
+        Z = self.params.dim_z
         rows = self._bucket_rows.numel()
         fre, fim = gre.new_empty((rows, Z)), gim.new_empty((rows, Z))
         row = col = 0
@@ -226,32 +268,9 @@ class MxuLocalExecution(ExecutionBase):
             row, col = row + ag * syg, col + ag
         return row_gather(fre, fim, self._row_of_stick)
 
-    # ---- pipelines ------------------------------------------------------------
+    def _st_z_forward(self, sre, sim, scaling):
+        """The z-DFT, with the FULL scaling in its matrix."""
+        return self._mm(sre, sim, self._wz_f[ScalingType(scaling)], "sz,zk->sk")
 
-    def backward_pair(self, values_re, values_im):
-        """(re, im) packed values -> space: (re, im) ``(Y, X, Z)`` for C2C,
-        the real ``(Y, X, Z)`` tensor for R2C."""
-        p = self.params
-        sre = compression.decompress(values_re, self._vi, self._table_rows, p.dim_z)
-        sim = compression.decompress(values_im, self._vi, self._table_rows, p.dim_z)
-        if self.is_r2c and self._zero_stick_id is not None:
-            self._stick_symmetry(sre, sim)
-        sre, sim = self._mm(sre, sim, self._wz_b, "sz,zk->sk")
-        gre, gim = self._y_backward(sre, sim)
-        w = self._wx_b
-        if self.is_r2c:
-            return offt.real_out_matmul(gre, gim, *w.pair, "kxz,xl->klz", constant=w,
-                                        precision=self.precision)
-        return self._mm(gre, gim, w, "kxz,xl->klz")
-
-    def forward_pair(self, space_re, space_im, scaling=ScalingType.NONE):
-        """``(Y, X, Z)`` space (``space_im`` None for R2C) -> (re, im) packed values."""
-        w = self._wx_f
-        if self.is_r2c:
-            gre, gim = offt.real_in_matmul(space_re, *w.pair, "yxz,xk->ykz", constant=w,
-                                           precision=self.precision)
-        else:
-            gre, gim = self._mm(space_re, space_im, w, "yxz,xk->ykz")
-        sre, sim = self._y_forward(gre, gim)
-        sre, sim = self._mm(sre, sim, self._wz_f[ScalingType(scaling)], "sz,zk->sk")
+    def _compress(self, sre, sim):
         return compression.compress(sre, self._vi), compression.compress(sim, self._vi)

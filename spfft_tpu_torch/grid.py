@@ -107,13 +107,20 @@ class Grid:
         dim_z,
         num_local_elements=None,
         indices=None,
-        **kwargs,
+        *,
+        local_z_length=None,
+        dtype=None,
+        engine: str = "auto",
+        precision: str = "highest",
+        device=None,
+        fuse=None,
     ):
-        """A transform bound to this grid (reference: include/spfft/grid.hpp:138-141);
-        keyword arguments are :class:`~spfft_tpu_torch.transform.Transform`'s."""
+        """A transform bound to this grid (reference: include/spfft/grid.hpp:138-141),
+        with :class:`~spfft_tpu_torch.transform.Transform`'s options."""
         from .transform import Transform
 
         return Transform(
             processing_unit, transform_type, dim_x, dim_y, dim_z,
-            num_local_elements, indices, grid=self, **kwargs,
+            num_local_elements, indices, local_z_length=local_z_length, grid=self,
+            dtype=dtype, engine=engine, precision=precision, device=device, fuse=fuse,
         )

@@ -1,0 +1,321 @@
+"""Run stage graphs: fused (one program per direction), staged, and batched.
+
+* **Fused** (the default, ``SPFFT_TPU_FUSE=1`` / ``fuse=True``): :func:`compose`
+  folds a graph into one function. On a CUDA plan that function is captured
+  in one ``torch.cuda.CUDAGraph`` per ``(direction, scaling)`` at its first
+  call, as ``jax.jit`` compiles at the first call in the JAX package: one
+  eager run on a side stream (it fills cuFFT's plan cache and the allocator),
+  then the capture over static input buffers, in one memory pool that the
+  plan's graphs share. Each call copies the caller's tensors into the static
+  inputs, replays, and hands out a copy of the static outputs, so that a
+  later call never overwrites a result the caller holds. On a CPU plan the
+  composed function runs in one eager call and nothing is captured.
+* **Staged** (``SPFFT_TPU_FUSE=0`` / ``fuse=False``): one eager call per node,
+  the reference that the fused program is held against.
+* **Batched** (``SPFFT_TPU_BATCH_FUSE``, fused plans only): B requests of one
+  plan in one program per direction: on the card one graph per
+  ``(direction, scaling, B)`` that holds the B per-request compositions over
+  slices of stacked static inputs, so that a batch costs one replay.
+
+Nothing degrades quietly: a capture or replay that fails raises
+:class:`~spfft_tpu_torch.errors.GPUError` naming the stage, and the staged
+path runs only when it is asked for.
+
+:data:`dispatches` counts program calls by ``(mode, direction)``: staged adds
+one per node, fused one per direction, batched one per batch and direction.
+"""
+from __future__ import annotations
+
+import collections
+
+import torch
+
+from .. import knobs
+from ..errors import GPUError, InvalidParameterError
+from ..types import ScalingType
+
+FUSE_ENV = "SPFFT_TPU_FUSE"
+BATCH_FUSE_ENV = "SPFFT_TPU_BATCH_FUSE"
+# the keys of ``describe()`` (Transform.describe()["ir"]), as in the JAX package
+IR_KEYS = ("fused", "path", "requested", "stages", "donation")
+
+# Program calls, keyed by (mode, direction); mode is "staged", "fused" or "batched".
+dispatches: collections.Counter = collections.Counter()
+
+
+def resolve_fuse(fuse=None):
+    """``(fused, source)``: an explicit ``fuse=`` wins, else ``SPFFT_TPU_FUSE``
+    (default fused); ``source`` is ``"kwarg"``, ``"env"`` or ``"default"``."""
+    if fuse is not None:
+        if not isinstance(fuse, (bool, int)) or fuse not in (0, 1):
+            raise InvalidParameterError(f"fuse= must be a bool (or 0/1), got {fuse!r}")
+        return bool(fuse), "kwarg"
+    raw = knobs.raw(FUSE_ENV)
+    if raw is None or raw == "":
+        return True, "default"
+    if raw not in ("0", "1"):
+        raise InvalidParameterError(f"{FUSE_ENV} must be 0 or 1, got {raw!r}")
+    return raw == "1", "env"
+
+
+def resolve_batch_fuse():
+    """``(enabled, source)`` of ``SPFFT_TPU_BATCH_FUSE`` (default on), read at
+    call time so that it flips without rebuilding plans."""
+    raw = knobs.raw(BATCH_FUSE_ENV)
+    if raw is None or raw == "":
+        return True, "default"
+    if raw not in ("0", "1"):
+        raise InvalidParameterError(f"{BATCH_FUSE_ENV} must be 0 or 1, got {raw!r}")
+    return raw == "1", "env"
+
+
+def _bind(graph, args) -> dict:
+    names = graph.inputs
+    if len(args) != len(names):
+        raise InvalidParameterError(
+            f"ir[{graph.direction}]: expected {len(names)} inputs ({names}), got {len(args)}"
+        )
+    return dict(zip(names, args))
+
+
+def _run_node(env, node):
+    out = node.fn(*[env[e] for e in node.inputs])
+    if len(node.outputs) == 1:
+        env[node.outputs[0]] = out
+    else:
+        env.update(zip(node.outputs, out))
+
+
+def _results(graph, env):
+    outs = tuple(env[e] for e in graph.outputs)
+    return outs[0] if len(outs) == 1 else outs
+
+
+def compose(graph):
+    """The graph as one function: ``fn(*args)`` binds ``args`` to the input
+    edges in order, runs the nodes in topological order and returns the
+    output edges (a bare value for one output, else a tuple).
+    ``fn.stage`` names the node that ran last, for error reports."""
+    order = graph.toposort()
+
+    def fn(*args):
+        env = _bind(graph, args)
+        for node in order:
+            fn.stage = node.stage
+            _run_node(env, node)
+        return _results(graph, env)
+
+    fn.stage = None
+    return fn
+
+
+class StagedProgram:
+    """The per-node reference executor: each node is its own eager call."""
+
+    def __init__(self, graph):
+        self.graph = graph
+        self.order = graph.toposort()
+
+    def __call__(self, *args):
+        env = _bind(self.graph, args)
+        for node in self.order:
+            _run_node(env, node)
+            dispatches["staged", self.graph.direction] += 1
+        return _results(self.graph, env)
+
+
+def _stack(items):
+    """Per-request results -> the stacked ``(B, ...)`` results (new tensors)."""
+    if isinstance(items[0], tuple):
+        return tuple(torch.stack(parts) for parts in zip(*items))
+    return torch.stack(items)
+
+
+class _Program:
+    """One program: ``body`` in one eager call on a CPU plan; on a CUDA plan
+    one CUDA graph of ``body``, captured at the first call. ``finish`` turns
+    the body's outputs into the caller's results (new tensors)."""
+
+    def __init__(self, body, finish, device, pool, what, stage):
+        self.body, self.finish, self.device, self.pool = body, finish, device, pool
+        self.what, self.stage = what, stage  # for error reports
+        self._captured = None  # (CUDAGraph, static inputs, static outputs)
+
+    def __call__(self, *args):
+        if self.device.type != "cuda":
+            return self.finish(self.body(*args))
+        if self._captured is None:
+            self._capture(args)
+        graph, static_in, static_out = self._captured
+        for buf, a in zip(static_in, args):
+            if (buf is None) != (a is None) or (buf is not None and buf.shape != a.shape):
+                raise InvalidParameterError(
+                    f"{self.what}: inputs differ from those the graph was captured on"
+                )
+            if buf is not None:
+                buf.copy_(a)
+        try:
+            graph.replay()
+        except RuntimeError as e:
+            raise GPUError(f"{self.what}: CUDA graph replay failed: {e}") from e
+        return self.finish(static_out)
+
+    def _capture(self, args) -> None:
+        """Static inputs holding ``args``, one eager run on a side stream
+        (cuFFT plans, the allocator, the kernels' libraries), then the
+        capture into the plan's pool."""
+        with torch.cuda.device(self.device):
+            static_in = [None if a is None else a.to(self.device).clone(
+                memory_format=torch.contiguous_format) for a in args]
+            current = torch.cuda.current_stream(self.device)
+            side = torch.cuda.Stream(self.device)
+            side.wait_stream(current)
+            try:
+                with torch.cuda.stream(side):
+                    self.body(*static_in)
+                current.wait_stream(side)
+                graph = torch.cuda.CUDAGraph()
+                with torch.cuda.graph(graph, pool=self.pool):
+                    static_out = self.body(*static_in)
+            except Exception as e:
+                raise GPUError(
+                    f"{self.what}: CUDA graph capture failed at stage {self.stage()!r}: {e}"
+                ) from e
+        self._captured = (graph, static_in, static_out)
+
+
+def _clone(out):
+    return tuple(t.clone() for t in out) if isinstance(out, tuple) else out.clone()
+
+
+class EngineIr:
+    """One engine's graphs and programs, and the routing and counting of its
+    ``backward_pair``/``forward_pair`` and batched entries. Built by
+    :func:`init_engine_ir`."""
+
+    def __init__(self, graphs, *, path, requested, device):
+        self.graphs = graphs  # {"backward": g, "forward": {ScalingType: g}}
+        self.path = path  # "fused" | "staged"
+        self.requested = requested
+        self.device = torch.device(device)
+        # the memory pool of this plan's CUDA graphs: every result is copied
+        # out of it right after its replay, on the same stream, so a graph
+        # may reuse what another one freed
+        self._pool = torch.cuda.graph_pool_handle() if self.device.type == "cuda" else None
+        self._programs = {}  # (direction, scaling or None, B or None) -> program
+        if path == "staged":
+            self._programs["backward", None, None] = StagedProgram(graphs["backward"])
+            for s, g in graphs["forward"].items():
+                self._programs["forward", s, None] = StagedProgram(g)
+
+    @property
+    def fused(self) -> bool:
+        return self.path == "fused"
+
+    def _graph(self, direction, scaling):
+        return self.graphs["backward"] if direction == "backward" else self.graphs["forward"][scaling]
+
+    def _program(self, direction, scaling, batch=None):
+        key = (direction, scaling, batch)
+        prog = self._programs.get(key)
+        if prog is None:
+            graph = self._graph(direction, scaling)
+            fn = compose(graph)
+            what = f"ir[{direction}{'' if scaling is None else ', ' + scaling.name}" + (
+                "]" if batch is None else f", batch {batch}]")
+            if batch is None:
+                body, finish = fn, (_clone if self.device.type == "cuda" else (lambda out: out))
+            else:
+                body, finish = _batched(graph, fn, batch), _stack
+            prog = _Program(body, finish, self.device, self._pool, what, lambda: fn.stage)
+            self._programs[key] = prog
+        return prog
+
+    def _run(self, direction, scaling, args):
+        prog = self._program(direction, scaling)
+        out = prog(*args)
+        if self.path == "fused":  # staged counts per node itself
+            dispatches["fused", direction] += 1
+        return out
+
+    def run_backward(self, *args):
+        return self._run("backward", None, args)
+
+    def run_forward(self, scaling, *args):
+        return self._run("forward", ScalingType(scaling), args)
+
+    # ---- batched programs (SPFFT_TPU_BATCH_FUSE) ----------------------------------
+
+    def batch_available(self) -> bool:
+        """The knob is on and the plan runs fused (the staged path has no
+        batch axis, so its callers loop)."""
+        enabled, _ = resolve_batch_fuse()
+        return enabled and self.path == "fused" and bool(self.graphs["backward"].batch_inputs)
+
+    def _run_batch(self, direction, scaling, args):
+        """Stacked ``(B, ...)`` per-request inputs in, stacked results out, as
+        one program; None when batching is unavailable (the caller loops)."""
+        if not self.batch_available():
+            return None
+        out = self._program(direction, scaling, int(args[0].shape[0]))(*args)
+        dispatches["batched", direction] += 1
+        return out
+
+    def run_backward_batch(self, *args):
+        return self._run_batch("backward", None, args)
+
+    def run_forward_batch(self, scaling, *args):
+        return self._run_batch("forward", ScalingType(scaling), args)
+
+    # ---- describe -------------------------------------------------------------------
+
+    def describe(self) -> dict:
+        """The ``ir`` section (:data:`IR_KEYS`): path, where the choice came
+        from, the stage lists per direction and the donation map."""
+        return {
+            "fused": self.fused,
+            "path": self.path,
+            "requested": self.requested,
+            "stages": {
+                "backward": self.graphs["backward"].stage_list(),
+                "forward": self.graphs["forward"][ScalingType.NONE].stage_list(),
+            },
+            # Donation is not ported: PyTorch has no input donation, and the
+            # fused program's static input buffers are what it saved.
+            "donation": {"backward": [], "forward": []},
+        }
+
+
+def _batched(graph, fn, batch: int):
+    """The body of a batched program: ``fn`` once per request, on slices of
+    the stacked ``batch_inputs``; the other inputs are shared."""
+    idx = [i for i, name in enumerate(graph.inputs) if name in graph.batch_inputs]
+
+    def body(*args):
+        if any(args[i] is not None and args[i].shape[0] != batch for i in idx):
+            raise InvalidParameterError(f"ir[{graph.direction}]: batch of {batch} expected")
+        items = []
+        for b in range(batch):
+            item = list(args)
+            for i in idx:
+                if item[i] is not None:
+                    item[i] = item[i][b]
+            items.append(fn(*item))
+        return items
+
+    return body
+
+
+def init_engine_ir(engine, fuse=None) -> EngineIr:
+    """Lower ``engine``, validate its graphs and choose its path: fused
+    unless ``fuse=False`` or ``SPFFT_TPU_FUSE=0``. A graph that fails
+    validation raises."""
+    from .lower import lower_engine
+
+    fused, requested = resolve_fuse(fuse)
+    graphs = lower_engine(engine)
+    graphs["backward"].validate()
+    for g in graphs["forward"].values():
+        g.validate()
+    return EngineIr(graphs, path="fused" if fused else "staged", requested=requested,
+                    device=engine.device)

@@ -1,0 +1,168 @@
+"""Lowering: each local engine's pipeline as one stage graph per direction.
+
+One builder per engine class turns the engine's stage bodies (its ``_st_*``
+methods) into a :class:`~spfft_tpu_torch.ir.graph.StageGraph` per direction,
+with the node order and labels of the JAX package's local builders
+(``spfft_tpu/ir/lower.py`` ``_lower_local_xla``, ``_lower_local_mxu``). The
+graphs are what the engine runs (:mod:`spfft_tpu_torch.ir.compile`): a stage
+missing here is a stage the plan does not run.
+
+Where a node writes in place (the R2C hermitian fills), it writes into an
+edge that no other node reads, so fused and staged runs see the same values.
+"""
+from __future__ import annotations
+
+import numpy as np
+
+from ..errors import InvalidParameterError
+from ..types import ScalingType
+from .graph import EdgeMeta, StageGraph
+
+SCALINGS = (ScalingType.NONE, ScalingType.FULL)
+
+
+def lower_engine(engine) -> dict:
+    """``{"backward": graph, "forward": {scaling: graph}}`` of ``engine``,
+    by its class (or a base class with a builder). Only the single-device
+    engines have one; any other engine raises."""
+    for klass in type(engine).__mro__:
+        builder = _BUILDERS.get(klass.__name__)
+        if builder is not None:
+            return builder(engine)
+    raise InvalidParameterError(f"ir: no lowering registered for engine {type(engine).__name__!r}")
+
+
+def _complex(real_dtype):
+    return np.dtype(np.complex64 if np.dtype(real_dtype) == np.float32 else np.complex128)
+
+
+def _lower_local_xla(e):
+    p = e.params
+    rt, ct = e.real_dtype, _complex(e.real_dtype)
+    n = int(p.num_values)
+    S, Z, Y, Xf, X = int(p.num_sticks), p.dim_z, p.dim_y, p.dim_x_freq, p.dim_x
+
+    def backward():
+        g = StageGraph("backward")
+        g.add_input("values_re", dtype=rt, shape=(n,))
+        g.add_input("values_im", dtype=rt, shape=(n,))
+        g.batch_inputs = ("values_re", "values_im")
+        g.add("compression", e._st_decompress, ("values_re", "values_im"), ("sticks",),
+              out_meta={"sticks": EdgeMeta(ct, (S, Z))})
+        g.expect_dtype("compression", "values_re", rt)
+        g.expect_dtype("compression", "values_im", rt)
+        cur = "sticks"
+        if e.is_r2c:
+            g.add("stick symmetry", e._st_stick_symmetry, (cur,), ("sticks_h",),
+                  out_meta={"sticks_h": EdgeMeta(ct, (S, Z))})
+            cur = "sticks_h"
+        g.add("z transform", e._st_z_backward, (cur,), ("z_sticks",),
+              out_meta={"z_sticks": EdgeMeta(ct, (S, Z))})
+        g.add("expand", e._st_expand, ("z_sticks",), ("grid",),
+              out_meta={"grid": EdgeMeta(ct, (Z, Y, Xf))})
+        cur = "grid"
+        if e.is_r2c:
+            g.add("plane symmetry", e._st_plane_symmetry, (cur,), ("grid_h",),
+                  out_meta={"grid_h": EdgeMeta(ct, (Z, Y, Xf))})
+            cur = "grid_h"
+        g.add("y transform", e._st_y_backward, (cur,), ("grid_y",),
+              out_meta={"grid_y": EdgeMeta(ct, (Z, Y, Xf))})
+        if e.is_r2c:
+            g.add("x transform", e._st_x_backward, ("grid_y",), ("space",),
+                  out_meta={"space": EdgeMeta(rt, (Z, Y, X))})
+            g.set_outputs(["space"])
+        else:
+            g.add("x transform", e._st_x_backward, ("grid_y",), ("space_re", "space_im"),
+                  out_meta={"space_re": EdgeMeta(rt, (Z, Y, X)),
+                            "space_im": EdgeMeta(rt, (Z, Y, X))})
+            g.set_outputs(["space_re", "space_im"])
+        return g
+
+    def forward(s):
+        g = StageGraph("forward")
+        g.add_input("space_re", dtype=rt, shape=(Z, Y, X))
+        g.add_input("space_im", dtype=rt)  # None for R2C
+        g.batch_inputs = ("space_re", "space_im")
+        g.add("x transform", e._st_x_forward, ("space_re", "space_im"), ("grid",),
+              out_meta={"grid": EdgeMeta(ct, (Z, Y, Xf))})
+        g.add("y transform", e._st_y_forward, ("grid",), ("grid_y",),
+              out_meta={"grid_y": EdgeMeta(ct, (Z, Y, Xf))})
+        g.add("pack", e._st_pack, ("grid_y",), ("sticks",),
+              out_meta={"sticks": EdgeMeta(ct, (S, Z))})
+        g.add("z transform", e._st_z_forward, ("sticks",), ("z_sticks",),
+              out_meta={"z_sticks": EdgeMeta(ct, (S, Z))})
+        g.add("compression", lambda sticks: e._st_compress(sticks, s), ("z_sticks",),
+              ("out_re", "out_im"),
+              out_meta={"out_re": EdgeMeta(rt, (n,)), "out_im": EdgeMeta(rt, (n,))})
+        g.set_outputs(["out_re", "out_im"])
+        return g
+
+    return {"backward": backward(), "forward": {s: forward(s) for s in SCALINGS}}
+
+
+def _lower_local_mxu(e):
+    p = e.params
+    rt = e.real_dtype
+    n = int(p.num_values)
+    Z, R = p.dim_z, e._table_rows
+    table = lambda *names: {k: EdgeMeta(rt, (R, Z)) for k in names}
+
+    def backward():
+        g = StageGraph("backward")
+        g.add_input("values_re", dtype=rt, shape=(n,))
+        g.add_input("values_im", dtype=rt, shape=(n,))
+        g.batch_inputs = ("values_re", "values_im")
+        g.add("compression", e._st_decompress, ("values_re", "values_im"), ("sre", "sim"),
+              out_meta=table("sre", "sim"))
+        cur = ("sre", "sim")
+        if e.is_r2c and e._zero_stick_id is not None:
+            g.add("stick symmetry", e._st_stick_symmetry, cur, ("shre", "shim"),
+                  out_meta=table("shre", "shim"))
+            cur = ("shre", "shim")
+        g.add("z transform", e._st_z_backward, cur, ("zre", "zim"), out_meta=table("zre", "zim"))
+        if e.y_plan == "per-slot":
+            g.add("y transform sparse", e._st_y_sparse_backward, ("zre", "zim"), ("gre", "gim"))
+        elif e.y_plan == "blocked":
+            g.add("y transform blocked", e._st_y_blocked_backward, ("zre", "zim"), ("gre", "gim"))
+        else:
+            g.add("expand", e._expand, ("zre", "zim"), ("ere", "eim"))
+            cur = ("ere", "eim")
+            if e.is_r2c and e._x0_slot is not None:
+                g.add("plane symmetry", e._st_plane_symmetry, cur, ("pre", "pim"))
+                cur = ("pre", "pim")
+            g.add("y transform", e._st_y_dense_backward, cur, ("gre", "gim"))
+        if e.is_r2c:
+            g.add("x transform", e._st_x_backward, ("gre", "gim"), ("space",))
+            g.set_outputs(["space"])
+        else:
+            g.add("x transform", e._st_x_backward, ("gre", "gim"), ("space_re", "space_im"))
+            g.set_outputs(["space_re", "space_im"])
+        return g
+
+    def forward(s):
+        g = StageGraph("forward")
+        g.add_input("space_re", dtype=rt)
+        g.add_input("space_im", dtype=rt)  # None for R2C
+        g.batch_inputs = ("space_re", "space_im")
+        g.add("x transform", e._st_x_forward, ("space_re", "space_im"), ("gre", "gim"))
+        if e.y_plan == "per-slot":
+            g.add("y transform sparse", e._st_y_sparse_forward, ("gre", "gim"), ("sre", "sim"))
+        elif e.y_plan == "blocked":
+            g.add("y transform blocked", e._st_y_blocked_forward, ("gre", "gim"), ("sre", "sim"))
+        else:
+            g.add("y transform", e._st_y_dense_forward, ("gre", "gim"), ("yre", "yim"))
+            g.add("pack", e._pack, ("yre", "yim"), ("sre", "sim"))
+        g.add("z transform", lambda sre, sim: e._st_z_forward(sre, sim, s), ("sre", "sim"),
+              ("zre", "zim"))
+        g.add("compression", e._compress, ("zre", "zim"), ("out_re", "out_im"),
+              out_meta={"out_re": EdgeMeta(rt, (n,)), "out_im": EdgeMeta(rt, (n,))})
+        g.set_outputs(["out_re", "out_im"])
+        return g
+
+    return {"backward": backward(), "forward": {s: forward(s) for s in SCALINGS}}
+
+
+_BUILDERS = {
+    "LocalExecution": _lower_local_xla,
+    "MxuLocalExecution": _lower_local_mxu,
+}

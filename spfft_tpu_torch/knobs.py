@@ -37,6 +37,14 @@ REGISTRY = {k.name: k for k in (
     Knob("SPFFT_TPU_SPARSE_Y_BLOCKED_FRAC", "float", 0.8,
          "auto blocked-y engages when padded bucket rows < frac x dense extent"),
     Knob("SPFFT_TPU_XPAD", "int", 8, "active-x extent padding quantum", floor=1),
+    Knob("SPFFT_TPU_FUSE", "str", "1",
+         "stage-graph fusion (`spfft_tpu_torch.ir`): `1` runs each direction's stage "
+         "graph as one program (one CUDA-graph replay on the card); `0` runs the staged "
+         "per-node reference path (a plan's `fuse=` argument wins)", choices=("0", "1")),
+    Knob("SPFFT_TPU_BATCH_FUSE", "str", "1",
+         "batch fusion: `1` lets a same-plan batch of B transforms run as one program "
+         "per direction; `0` keeps the per-request loop. Read at call time",
+         choices=("0", "1")),
 )}
 
 
@@ -45,6 +53,13 @@ def _knob(name: str) -> Knob:
     if knob is None:
         raise InvalidParameterError(f"unregistered env knob {name!r}")
     return knob
+
+
+def raw(name: str):
+    """The verbatim value of a registered knob, None when unset: for the
+    resolvers that report where a setting came from (``ir.compile``)."""
+    _knob(name)
+    return os.environ.get(name)
 
 
 def _ambient(name: str):

@@ -23,6 +23,12 @@ def _mirror(a, axis: int):
     return a.index_select(axis, idx)
 
 
+def hermitian_fill_1d(a, axis: int):
+    """:func:`hermitian_fill_1d_pair` on one complex tensor. Returns a new tensor."""
+    re, im = hermitian_fill_1d_pair(a.real, a.imag, axis)
+    return torch.complex(re, im)
+
+
 def hermitian_fill_1d_pair(re, im, axis: int):
     """Two-pass nonzero-guarded hermitian completion of the pair (re, im)
     along ``axis`` (conj = negate im; nonzero = either part nonzero).

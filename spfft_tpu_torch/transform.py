@@ -6,6 +6,9 @@ signature. ``backward(values)`` maps packed complex values (triplet order) to
 the space domain, ``(dim_z, dim_y, dim_x)``, complex for C2C and real for R2C;
 ``forward(space, scaling)`` maps back. Results are tensors on the plan's
 ``torch.device``: the CUDA card for ``ProcessingUnit.GPU``, the CPU for HOST.
+The device-side entry points (``backward_pair``, ``forward_pair``,
+``space_domain_data(ProcessingUnit.GPU)``) keep the engine's native layout,
+:attr:`Transform.space_domain_layout`.
 """
 from __future__ import annotations
 
@@ -13,7 +16,7 @@ import numpy as np
 import torch
 
 from .errors import InvalidParameterError
-from .execution import from_pair
+from .execution import LocalExecution, from_pair
 from .execution_mxu import MxuLocalExecution
 from .grid import Grid, device_for_processing_unit
 from .ops.fft import resolve_precision
@@ -24,18 +27,22 @@ from .types import ExecType, IndexFormat, ProcessingUnit, ScalingType, Transform
 class Transform:
     """A sparse 3-D FFT plan on one device.
 
-    ``engine`` is ``"auto"`` or ``"mxu"`` (the matrix-product engine, the only
-    one ported; ``"xla"`` raises). Its y stage runs one of three plans, chosen
-    as the JAX engine chooses (``SPFFT_TPU_SPARSE_Y``,
-    ``SPFFT_TPU_SPARSE_Y_BLOCKS``, ``SPFFT_TPU_SPARSE_Y_BLOCKED_FRAC``): dense,
-    per-slot sparse (C2C) or blocked sparse (C2C and R2C).
+    ``engine``: ``"mxu"``, the matrix-product engine (every DFT stage a K1
+    launch; its y stage runs one of three plans, chosen as the JAX engine
+    chooses: dense, per-slot sparse (C2C) or blocked sparse), ``"xla"``, the
+    ``torch.fft`` engine (cuFFT on the card), or ``"auto"``, which is
+    ``"xla"`` on a CPU plan and ``"mxu"`` on the card, the JAX package's rule.
 
     ``precision`` (any case) is the JAX package's matrix-product precision.
     In float32 on the card: ``"highest"`` FP32-accurate 3xTF32, ``"high"``
     bf16x3 (about 1e-5 relative on a 256^3 transform), ``"default"`` one
     bf16 pass (about 4e-3).
     Float64 plans accept the name and ignore it, as do CPU plans, whose plain
-    products are exact float32 or float64.
+    products are exact float32 or float64, and the ``"xla"`` engine.
+
+    ``fuse``: each direction runs as one program (on the card one CUDA-graph
+    replay) when true, node by node when false; None reads
+    ``SPFFT_TPU_FUSE`` (default fused).
     """
 
     def __init__(
@@ -55,6 +62,7 @@ class Transform:
         engine: str = "auto",
         precision: str = "highest",
         device=None,
+        fuse=None,
     ):
         if IndexFormat(index_format) != IndexFormat.TRIPLETS:
             raise InvalidParameterError("only SPFFT_INDEX_TRIPLETS is supported")
@@ -79,20 +87,20 @@ class Transform:
         params = make_local_parameters(
             TransformType(transform_type), dim_x, dim_y, dim_z, indices
         )
-        self._setup(processing_unit, params, grid, dtype, engine, precision, device)
+        self._setup(processing_unit, params, grid, dtype, engine, precision, device, fuse)
 
     @classmethod
     def from_parameters(
         cls, processing_unit, params: LocalParameters, *, grid: Grid | None = None,
-        dtype=None, engine: str = "auto", precision: str = "highest", device=None,
+        dtype=None, engine: str = "auto", precision: str = "highest", device=None, fuse=None,
     ) -> "Transform":
         """A plan from already built parameters, e.g. carried over from the
         JAX package by :func:`~spfft_tpu_torch.parameters.from_jax_params`."""
         self = cls.__new__(cls)
-        self._setup(processing_unit, params, grid, dtype, engine, precision, device)
+        self._setup(processing_unit, params, grid, dtype, engine, precision, device, fuse)
         return self
 
-    def _setup(self, processing_unit, params, grid, dtype, engine, precision, device):
+    def _setup(self, processing_unit, params, grid, dtype, engine, precision, device, fuse):
         self._processing_unit = ProcessingUnit(processing_unit)
         self._params = params
         self._grid = grid
@@ -116,15 +124,19 @@ class Transform:
         if self._real_dtype not in (np.dtype(np.float32), np.dtype(np.float64)):
             raise InvalidParameterError("dtype must be float32 or float64")
         self._precision = resolve_precision(precision)
-        if engine == "xla":
-            raise InvalidParameterError("engine 'xla' is not yet ported")
-        if engine not in ("auto", "mxu"):
+        if engine not in ("auto", "mxu", "xla"):
             raise InvalidParameterError(f"unknown engine {engine!r}")
-        self._engine = engine
         self._device = device_for_processing_unit(self._processing_unit, device)
-        self._exec = MxuLocalExecution(params, self._real_dtype, self._device, self._precision)
+        if engine == "auto":  # the JAX package's rule (spfft_tpu/transform.py:207-208)
+            engine = "xla" if self._device.type == "cpu" else "mxu"
+        self._engine = engine
+        if engine == "mxu":
+            self._exec = MxuLocalExecution(params, self._real_dtype, self._device,
+                                           self._precision, fuse=fuse)
+        else:
+            self._exec = LocalExecution(params, self._real_dtype, self._device, fuse=fuse)
         self._exec_mode = ExecType.SYNCHRONOUS
-        self._space_data = None  # native (Y, X, Z): (re, im) for C2C, re for R2C
+        self._space_data = None  # native layout: (re, im) for C2C, re for R2C
 
     # ---- transforms -----------------------------------------------------------
 
@@ -137,14 +149,7 @@ class Transform:
         """
         if output_location is not None:
             _validate_data_location(output_location)
-        n = self._params.num_values
-        size = values.numel() if torch.is_tensor(values) else np.asarray(values).size
-        if size != n:
-            raise InvalidParameterError(f"expected {n} frequency values, got {size}")
-        re, im = self._exec.values_pair(values)
-        self._space_data = self._exec.backward_pair(re, im)
-        self._wait()
-        return self._public_space(self._space_data)
+        return self._finalize_backward(self._dispatch_backward(values))
 
     def forward(
         self,
@@ -160,46 +165,180 @@ class Transform:
         """
         if input_location is not None:
             _validate_data_location(input_location)
+        return self._finalize_forward(self._dispatch_forward(space, scaling))
+
+    # ---- split phases (multi_transform) ---------------------------------------------
+
+    def _dispatch_backward(self, values):
+        """Stage the values and enqueue the backward pipeline; returns the
+        native result without waiting, and retains it."""
+        re, im = self._exec.values_pair(self._checked_values(values))
+        self._space_data = self._exec.backward_pair(re, im)
+        return self._space_data
+
+    def _finalize_backward(self, out):
+        """Wait (SYNCHRONOUS mode) and return the public ``(Z, Y, X)`` view."""
+        self._wait()
+        return self._public_space(out)
+
+    def _dispatch_forward(self, space, scaling):
+        """Stage the space (or take the retained one) and enqueue the forward
+        pipeline; returns the (re, im) values without waiting."""
         if space is None:
             if self._space_data is None:
                 raise InvalidParameterError(
                     "no space domain data: run backward first or pass an array"
                 )
         else:
-            self._retain_space(space)
-        if self._is_r2c:
-            re, im = self._space_data, None
-        else:
-            re, im = self._space_data
-        out = from_pair(self._exec.forward_pair(re, im, ScalingType(scaling)))
-        self._wait()
-        return out
+            self._space_data = self._native_space(space)
+        return self._exec.forward_pair(*self._space_parts(self._space_data),
+                                       ScalingType(scaling))
 
-    def _retain_space(self, space) -> None:
-        """A ``(Z, Y, X)`` array or tensor -> the retained native ``(Y, X, Z)`` data."""
+    def _finalize_forward(self, pair):
+        self._wait()
+        return from_pair(pair)
+
+    def _checked_values(self, values):
+        n = self._params.num_values
+        size = values.numel() if torch.is_tensor(values) else np.asarray(values).size
+        if size != n:
+            raise InvalidParameterError(f"expected {n} frequency values, got {size}")
+        return values
+
+    def _space_parts(self, data):
+        """Retained native data -> the engine's ``(space_re, space_im)``."""
+        return (data, None) if self._is_r2c else data
+
+    # ---- device-side entry points, in the native layout -----------------------------
+
+    def backward_pair(self, values_re, values_im):
+        """(re, im) values in, space out in the engine's native layout
+        (:attr:`space_domain_layout`): the (re, im) pair for C2C, the real
+        tensor for R2C. The result is retained for :meth:`forward_pair`."""
+        put = lambda v: torch.as_tensor(v, dtype=self._exec.torch_dtype,
+                                        device=self._device).reshape(-1)
+        re, im = put(values_re), put(values_im)
+        self._checked_values(re)
+        self._checked_values(im)
+        self._space_data = self._exec.backward_pair(re, im)
+        return self._space_data
+
+    def forward_pair(self, scaling: ScalingType = ScalingType.NONE):
+        """Forward over the retained native space; returns the (re, im) values."""
+        if self._space_data is None:
+            raise InvalidParameterError("no space domain data: run backward first")
+        return self._exec.forward_pair(*self._space_parts(self._space_data),
+                                       ScalingType(scaling))
+
+    # ---- batches of one plan (SPFFT_TPU_BATCH_FUSE) -----------------------------------
+
+    def backward_batch(self, values_batch, *, fallback: bool = True, count: int | None = None):
+        """B backward transforms of this plan as one program per direction
+        (on the card one CUDA-graph replay for the batch); returns the B
+        ``(Z, Y, X)`` results. Where batching is unavailable (the knob off,
+        or a staged plan) the batch runs as a loop of :meth:`backward`
+        dispatches, or with ``fallback=False`` returns None. ``count`` marks
+        the first N entries as the real requests of a padded batch: only those
+        are returned (and looped). The batched program leaves the retained
+        space untouched."""
+        values_batch = list(values_batch)
+        count = _resolve_batch_count(count, len(values_batch))
+        if not values_batch:
+            return []
+        pending = self._dispatch_backward_batch(values_batch, fallback=fallback, count=count)
+        return None if pending is None else self._finalize_backward_batch(pending)[:count]
+
+    def forward_batch(self, spaces, scaling: ScalingType = ScalingType.NONE, *,
+                      fallback: bool = True, count: int | None = None):
+        """B ``(Z, Y, X)`` spaces -> B packed value tensors, as
+        :meth:`backward_batch` (one ``scaling`` for the batch)."""
+        spaces = list(spaces)
+        count = _resolve_batch_count(count, len(spaces))
+        if not spaces:
+            return []
+        pending = self._dispatch_forward_batch(spaces, scaling, fallback=fallback, count=count)
+        return None if pending is None else self._finalize_forward_batch(pending)[:count]
+
+    def _dispatch_backward_batch(self, values_batch, *, fallback=True, count=None):
+        """``{"batched": stacked native}`` after one batched dispatch, else
+        ``{"loop": [...]}`` of per-request dispatches, or None."""
+        count = _resolve_batch_count(count, len(values_batch))
+        rows = [self._checked_values(v) for v in values_batch]
+        if self._exec._ir.batch_available():
+            pairs = [self._exec.values_pair(v) for v in rows]
+            out = self._exec.backward_pair_batch(torch.stack([p[0] for p in pairs]),
+                                                 torch.stack([p[1] for p in pairs]))
+            return {"batched": out}
+        if not fallback:
+            return None
+        return {"loop": [self._dispatch_backward(v) for v in rows[:count]]}
+
+    def _finalize_backward_batch(self, pending):
+        self._wait()
+        if "loop" in pending:
+            return [self._public_space(out) for out in pending["loop"]]
+        out = pending["batched"]
+        batch = out.shape[0] if self._is_r2c else out[0].shape[0]
+        pick = lambda b: out[b] if self._is_r2c else (out[0][b], out[1][b])
+        return [self._public_space(pick(b)) for b in range(batch)]
+
+    def _dispatch_forward_batch(self, spaces, scaling, *, fallback=True, count=None):
+        count = _resolve_batch_count(count, len(spaces))
+        natives = [self._native_space(s) for s in spaces]
+        if self._exec._ir.batch_available():
+            if self._is_r2c:
+                re, im = torch.stack(natives), None
+            else:
+                re, im = (torch.stack([n[i] for n in natives]) for i in (0, 1))
+            return {"batched": self._exec.forward_pair_batch(re, im, ScalingType(scaling))}
+        if not fallback:
+            return None
+        return {"loop": [self._exec.forward_pair(*self._space_parts(n), ScalingType(scaling))
+                         for n in natives[:count]]}
+
+    def _finalize_forward_batch(self, pending):
+        self._wait()
+        if "loop" in pending:
+            return [from_pair(p) for p in pending["loop"]]
+        values = from_pair(pending["batched"])
+        return [values[b] for b in range(values.shape[0])]
+
+    # ---- layouts --------------------------------------------------------------------
+
+    def _native_space(self, space):
+        """A public ``(Z, Y, X)`` array or tensor -> native data on the device
+        (a copy: the caller's array may change or be read-only)."""
         p = self._params
         if torch.is_tensor(space):
             t = space.to(self._device)
-        else:  # a copy: the caller's array may be read-only
+        else:
             t = torch.tensor(np.asarray(space), device=self._device)
         if t.numel() != p.total_size:
             raise InvalidParameterError(
                 f"expected {p.total_size} space-domain elements, got {t.numel()}"
             )
-        t = t.reshape(p.dim_z, p.dim_y, p.dim_x).permute(1, 2, 0)
+        t = t.reshape(p.dim_z, p.dim_y, p.dim_x)
+        if self.space_domain_layout == "yxz":
+            t = t.permute(1, 2, 0)
         dt = self._exec.torch_dtype
         if self._is_r2c:
-            self._space_data = (t.real if t.is_complex() else t).to(dt).contiguous()
-        elif t.is_complex():
-            self._space_data = (t.real.to(dt).contiguous(), t.imag.to(dt).contiguous())
-        else:
-            re = t.to(dt).contiguous()
-            self._space_data = (re, torch.zeros_like(re))
+            return (t.real if t.is_complex() else t).to(dt).contiguous()
+        if t.is_complex():
+            return t.real.to(dt).contiguous(), t.imag.to(dt).contiguous()
+        re = t.to(dt).contiguous()
+        return re, torch.zeros_like(re)
 
     def _public_space(self, data):
-        """Native ``(Y, X, Z)`` data -> the public ``(Z, Y, X)`` view."""
+        """Native data -> the public ``(Z, Y, X)`` tensor (complex for C2C)."""
         arr = data if self._is_r2c else from_pair(data)
-        return arr.permute(2, 0, 1)
+        return arr.permute(2, 0, 1) if self.space_domain_layout == "yxz" else arr
+
+    @property
+    def space_domain_layout(self) -> str:
+        """Axis order of the device-side space data (``backward_pair``'s
+        result, ``space_domain_data(ProcessingUnit.GPU)``): ``"zyx"`` on the
+        ``"xla"`` engine, ``"yxz"`` on the ``"mxu"`` engine."""
+        return self._exec.NATIVE_LAYOUT
 
     def _wait(self) -> None:
         if self._exec_mode == ExecType.SYNCHRONOUS and self._device.type == "cuda":
@@ -207,25 +346,35 @@ class Transform:
 
     def space_domain_data(self, processing_unit: ProcessingUnit | None = None):
         """The most recent space-domain result (reference: transform.hpp:245):
-        a numpy ``(Z, Y, X)`` array for HOST (the default), the tensor on the
-        plan's device for GPU."""
+        a numpy ``(Z, Y, X)`` array for HOST (the default); for GPU the
+        retained tensor data on the plan's device in the native layout
+        (:attr:`space_domain_layout`): the (re, im) pair for C2C, the real
+        tensor for R2C."""
         if self._space_data is None:
             raise InvalidParameterError("no space domain data available yet")
-        data = self._public_space(self._space_data)
         if processing_unit is not None and _validate_data_location(
             processing_unit
         ) == ProcessingUnit.GPU:
-            return data
-        return data.cpu().numpy()
+            return self._space_data
+        return self._public_space(self._space_data).cpu().numpy()
 
     def clone(self) -> "Transform":
-        """An independent transform with the same layout, engine and precision
-        (reference: transform.hpp:133)."""
-        return Transform.from_parameters(
+        """An independent transform with the same layout, engine, precision
+        and fusion as this one resolved them (reference: transform.hpp:133)."""
+        c = Transform.from_parameters(
             self._processing_unit, self._params, grid=self._grid,
             dtype=self._real_dtype, engine=self._engine, precision=self._precision,
-            device=self._device,
+            device=self._device, fuse=self.fused,
         )
+        # the clone's fusion is this plan's decision, with where it came from
+        c._exec._ir.requested = self._exec._ir.requested
+        return c
+
+    @property
+    def fused(self) -> bool:
+        """True if each direction runs as one program (one CUDA-graph replay
+        on the card), False on the staged per-node path."""
+        return self._exec._ir.fused
 
     # ---- accessors, parity with include/spfft/transform.hpp:147-245 -----------
 
@@ -291,7 +440,8 @@ class Transform:
 
     @property
     def num_x_active(self) -> int:
-        """Active x rows of the unique-x compaction (padded to ``SPFFT_TPU_XPAD``, 8)."""
+        """Active x rows of the unique-x compaction (padded to ``SPFFT_TPU_XPAD``, 8);
+        ``dim_x_freq`` on the ``"xla"`` engine, whose grid spans every x."""
         return self._exec.num_x_active
 
     @property
@@ -304,8 +454,10 @@ class Transform:
         return self._precision
 
     def describe(self) -> dict:
-        """The engine's plan decisions: precision, active x rows, the y plan."""
-        return self._exec.describe()
+        """The engine's plan decisions (``"mxu"``: precision, active x rows,
+        the y plan) and the ``ir`` section: fused or staged, where that came
+        from, and the stage lists."""
+        return {**self._exec.describe(), "ir": self._exec._ir.describe()}
 
     @property
     def grid(self) -> Grid | None:
@@ -328,6 +480,17 @@ class Transform:
             torch.cuda.synchronize(self._device)
 
 
+def _resolve_batch_count(count, size: int) -> int:
+    """The real-request count of a (possibly padded) batch: the whole batch
+    by default; an explicit count addresses a non-empty prefix."""
+    if count is None:
+        return size
+    count = int(count)
+    if not 0 < count <= size:
+        raise InvalidParameterError(f"batch count= must be in [1, {size}], got {count}")
+    return count
+
+
 def _validate_data_location(pu) -> ProcessingUnit:
     """A data location is exactly HOST or GPU."""
     try:
@@ -338,3 +501,11 @@ def _validate_data_location(pu) -> ProcessingUnit:
         raise InvalidParameterError(f"invalid data location: {pu!r}")
     return pu
 
+
+class TransformFloat(Transform):
+    """Single-precision transform, the reference's parity alias
+    (include/spfft/transform_float.hpp): ``dtype=float32``."""
+
+    def __init__(self, *args, **kwargs):
+        kwargs.setdefault("dtype", np.float32)
+        super().__init__(*args, **kwargs)

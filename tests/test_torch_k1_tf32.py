@@ -103,7 +103,8 @@ def test_tile_constant_reads_back_as_the_split(k, q, imag, batch):
 def _plan(kind, dims=(8, 9, 10)):
     trip = sp.create_spherical_cutoff_triplets(*dims, 0.8, hermitian_symmetry=kind == "r2c")
     ttype = getattr(sp.TransformType, kind.upper())
-    return sp.Transform(sp.ProcessingUnit.HOST, ttype, *dims, indices=trip, dtype=np.float32)
+    return sp.Transform(sp.ProcessingUnit.HOST, ttype, *dims, indices=trip, dtype=np.float32,
+                        engine="mxu")
 
 
 STAGE_CONSTANTS = ["_wz_b", "_wy_b", "_wy_f", "_wz_f:NONE", "_wz_f:FULL", "_wx_b", "_wx_f"]

@@ -130,8 +130,8 @@ def test_from_jax_params_round_trip(r2c):
     assert carried.transform_type is own.transform_type
 
     values = rng.standard_normal(len(trip)) + 1j * rng.standard_normal(len(trip))
-    t_carried = tp.Transform.from_parameters(tp.ProcessingUnit.HOST, carried)
-    t_own = tp.Transform(tp.ProcessingUnit.HOST, int(r2c), *dims, indices=trip)
+    t_carried = tp.Transform.from_parameters(tp.ProcessingUnit.HOST, carried, engine="mxu")
+    t_own = tp.Transform(tp.ProcessingUnit.HOST, int(r2c), *dims, indices=trip, engine="mxu")
     np.testing.assert_array_equal(
         t_carried.backward(values).numpy(), t_own.backward(values).numpy()
     )

@@ -223,11 +223,11 @@ def test_resolve_precision_errors_as_jax(name):
         jfft.resolve_precision(name)
 
 
-def _plan(ttype, dims, precision, dtype, module=tp, **kw):
+def _plan(ttype, dims, precision, dtype, module=tp, engine="mxu"):
     r2c = ttype == 1
     trip = tp.create_spherical_cutoff_triplets(*dims, 0.6, hermitian_symmetry=r2c)
     return module.Transform(module.ProcessingUnit.HOST, ttype, *dims, indices=trip, dtype=dtype,
-                            precision=precision, **kw), trip
+                            precision=precision, engine=engine), trip
 
 
 def _spectrum_values(rng, trip, dims, r2c):

@@ -134,7 +134,8 @@ def test_bad_knob_values_raise_in_both_packages(name, value, monkeypatch):
     monkeypatch.setenv(name, value)
     trip = tp.create_spherical_cutoff_triplets(8, 8, 8, 0.8)
     with pytest.raises(tp.InvalidParameterError):
-        tp.Transform(tp.ProcessingUnit.HOST, tp.TransformType.C2C, 8, 8, 8, indices=trip)
+        tp.Transform(tp.ProcessingUnit.HOST, tp.TransformType.C2C, 8, 8, 8, indices=trip,
+                     engine="mxu")
     sx, sy, p = _layout("sphere", 0)
     ux, xslot = _slots(sx)
     with pytest.raises(spfft_tpu.InvalidParameterError):
@@ -190,7 +191,8 @@ def test_describe_sparse_y_matches_jax(radius, r2c, env, monkeypatch):
     _set(monkeypatch, **env)
     dims = (16, 24, 8)
     trip = tp.create_spherical_cutoff_triplets(*dims, radius, hermitian_symmetry=r2c)
-    t = tp.Transform(tp.ProcessingUnit.HOST, int(r2c), *dims, indices=trip, dtype=np.float32)
+    t = tp.Transform(tp.ProcessingUnit.HOST, int(r2c), *dims, indices=trip, dtype=np.float32,
+                     engine="mxu")
     p = t.params
     card = t.describe()
     assert card["sparse_y"] == _describe_jax(np.asarray(p.stick_x, np.int64),
@@ -326,7 +328,8 @@ def test_transform_parity_in_every_y_plan(name, dims, radius, r2c, env, plan, bu
     else:
         trip = tp.create_spherical_cutoff_triplets(*dims, radius, hermitian_symmetry=r2c)
     values = _values(rng, trip, dims, r2c)
-    port = tp.Transform(tp.ProcessingUnit.HOST, int(r2c), *dims, indices=trip, dtype=dtype)
+    port = tp.Transform(tp.ProcessingUnit.HOST, int(r2c), *dims, indices=trip, dtype=dtype,
+                        engine="mxu")
     ex = port._exec
     assert ex.y_plan == plan
     if buckets is not None:

@@ -34,7 +34,8 @@ def _pair(r2c, dims, trip, dtype):
     tt = int(r2c)
     ref = spfft_tpu.Transform(spfft_tpu.ProcessingUnit.HOST, tt, *dims, indices=trip,
                               dtype=dtype, engine="xla")
-    port = tp.Transform(tp.ProcessingUnit.HOST, tt, *dims, indices=trip, dtype=dtype)
+    port = tp.Transform(tp.ProcessingUnit.HOST, tt, *dims, indices=trip, dtype=dtype,
+                        engine="mxu")
     return ref, port
 
 
@@ -76,7 +77,7 @@ def test_round_trip(r2c, dims):
     rng = np.random.default_rng(sum(dims) + int(r2c))
     trip = tp.create_spherical_cutoff_triplets(*dims, 0.9, hermitian_symmetry=r2c)
     values = _values(rng, trip, dims, r2c)
-    t = tp.Transform(tp.ProcessingUnit.HOST, int(r2c), *dims, indices=trip)
+    t = tp.Transform(tp.ProcessingUnit.HOST, int(r2c), *dims, indices=trip, engine="mxu")
     t.backward(values)
     back = t.forward(scaling=tp.ScalingType.FULL).numpy()
     assert np.abs(back - values).max() <= 1e-10 * np.abs(values).max()
@@ -92,7 +93,8 @@ def test_space_domain_data_and_tensor_inputs():
     trip = tp.create_spherical_cutoff_triplets(*dims, 0.8)
     rng = np.random.default_rng(2)
     values = rng.standard_normal(len(trip)) + 1j * rng.standard_normal(len(trip))
-    t = tp.Transform(tp.ProcessingUnit.HOST, tp.TransformType.C2C, *dims, indices=trip)
+    t = tp.Transform(tp.ProcessingUnit.HOST, tp.TransformType.C2C, *dims, indices=trip,
+                     engine="mxu")
     with pytest.raises(tp.InvalidParameterError):
         t.space_domain_data()
     with pytest.raises(tp.InvalidParameterError):
@@ -101,7 +103,10 @@ def test_space_domain_data_and_tensor_inputs():
     host = t.space_domain_data()
     assert isinstance(host, np.ndarray) and host.shape == (5, 6, 8)
     np.testing.assert_array_equal(host, space.numpy())
-    assert torch.equal(t.space_domain_data(tp.ProcessingUnit.GPU), space)
+    # the device-side data is the engine's native buffer: (re, im) in (Y, X, Z)
+    assert t.space_domain_layout == "yxz"
+    re, im = t.space_domain_data(tp.ProcessingUnit.GPU)
+    assert torch.equal(torch.complex(re, im), space.permute(1, 2, 0))
     clone = t.clone()
     np.testing.assert_array_equal(clone.backward(values).numpy(), space.numpy())
     assert t.num_local_elements == len(trip) and t.global_size == 240
@@ -121,7 +126,7 @@ def test_gpu_without_cuda_raises():
 
 
 @pytest.mark.parametrize("kwargs", [
-    {"engine": "xla"}, {"engine": "fftw"}, {"precision": "medium"}, {"dtype": np.float16},
+    {"engine": "cufft"}, {"engine": "fftw"}, {"precision": "medium"}, {"dtype": np.float16},
     {"local_z_length": 3},
 ])
 def test_invalid_options_raise(kwargs):
@@ -132,7 +137,8 @@ def test_invalid_options_raise(kwargs):
 
 def test_wrong_sizes_raise():
     trip = tp.create_spherical_cutoff_triplets(8, 8, 8, 0.8)
-    t = tp.Transform(tp.ProcessingUnit.HOST, tp.TransformType.C2C, 8, 8, 8, indices=trip)
+    t = tp.Transform(tp.ProcessingUnit.HOST, tp.TransformType.C2C, 8, 8, 8, indices=trip,
+                     engine="mxu")
     with pytest.raises(tp.InvalidParameterError):
         t.backward(np.zeros(len(trip) - 1))
     with pytest.raises(tp.InvalidParameterError):
