@@ -45,10 +45,20 @@ Phases, one JSON line each:
    calls (one batched dispatch per direction, ms per transform against the
    loop); ``multi_transform_backward``/``_forward`` of the C2C and R2C
    headline plans against their single calls;
-6. one pair of every plan and twin under ``torch.profiler``: the device's
+6. the distributed phase (``DIST_PLANS``): ``DistributedTransform`` over
+   ``make_fft_mesh(4)``, four shards stacked on the card, at 256^3: C2C and
+   R2C with ``engine="auto"`` (which must be ``mxu``) and the DEFAULT
+   exchange, a skewed C2C plan (weights 2:1:1:1, z-slabs 70/62/62/62,
+   UNBUFFERED), C2C in float64 over a float32 wire (BUFFERED_FLOAT), C2C on
+   the ``torch.fft`` engine, and C2C over a one-rank NCCL process group (the
+   collective route, staged). Each is held against the dense oracle, the
+   local blocked plan of the same triplets, its round trip, its staged twin
+   (bitwise), and the NCCL plan against the one without a group (bitwise);
+   its K1 and K2 forms against their plain versions, as in phase 3;
+7. one pair of every plan and twin under ``torch.profiler``: the device's
    busy share and the kernels that take its time; then the pair times, all
    plans taking turns, for comparisons within the run;
-7. the ``kernels`` line; last, the ``{"ok": true, "device": ...}`` line.
+8. the ``kernels`` line; last, the ``{"ok": true, "device": ...}`` line.
 
 Exits non-zero, with no result line, when there is no CUDA device or any
 check fails.
@@ -60,6 +70,7 @@ import json
 import os
 import re
 import shutil
+import socket
 import statistics
 import subprocess
 import sys
@@ -81,6 +92,7 @@ REPLAYS = 20
 # H100 SXM published peaks (NVIDIA data sheet, 700 W): FP32 and FP64 outside
 # the tensor cores, dense TF32 and BF16 on them, and HBM3 bandwidth.
 PEAK_FLOPS = {"float32": 67e12, "float64": 34e12}
+PEAK_F64_TC = 67e12  # FP64 on the tensor cores (the data sheet's FP64 Tensor Core rate)
 PEAK_TC = {"highest": 495e12, "high": 989e12, "default": 989e12}  # TF32, BF16, BF16
 TC_PASSES = {"highest": 3, "high": 3, "default": 1}  # tensor-core products per real product
 OTHER = {"highest": "high", "high": "highest"}  # the precision a K1 row must not pass as
@@ -111,6 +123,23 @@ EXPECT = {
     ("c2c", 0.5): 136,
 }
 SLOTS_OUT, SLOTS_IN = "ajz,ajk->kaz", "yaz,ajy->ajz"
+# The distributed phase, 4 shards, radius 0.659: (name, transform, engine,
+# exchange, dtype, shard weights, local_z_lengths, over a process group, the
+# local plan it is held against)
+DIST_PLANS = [
+    ("dist4-c2c", "c2c", "auto", "DEFAULT", np.float32, None, None, False, "c2c-blocked"),
+    ("dist4-r2c", "r2c", "auto", "DEFAULT", np.float32, None, None, False, "r2c-blocked"),
+    ("dist4-c2c-skewed", "c2c", "mxu", "UNBUFFERED", np.float32, (2, 1, 1, 1),
+     (70, 62, 62, 62), False, "c2c-blocked"),
+    ("dist4-c2c-f64-float", "c2c", "mxu", "BUFFERED_FLOAT", np.float64, None, None, False,
+     "c2c-blocked"),
+    ("dist4-c2c-xla", "c2c", "xla", "DEFAULT", np.float32, None, None, False, "c2c-blocked"),
+    ("dist4-c2c-nccl1", "c2c", "auto", "DEFAULT", np.float32, None, None, True, "c2c-blocked"),
+]
+# float64 over a float32 wire, the oracle and the round trip: between what a
+# sound plan reads (about 3e-8) and what the same plan computed in float32
+# would (about 1.2e-6, the float32 distributed plans' reading), with room both ways
+DIST_F64_RTOL = 2e-7
 
 
 def emit(obj) -> None:
@@ -277,6 +306,7 @@ def k1_bounds_ms(ops, want_imag, precision, w) -> tuple[float, str, float]:
     the data and the result in float32 and the plan constant ``w`` as the
     precision needs it: one bf16 plane per part at "default" (its tiles are
     made once per plan), 4 bytes per element else."""
+    import torch
     from spfft_tpu_torch.ops import complex_matmul as k1
 
     ar, ai, br, bi = ops
@@ -295,8 +325,11 @@ def k1_bounds_ms(ops, want_imag, precision, w) -> tuple[float, str, float]:
         + item * (1 + want_imag) * batch * m * n
     )
     t_bytes = nbytes / PEAK_BYTES
-    t_tc = TC_PASSES[precision] * flops / PEAK_TC[precision]
     t_fp32 = flops / PEAK_FLOPS[str(ar.dtype).split(".")[1]]
+    # float64: the card's FP64 peak, on its tensor cores (K1's float64 body
+    # runs on the FMA units, at half that rate: fp32_bound_ms)
+    t_tc = (flops / PEAK_F64_TC if ar.dtype == torch.float64
+            else TC_PASSES[precision] * flops / PEAK_TC[precision])
     bound_by = "operations" if t_tc >= t_bytes else "bytes"
     return 1e3 * max(t_tc, t_bytes), bound_by, 1e3 * max(t_fp32, t_bytes)
 
@@ -352,6 +385,8 @@ def run_k1(name, spec, x, w, want_imag, precision, out=None):
     outv = None if out is None else tuple(offt.result_view(spec, o) for o in out)
     errs, scales = k1_err(ops, want_imag, w, precision, outv)
     err, scale = max(errs), max(scales)
+    f64 = ops[0].dtype == torch.float64
+    rtol = K1_F64_RTOL if f64 else K1_RTOL
     ar, ai, br, bi = ops
     whole = lambda t: t[:1] if t.stride(0) == 0 else t
     a_c = torch.complex(whole(ar), whole(ai) if ai is not None else torch.zeros_like(whole(ar)))
@@ -363,34 +398,37 @@ def run_k1(name, spec, x, w, want_imag, precision, out=None):
     row = {
         "name": f"complex_matmul:{name}", "route": "cuda",
         "source": "spfft_tpu_torch/csrc/" + k1.LIBRARIES[precision][0] + ".cu",
-        "replaces": "spfft_tpu/ops/pallas_fft.py:95", "precision": precision,
+        "replaces": "spfft_tpu/ops/pallas_fft.py:95",
+        "precision": "float64" if f64 else precision,
         "shape": {"batch": ar.shape[0], "M": ar.shape[1], "K": ar.shape[2], "N": br.shape[2]},
         "max_abs_err": err, "rel_err": err / scale,
         "ms": device_ms(kernel),
         "plain_ms": device_ms(lambda: plain(*ops, want_imag)),
-        "library_ms": device_ms(lib), "library_math": "cuBLAS complex64, allow_tf32=False",
+        "library_ms": device_ms(lib),
+        "library_math": "cuBLAS complex128" if f64 else "cuBLAS complex64, allow_tf32=False",
         "call_ms": call_ms(kernel),
         "bound_ms": bound, "bound_by": bound_by, "fp32_bound_ms": fp32_bound,
     }
-    if precision != "highest":
+    if precision != "highest" and not f64:
         torch.backends.cuda.matmul.allow_tf32 = True
         try:
             row["library_tf32_ms"] = device_ms(lib)
         finally:
             torch.backends.cuda.matmul.allow_tf32 = False
     row["bound_share"] = row["bound_ms"] / row["ms"]
-    # what the tiles draw from L2 into shared memory, and at what rate
-    row["feed_bytes"] = k1_feed_bytes(ops, w)
-    row["feed_tb_s"] = row["feed_bytes"] / row["ms"] / 1e9
-    if precision in OTHER:
+    if not f64:
+        # what the tiles draw from L2 into shared memory, and at what rate
+        row["feed_bytes"] = k1_feed_bytes(ops, w)
+        row["feed_tb_s"] = row["feed_bytes"] / row["ms"] / 1e9
+    if precision in OTHER and not f64:
         # the other float32-accurate arithmetic on the same inputs: the bar
         # must tell it from this precision's
         want, alt = plain(*ops, want_imag), k1_plain(OTHER[precision])(*ops, want_imag)
         row["other_arithmetic_rel_err"] = max(
             (a - b).abs().max().item() for a, b in zip(alt, want) if b is not None) / scale
     emit({"phase": "kernel", **row})
-    check(err <= K1_RTOL * scale, f"{row['name']} differs from its plain version: {err} vs {scale}")
-    if precision in OTHER:
+    check(err <= rtol * scale, f"{row['name']} differs from its plain version: {err} vs {scale}")
+    if precision in OTHER and not f64:
         check(row["other_arithmetic_rel_err"] > K1_RTOL,
               f"{row['name']}: the {OTHER[precision]} arithmetic passes the {precision} bar")
     return row, k1_key(ops, want_imag, precision)
@@ -441,33 +479,48 @@ def run_k1_odd(phase, dtype, rtol, precision="highest"):
     check(untouched, f"complex_matmul {dtype} {precision} wrote outside its strided output")
 
 
-def run_k2(name, src, idx):
+def run_k2(name, src, idx, packed=False):
+    """K2 at one form against its plain version. ``packed``: the planes'
+    rows go side by side into one ``(rows, planes * W)`` buffer, as the
+    exchange's pack writes them (its unpack reads such a buffer's column
+    blocks, which ``src`` then is)."""
     import torch
     from spfft_tpu_torch.ops import row_gather as k2
 
-    ore, oim = k2.row_gather(src[0], src[1], idx)
-    pre, pim = k2.row_gather_plain(src[0], idx), k2.row_gather_plain(src[1], idx)
-    torch.cuda.synchronize()
-    exact = torch.equal(ore, pre) and torch.equal(oim, pim)
-    err = max((ore - pre).abs().max().item(), (oim - pim).abs().max().item())
+    src = [t for t in src if t is not None]
     n_src, width = src[0].shape
+    second = src[1] if len(src) > 1 else None
+
+    def kernel():
+        if not packed:
+            return k2.row_gather(src[0], second, idx)
+        buf = src[0].new_empty((idx.numel(), len(src) * width))
+        cols = [buf[:, q * width:(q + 1) * width] for q in range(len(src))]
+        return k2.row_gather(src[0], second, idx, out=(cols[0], cols[1] if second is not None
+                                                        else None))
+
+    got = [o for o in kernel() if o is not None]
+    want = [k2.row_gather_plain(t, idx) for t in src]
+    torch.cuda.synchronize()
+    exact = all(torch.equal(g, w) for g, w in zip(got, want))
+    err = max((g - w).abs().max().item() for g, w in zip(got, want))
     il = idx.long()
     valid = (il >= 0) & (il < n_src)
     both = torch.stack([torch.cat([s, s.new_zeros((1, width))]) for s in src])
     il = torch.where(valid, il, torch.full_like(il, n_src))
     item = src[0].element_size()
     rows_read = torch.unique(il[valid]).numel()
-    nbytes = 2 * item * width * (rows_read + idx.numel()) + idx.element_size() * idx.numel()
-    kernel = lambda: k2.row_gather(src[0], src[1], idx)
+    nbytes = len(src) * item * width * (rows_read + idx.numel()) + idx.element_size() * idx.numel()
     row = {
         "name": f"row_gather:{name}", "route": "cuda",
         "source": "spfft_tpu_torch/csrc/row_gather.cu",
         "replaces": "programs/microbench_pallas_dma.py:140",
-        "shape": {"rows": idx.numel(), "n_src": n_src, "width": width, "planes": 2},
+        "shape": {"rows": idx.numel(), "n_src": n_src, "width": width, "planes": len(src),
+                  "dtype": str(src[0].dtype).split(".")[1], "ld_src": src[0].stride(0),
+                  "packed_out": packed},
         "max_abs_err": err, "bitwise_equal": exact,
         "ms": device_ms(kernel),
-        "plain_ms": device_ms(lambda: (k2.row_gather_plain(src[0], idx),
-                                       k2.row_gather_plain(src[1], idx))),
+        "plain_ms": device_ms(lambda: [k2.row_gather_plain(t, idx) for t in src]),
         "library_ms": device_ms(lambda: torch.index_select(both, 1, il)),
         "call_ms": call_ms(kernel),
         "bound_ms": 1e3 * nbytes / PEAK_BYTES, "bound_by": "bytes",
@@ -475,7 +528,7 @@ def run_k2(name, src, idx):
     row["bound_share"] = row["bound_ms"] / row["ms"]
     emit({"phase": "kernel", **row})
     check(exact, f"{row['name']} is not bitwise equal to its plain version")
-    return row, (idx.numel(), n_src, width, 2)
+    return row, (idx.numel(), n_src, width, len(src))
 
 
 def k2_forms(name, t, gen):
@@ -820,11 +873,231 @@ def profile_pair(sp, name, t, values_dev) -> dict:
         "device_busy_ms": busy_us / 1e3 if spans else None,
         "device_busy_share": busy_us / 1e3 / window_ms if spans else None,
         "k1_ms": of("tc_kernel", "complex_matmul_kernel"), "k2_ms": of("row_gather_kernel"),
-        "kernels": len(kernels),
+        "nccl_ms": of("ncclDevKernel"), "kernels": len(kernels),
         "top": [{"name": k, "ms": ms, "count": n} for k, (ms, n) in top],
     }
     emit(row)
     return row
+
+
+# ---- the distributed phase -------------------------------------------------------
+
+
+def dist_k1_forms(name, t):
+    """The K1 forms of distributed plan ``name`` that get a row: its z stages,
+    stacked over the four shards with the z-slab split in their matrices
+    (``(P_local * S_max, Z) @ (Z, P * L_max)`` and back); for a plan whose
+    slab side differs from the local plan's (ragged slabs: z extent
+    P_local * L_max = 280; float64), also its x and y forms."""
+    import torch
+    from spfft_tpu_torch import ScalingType
+
+    FULL = ScalingType.FULL
+    ex, p = t._exec, t.params
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 3)
+    dt = ex.torch_dtype
+    rnd = lambda *shape: torch.randn(shape, generator=gen, device="cuda", dtype=dt)
+    pair = lambda *shape: (rnd(*shape), rnd(*shape))
+    rows, PL = ex.num_local * ex._S, p.num_shards * ex._L
+    if PL == p.dim_z:  # both directions at one shape: one launch key, so one row
+        forms = [(f"{name}/z_backward+forward", "sz,zk->sk", pair(rows, p.dim_z), ex._wz_b,
+                  True, None)]
+    else:
+        forms = [(f"{name}/z_backward", "sz,zk->sk", pair(rows, p.dim_z), ex._wz_b, True, None),
+                 (f"{name}/z_forward", "sz,zk->sk", pair(rows, PL), ex._wz_f[FULL], True, None)]
+    if ex._zs == p.dim_z and dt == torch.float32:
+        return forms
+    Y, A, X, Zs = p.dim_y, ex.num_x_active, p.dim_x, ex._zs
+    forms += [(f"{name}/x_backward", "kxz,xl->klz", pair(Y, A, Zs), ex._wx_b, True, None),
+              (f"{name}/x_forward", "yxz,xk->ykz", pair(Y, X, Zs), ex._wx_f, True, None)]
+    grid, col = pair(Y, A, Zs), 0
+    for b, (ag, syg, wb, wf) in enumerate(ex.buckets):
+        cols = tuple(g[:, col:col + ag] for g in grid)
+        forms.append((f"{name}/bucket{b}_backward", SLOTS_OUT, pair(ag, syg, Zs), wb, True, cols))
+        forms.append((f"{name}/bucket{b}_forward", SLOTS_IN, cols, wf, True, None))
+        col += ag
+    return forms
+
+
+def dist_k2_forms(name, t, gen):
+    """The exchange's K2 gathers of distributed plan ``name``: (row name,
+    source planes, index, packed). Without a group one gather per direction;
+    over the process group a pack gather per direction into the send
+    buffer's column blocks and an unpack gather out of the received one's."""
+    import torch
+
+    ex = t._exec
+    xc = ex._exchange
+    planes = 1 if t.engine == "xla" else 2
+    width = xc.L * (2 if t.engine == "xla" else 1)
+    rnd = lambda rows: [torch.randn((rows, width), generator=gen, device="cuda",
+                                    dtype=ex.torch_dtype) for _ in range(planes)]
+    sticks, slots = xc.Pl * xc.S * xc.P, xc.num_fwd_slots * xc.Pl
+    if not xc.collective:
+        return [(f"{name}/exchange_backward", rnd(sticks), xc._bwd_index, False),
+                (f"{name}/exchange_forward", rnd(slots), xc._fwd_index, False)]
+
+    def received(rows):
+        buf = torch.randn((rows, planes * width), generator=gen, device="cuda",
+                          dtype=ex.torch_dtype)
+        return [buf[:, q * width:(q + 1) * width] for q in range(planes)]
+
+    return [(f"{name}/pack_backward", rnd(sticks), xc._bwd[0], True),
+            (f"{name}/unpack_backward", received(sum(xc._bwd[3])), xc._bwd[1], False),
+            (f"{name}/pack_forward", rnd(slots), xc._fwd[0], True),
+            (f"{name}/unpack_forward", received(sum(xc._fwd[3])), xc._fwd[1], False)]
+
+
+def shard_index(triplets, per):
+    """Per shard, the positions of its triplets in the global array."""
+    key = lambda t: ((t[:, 0] + 1024) * 2048 + t[:, 1] + 1024) * 2048 + t[:, 2] + 1024
+    keys = key(np.asarray(triplets, np.int64))
+    order = np.argsort(keys)
+    return [order[np.searchsorted(keys[order], key(np.asarray(t, np.int64)))] for t in per]
+
+
+def expected_dist_launches(t) -> tuple[int, int]:
+    """(K1, K2) launches of one distributed pair: the local engine's K1
+    stages; K2 one exchange gather per direction, or a pack and an unpack
+    per direction over a process group."""
+    k2 = 4 if t._exec._exchange.collective else 2
+    return (0, k2) if t.engine == "xla" else (expected_launches(t._exec)[0], k2)
+
+
+def dist_main_path(sp, name, t, twin, values, want, local_space, local_back, bar, ref=None):
+    """The main path of one distributed plan: the staged twin's pair (the
+    launch counts), the fused plan's first pair (twice the twin's launches)
+    and second (none), against the dense oracle, the local plan's backward,
+    the input values (round trip) and bitwise against the twin; the plan
+    over the process group (staged, no twin) bitwise against ``ref``, the
+    pair of the same plan without a group. Returns the launch counts, the
+    pair's results and the row."""
+    import torch
+
+    staged = run_pair(sp, twin, values)
+    first = run_pair(sp, t, values) if t is not twin else staged
+    second = run_pair(sp, t, values) if t is not twin else staged
+    space_h = first["space"].cpu().numpy()
+    check(space_h.shape == want.shape and np.isfinite(space_h).all(), f"{name} space shape/finite")
+    back = first["back"]
+    check(len(back) == 4 and all(bool(torch.isfinite(b).all()) for b in back),
+          f"{name} values finite")
+    oracle_err = float(np.abs(space_h - want).max() / np.abs(want).max())
+    local_err = float(np.abs(space_h - local_space).max() / np.abs(local_space).max())
+    scale = max(float(v.abs().max()) for v in values)
+    rt_err = max(float((b - v).abs().max()) for b, v in zip(back, values)) / scale
+    local_back_err = max(float((b.to(lb.dtype) - lb).abs().max())
+                         for b, lb in zip(back, local_back)) / scale
+    counts = staged["counts"]
+    n_k1, n_k2 = (sum(counts[k].values()) for k in ("complex_matmul", "row_gather"))
+    twice = {k: {key: 2 * n for key, n in c.items()} for k, c in counts.items()}
+    same = lambda a, b: torch.equal(a["space"], b["space"]) and all(
+        torch.equal(x, y) for x, y in zip(a["back"], b["back"]))
+    ex = t._exec
+    row = {
+        "phase": "dist_main_path", "plan": name, "engine": t.engine, "dims": list(DIMS),
+        "transform": t.transform_type.name.lower(), "dtype": str(np.dtype(t.dtype)),
+        "exchange": t.exchange_type.name,
+        "exchange_requested": t.describe()["exchange"]["requested"],
+        "exchange_wire_bytes": t.exchange_wire_bytes(), "exchange_rounds": t.exchange_rounds(),
+        "transport": ex.exchange_transport(), "fused": t.fused,
+        "staged_because": t.describe()["ir"].get("staged_because"),
+        "y_plan": getattr(ex, "y_plan", None), "describe": t.describe(),
+        "num_sticks_per_shard": [int(n) for n in t.params.num_sticks_per_shard],
+        "local_z_lengths": [int(n) for n in t.params.local_z_lengths],
+        "oracle_rel_err": oracle_err, "local_plan_rel_err": local_err,
+        "local_plan_values_rel_err": local_back_err, "roundtrip_rel_err": rt_err, "bar": bar,
+        "launches": {"complex_matmul": n_k1, "row_gather": n_k2,
+                     "from": "the staged pair" if t is twin else "the staged twin's pair"},
+        "launches_first_fused_pair": total(first["counts"]),
+        "launches_second_fused_pair": total(second["counts"]),
+        "dispatches": {"staged": staged["dispatches"], "fused_second": second["dispatches"]},
+        "fused_equals_staged": same(first, staged),
+        "peak_extra_bytes": {"staged_pair": staged["peak_extra_bytes"],
+                             "fused_pair": second["peak_extra_bytes"]},
+    }
+    if ref is not None:
+        row["bitwise_equal_to_the_plan_without_a_group"] = same(staged, ref)
+    emit(row)
+    check(oracle_err <= bar, f"{name} backward vs dense oracle: {oracle_err} (bar {bar})")
+    check(rt_err <= bar, f"{name} round trip: {rt_err} (bar {bar})")
+    check(local_err <= ORACLE_RTOL["highest"], f"{name} vs the local plan: {local_err}")
+    check(local_back_err <= ORACLE_RTOL["highest"],
+          f"{name} values vs the local plan: {local_back_err}")
+    want_k1, want_k2 = expected_dist_launches(t)
+    check(n_k1 == want_k1 and n_k2 == want_k2,
+          f"{name} launches: {n_k1} K1, {n_k2} K2 (expected {want_k1} and {want_k2})")
+    if ref is not None:
+        check(not t.fused and row["bitwise_equal_to_the_plan_without_a_group"],
+              f"{name}: not staged, or not bitwise equal to the plan without a group")
+    else:
+        check(t.fused and not twin.fused, f"{name}: the plan is not fused or its twin not staged")
+        check(row["fused_equals_staged"], f"{name}: fused and staged results differ")
+        check(first["counts"] == twice, f"{name}: first fused pair launched {first['counts']}, "
+              f"not twice the twin's {counts}")
+        check(total(second["counts"]) == 0, f"{name}: a replayed pair launched on the host")
+        check(second["dispatches"] == {"fused:backward": 1, "fused:forward": 1},
+              f"{name}: fused dispatches {second['dispatches']}")
+    return counts, staged, row
+
+
+def dist_phase(sp, data, plans, values):
+    """Builds and drives every plan of ``DIST_PLANS`` (see the module
+    docstring), each against its oracle and local plan. Returns the plans
+    {name: (plan, twin or None)}, their launch counts, their kernel rows and
+    their per-shard values."""
+    import torch
+    import torch.distributed as dist
+
+    torch.cuda.set_device(0)
+    with socket.socket() as sock:  # a free port for the group's rendezvous
+        sock.bind(("localhost", 0))
+        port = sock.getsockname()[1]
+    group = sp.init_distributed(f"localhost:{port}", 1, 0, backend="nccl")
+    local_results = {}
+    for local in {d[-1] for d in DIST_PLANS}:
+        lt = plans[local][0]
+        local_results[local] = (lt.backward(values[local]).cpu().numpy(),
+                                lt.forward(scaling=sp.ScalingType.FULL))
+    out, counts, rows, dvalues, mains = {}, {}, [], {}, {}
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 4)
+    for name, kind, engine, exchange, dtype, weights, lz, over_group, local in DIST_PLANS:
+        triplets, vals_global, want = data[kind, 0.659]
+        per = sp.distribute_triplets(triplets, 4, DIMS[1], weights=weights)
+        where = shard_index(triplets, per)
+        cdt = np.complex64 if dtype == np.float32 else np.complex128
+        vals = [torch.as_tensor(vals_global[i].astype(cdt), device="cuda") for i in where]
+        mesh = sp.make_fft_mesh(4, group=group if over_group else None)
+        make = lambda **kw: sp.DistributedTransform(
+            sp.ProcessingUnit.GPU, getattr(sp.TransformType, kind.upper()), *DIMS, per,
+            mesh=mesh, engine=engine, exchange_type=getattr(sp.ExchangeType, exchange),
+            dtype=dtype, local_z_lengths=lz, **kw)
+        t = make()
+        twin = t if over_group else make(fuse=False)
+        emit({"phase": "dist_plan", "plan": name, "engine": t.engine, "fused": t.fused,
+              "exchange": t.exchange_type.name, "describe": t.describe()})
+        if engine == "auto":
+            check(t.engine == "mxu", f"{name}: auto resolved to {t.engine} on the card")
+        if t.engine == "mxu":
+            got = [(ag, syg) for ag, syg, _, _ in t._exec.buckets] if t._exec.buckets else None
+            check(t._exec.y_plan == "blocked" and got == EXPECT[kind, 0.659],
+                  f"{name}: y plan {t._exec.y_plan} {got}, not the blocked {EXPECT[kind, 0.659]}")
+        # the kernels at this plan's forms, against their plain versions
+        if t.engine == "mxu" and not over_group:
+            for form, spec, x, w, want_imag, o in dist_k1_forms(name, t):
+                row, key = run_k1(form, spec, x, w, want_imag, t.precision, o)
+                rows.append((row, name, "complex_matmul", key))
+        for form, src, idx, packed in dist_k2_forms(name, t, gen):
+            row, key = run_k2(form, src, idx, packed)
+            rows.append((row, name, "row_gather", key))
+        bar = DIST_F64_RTOL if dtype == np.float64 else ORACLE_RTOL["highest"]
+        local_space, local_back = local_results[local]
+        local_back = [local_back[torch.as_tensor(i, device="cuda")] for i in where]
+        ref = mains["dist4-c2c"] if over_group else None
+        counts[name], mains[name], _ = dist_main_path(
+            sp, name, t, twin, vals, want, local_space, local_back, bar, ref)
+        out[name], dvalues[name] = (t, None if over_group else twin), vals
+    return out, counts, rows, dvalues, dist
 
 
 def main() -> int:
@@ -912,16 +1185,27 @@ def main() -> int:
     for name, (t, precision, key) in plans.items():
         _, vals, want = data[key]
         counts[name], values[name] = main_path(sp, name, t, twins[name], precision, vals, want)
-    del data
     for name in ("c2c-blocked", "r2c-blocked"):
         results_stay_put(sp, name, plans[name][0], values[name])
     batches = {name: batch_phase(sp, name, plans[name][0], values[name])
                for name in ("c2c-blocked", "r2c-blocked")}
     multi_transform_phase(sp, ("c2c-blocked", "r2c-blocked"), plans, values)
 
+    # ---- the distributed phase: four shards on the card, and over a process group ----
+    t0 = time.perf_counter()
+    dplans, dcounts, drows, dvalues, dist = dist_phase(sp, data, plans, values)
+    del data
+    rows += drows
+    counts.update(dcounts)
+    values.update(dvalues)
+    emit({"phase": "dist", "seconds": time.perf_counter() - t0})
+
     # ---- the profile, and the pair times with every plan and twin taking turns ----
-    every = {**{n: v[0] for n, v in plans.items()}, **{n + STAGED: t for n, t in twins.items()}}
+    every = {**{n: v[0] for n, v in plans.items()}, **{n + STAGED: t for n, t in twins.items()},
+             **{n: t for n, (t, _) in dplans.items()},
+             **{n + STAGED: tw for n, (_, tw) in dplans.items() if tw is not None}}
     values.update({n + STAGED: values[n] for n in twins})
+    values.update({n + STAGED: dvalues[n] for n, (_, tw) in dplans.items() if tw is not None})
     busy = {name: profile_pair(sp, name, t, values[name]) for name, t in every.items()}
     turns = interleaved_pair_ms(sp, every, values)
     emit({"phase": "compare", "what": "median ms per pair (host clock), all plans and their "
@@ -935,6 +1219,24 @@ def main() -> int:
                      "staged_kernels": busy[name + STAGED]["kernels"]}
               for name in plans},
           "batch_ms_per_transform_pair": {n: b["ms_per_transform_pair"] for n, b in batches.items()}})
+    dist_rows = {}
+    for name, *_, local in DIST_PLANS:
+        tw = name + STAGED if name + STAGED in turns else None
+        dist_rows[name] = {
+            "pair_ms_in_turns": turns[name], "device_busy_ms": busy[name]["device_busy_ms"],
+            "staged_pair_ms_in_turns": turns[tw] if tw else None,
+            "staged_device_busy_ms": busy[tw]["device_busy_ms"] if tw else None,
+            "k1_ms": busy[name]["k1_ms"], "exchange_k2_ms": busy[name]["k2_ms"],
+            "nccl_ms": busy[name]["nccl_ms"], "kernels": busy[name]["kernels"],
+            "local_plan": local, "local_pair_ms_in_turns": turns[local],
+            "local_device_busy_ms": busy[local]["device_busy_ms"],
+            "pair_vs_local": turns[name] / turns[local],
+            "busy_vs_local": busy[name]["device_busy_ms"] / busy[local]["device_busy_ms"],
+        }
+    emit({"phase": "compare_dist", "what": "the distributed plans against the local blocked "
+          "plan of the same triplets: median ms per pair (host clock, in the same turns as "
+          "the compare line), device busy ms of one profiled pair; exchange_k2_ms is the "
+          "exchange's K2 gathers, nccl_ms its collective kernels", **dist_rows})
 
     kernels = []
     for row, name, kernel, key in rows:
@@ -946,6 +1248,7 @@ def main() -> int:
             | {"launches": launches}
             | {k: row[k] for k in ("precision", "fp32_bound_ms", "library_math", "library_tf32_ms")
                if k in row})
+    dist.destroy_process_group()
     emit({"phase": "done", "seconds": time.perf_counter() - started})
     emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,6 +1,9 @@
 """spfft_tpu_torch: the sparse 3-D FFT of spfft_tpu, in PyTorch, on an NVIDIA H100.
 
-The port of the JAX package's local transform. On its accelerator engine
+The port of the JAX package's local transform and its distributed slab
+transform (:class:`DistributedTransform` over the shards of
+:func:`make_fft_mesh`: stacked on one device, or across processes with
+``torch.distributed``). On its accelerator engine
 (``engine="mxu"``, the default on the card) every DFT stage is a matrix
 product (kernel K1, ``csrc/complex_matmul.cu``) and the stick <-> plane moves
 are row gathers (kernel K2, ``csrc/row_gather.cu``), both CUDA C++ for
@@ -45,6 +48,7 @@ from .errors import (  # noqa: F401
     ServiceOverloadError,
     VerificationError,
 )
+from .distributed import DistributedTransform  # noqa: F401
 from .grid import Grid, device_for_processing_unit  # noqa: F401
 from .multi_transform import (  # noqa: F401
     dispatch_backward,
@@ -59,9 +63,19 @@ from .indices import (  # noqa: F401
     convert_index_triplets,
     create_spherical_cutoff_triplets,
 )
-from .parameters import LocalParameters, from_jax_params, make_local_parameters  # noqa: F401
+from .parallel.mesh import ShardMesh, init_distributed, make_fft_mesh  # noqa: F401
+from .parameters import (  # noqa: F401
+    DistributedParameters,
+    LocalParameters,
+    distribute_triplets,
+    from_jax_distributed_params,
+    from_jax_params,
+    make_distributed_parameters,
+    make_local_parameters,
+)
 from .transform import Transform, TransformFloat  # noqa: F401
 from .types import (  # noqa: F401
+    ExchangeType,
     ExecType,
     IndexFormat,
     ProcessingUnit,

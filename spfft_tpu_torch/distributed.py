@@ -1,0 +1,426 @@
+"""The ``DistributedTransform`` public API object: a transform over P shards.
+
+The port of the JAX package's ``spfft_tpu/distributed.py`` for the 1-D slab
+decomposition (the reference's MPI transforms, include/spfft/grid.hpp:89-141,
+include/spfft/transform.hpp:102-131). Per-shard quantities are lists indexed
+by the global shard id. The shards of a process sit stacked on its device
+(:func:`~spfft_tpu_torch.parallel.mesh.make_fft_mesh`):
+
+* one process, no process group: ``backward`` takes the P value lists and
+  returns the global ``(Z, Y, X)`` space tensor; the exchange is a gather on
+  the device and each direction runs fused (one CUDA graph on the card);
+* processes joined by a group: each process passes its own shards' values
+  (None for the others') and gets its shards' ``(local_z_length, Y, X)``
+  slabs back; the exchange is ``torch.distributed.all_to_all_single`` and
+  the plan runs staged.
+
+``forward`` returns the per-shard packed values (None for another
+process's). Results are tensors on the plan's device.
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from .errors import InvalidParameterError
+from .grid import Grid
+from .ops.fft import resolve_precision
+from .parallel.execution import DistributedExecution
+from .parallel.execution_mxu import MxuDistributedExecution
+from .parallel.mesh import fft_mesh_size
+from .parallel.policy import (discipline_volumes, resolve_default_for_plan,
+                              resolve_overlap_chunks, resolve_policy)
+from .parameters import (DistributedParameters, distribute_triplets,
+                         make_distributed_parameters)
+from .transform import _resolve_batch_count, _validate_data_location
+from .types import (ExchangeType, ExecType, IndexFormat, ProcessingUnit, ScalingType,
+                    TransformType, wire_scalar_bytes)
+
+
+class DistributedTransform:
+    """A sparse 3-D FFT plan sharded over a :class:`~.parallel.mesh.ShardMesh`.
+
+    ``indices``: a list of per-shard triplet arrays (every shard's, on every
+    process: the plan needs the global stick tables), or one global triplet
+    array, distributed by whole z-sticks with balanced value counts
+    (:func:`~spfft_tpu_torch.parameters.distribute_triplets`).
+    ``engine``: ``"mxu"`` (K1/K2), ``"xla"`` (``torch.fft``) or ``"auto"``
+    (``"xla"`` on a CPU mesh, ``"mxu"`` on the card). ``exchange_type``
+    DEFAULT resolves through :mod:`~spfft_tpu_torch.parallel.policy`.
+    ``overlap`` and ``policy`` take only their defaults (1, ``"default"``):
+    the OVERLAPPED exchange and ``policy="tuned"`` are not ported and raise.
+    A process group that fails while the exchange is built raises
+    :class:`MPIError`; no engine takes its place.
+    """
+
+    def __init__(self, processing_unit, transform_type, dim_x, dim_y, dim_z, indices, *,
+                 mesh=None, local_z_lengths=None,
+                 exchange_type: ExchangeType = ExchangeType.DEFAULT,
+                 index_format: IndexFormat = IndexFormat.TRIPLETS, grid: Grid | None = None,
+                 dtype=None, engine: str = "auto", precision: str = "highest",
+                 policy: str | None = None, overlap: int | None = None, fuse=None):
+        if IndexFormat(index_format) != IndexFormat.TRIPLETS:
+            raise InvalidParameterError("only SPFFT_INDEX_TRIPLETS is supported")
+        if mesh is None and grid is not None:
+            mesh = grid.mesh
+        if mesh is None:
+            raise InvalidParameterError("a distributed transform needs a mesh (make_fft_mesh)")
+        num_shards = fft_mesh_size(mesh)
+        if isinstance(indices, (list, tuple)):
+            per_shard = [np.asarray(t).reshape(-1, 3) for t in indices]
+        else:
+            per_shard = distribute_triplets(np.asarray(indices), num_shards, int(dim_y))
+        params = make_distributed_parameters(TransformType(transform_type), dim_x, dim_y, dim_z,
+                                             per_shard, local_z_lengths)
+        self._setup(processing_unit, params, mesh, grid, exchange_type, dtype, engine,
+                    precision, policy, overlap, fuse)
+
+    @classmethod
+    def from_parameters(cls, processing_unit, params: DistributedParameters, *, mesh,
+                        exchange_type=ExchangeType.DEFAULT, grid: Grid | None = None,
+                        dtype=None, engine: str = "auto", precision: str = "highest",
+                        policy=None, overlap=None, fuse=None) -> "DistributedTransform":
+        """A plan from already built parameters, e.g. carried over from the
+        JAX package by :func:`~spfft_tpu_torch.parameters.from_jax_distributed_params`."""
+        self = cls.__new__(cls)
+        self._setup(processing_unit, params, mesh, grid, exchange_type, dtype, engine,
+                    precision, policy, overlap, fuse)
+        return self
+
+    def _setup(self, processing_unit, params, mesh, grid, exchange_type, dtype, engine,
+               precision, policy, overlap, fuse):
+        self._processing_unit = ProcessingUnit(processing_unit)
+        on_card = mesh.device.type == "cuda"
+        if (self._processing_unit == ProcessingUnit.GPU) != on_card:
+            raise InvalidParameterError(
+                f"processing unit {self._processing_unit.name} does not match the mesh's "
+                f"device {mesh.device}")
+        self._params, self._mesh, self._grid = params, mesh, grid
+        p = params
+        exchange_type = ExchangeType(exchange_type)
+        if grid is not None:
+            if p.dim_x > grid.max_dim_x or p.dim_y > grid.max_dim_y or p.dim_z > grid.max_dim_z:
+                raise InvalidParameterError("transform dimensions exceed grid maxima")
+            if p.max_num_sticks > grid.max_num_local_z_columns:
+                raise InvalidParameterError("more z-columns than grid maximum")
+            if p.max_local_z_length > grid.max_local_z_length:
+                raise InvalidParameterError("local z length exceeds grid maximum")
+            if exchange_type == ExchangeType.DEFAULT:
+                exchange_type = grid.exchange_type
+        self._real_dtype = np.dtype(np.float64 if dtype is None else dtype)
+        if self._real_dtype not in (np.dtype(np.float32), np.dtype(np.float64)):
+            raise InvalidParameterError("dtype must be float32 or float64")
+        self._policy = resolve_policy(policy)
+        resolve_overlap_chunks(overlap)
+        self._requested_exchange = exchange_type
+        if exchange_type == ExchangeType.DEFAULT:
+            exchange_type = resolve_default_for_plan(p)
+        self._precision = resolve_precision(precision)
+        if engine == "auto":  # the JAX package's rule (spfft_tpu/distributed.py:208-209)
+            engine = "xla" if mesh.device.type == "cpu" else "mxu"
+        if engine not in ("xla", "mxu"):
+            raise InvalidParameterError(f"unknown engine {engine!r}")
+        self._engine = engine
+        if engine == "mxu":
+            self._exec = MxuDistributedExecution(p, self._real_dtype, mesh, exchange_type,
+                                                 self._precision, fuse=fuse)
+        else:
+            self._exec = DistributedExecution(p, self._real_dtype, mesh, exchange_type,
+                                              fuse=fuse)
+        self._exec_mode = ExecType.SYNCHRONOUS
+        self._space_data = None  # native: (re, im) for C2C, re for R2C
+
+    # ---- transforms -----------------------------------------------------------------
+
+    def backward(self, values, output_location: ProcessingUnit | None = None):
+        """Per-shard packed values (a list over all P shards, None for another
+        process's) -> the global ``(Z, Y, X)`` space tensor, or, across
+        processes, this process's per-shard slabs (None for the others')."""
+        if output_location is not None:
+            _validate_data_location(output_location)
+        return self._finalize_backward(self._dispatch_backward(values))
+
+    def forward(self, space=None, scaling: ScalingType = ScalingType.NONE,
+                input_location: ProcessingUnit | None = None):
+        """A global ``(Z, Y, X)`` space (or per-shard slabs; None: the
+        retained space of the last backward) -> per-shard packed values."""
+        if input_location is not None:
+            _validate_data_location(input_location)
+        return self._finalize_forward(self._dispatch_forward(space, scaling))
+
+    # split phases (multi_transform)
+    def _dispatch_backward(self, values):
+        self._space_data = self._exec.backward_pair(*self._exec.pad_values(values))
+        return self._space_data
+
+    def _finalize_backward(self, out):
+        self._wait()
+        return self._exec.unpad_space(out)
+
+    def _dispatch_forward(self, space, scaling):
+        if space is None:
+            if self._space_data is None:
+                raise InvalidParameterError(
+                    "no space domain data: run backward first or pass an array")
+        else:
+            self._space_data = self._native(space)
+        return self._exec.forward_pair(*self._parts(self._space_data), ScalingType(scaling))
+
+    def _finalize_forward(self, pair):
+        self._wait()
+        return self._exec.unpad_values(pair)
+
+    def _native(self, space):
+        re, im = self._exec.pad_space(space)
+        return re if self._is_r2c else (re, im)
+
+    def _parts(self, data):
+        return (data, None) if self._is_r2c else data
+
+    # ---- device-side entry points, in the stacked native layout ----------------------
+
+    def backward_pair(self, values_re, values_im):
+        """Stacked ``(P_local, V_max)`` (re, im) values -> the native space
+        (:attr:`space_domain_layout`), retained for :meth:`forward_pair`."""
+        put = lambda v: torch.as_tensor(v, dtype=self._exec.torch_dtype,
+                                        device=self.device).reshape(self._exec.num_local, -1)
+        self._space_data = self._exec.backward_pair(put(values_re), put(values_im))
+        return self._space_data
+
+    def forward_pair(self, scaling: ScalingType = ScalingType.NONE):
+        """Forward over the retained native space: the stacked value pair."""
+        if self._space_data is None:
+            raise InvalidParameterError("no space domain data: run backward first")
+        return self._exec.forward_pair(*self._parts(self._space_data), ScalingType(scaling))
+
+    # ---- batches of one plan ----------------------------------------------------------
+
+    def backward_batch(self, values_batch, *, fallback: bool = True, count: int | None = None):
+        """B backwards as one program per direction (one CUDA-graph replay on
+        the card); a loop of :meth:`backward` where batching is unavailable
+        (the knob off, a staged plan), or None with ``fallback=False``."""
+        values_batch = list(values_batch)
+        if not values_batch:
+            return []
+        count = _resolve_batch_count(count, len(values_batch))
+        if not self._exec._ir.batch_available():
+            return [self.backward(v) for v in values_batch[:count]] if fallback else None
+        pairs = [self._exec.pad_values(v) for v in values_batch]
+        out = self._exec.backward_pair_batch(torch.stack([p[0] for p in pairs]),
+                                             torch.stack([p[1] for p in pairs]))
+        self._wait()
+        pick = (lambda b: out[b]) if self._is_r2c else (lambda b: (out[0][b], out[1][b]))
+        return [self._exec.unpad_space(pick(b)) for b in range(count)]
+
+    def forward_batch(self, spaces, scaling: ScalingType = ScalingType.NONE, *,
+                      fallback: bool = True, count: int | None = None):
+        """B spaces -> B per-shard value lists, as :meth:`backward_batch`."""
+        spaces = list(spaces)
+        if not spaces:
+            return []
+        count = _resolve_batch_count(count, len(spaces))
+        if not self._exec._ir.batch_available():
+            return [self.forward(s, scaling) for s in spaces[:count]] if fallback else None
+        natives = [self._exec.pad_space(s) for s in spaces]
+        re = torch.stack([n[0] for n in natives])
+        im = None if self._is_r2c else torch.stack([n[1] for n in natives])
+        out = self._exec.forward_pair_batch(re, im, ScalingType(scaling))
+        self._wait()
+        return [self._exec.unpad_values((out[0][b], out[1][b])) for b in range(count)]
+
+    # ---- retained data ----------------------------------------------------------------
+
+    def space_domain_data(self, processing_unit: ProcessingUnit | None = None):
+        """The most recent space-domain result: for GPU the retained native
+        tensors (:attr:`space_domain_layout`); else on the host, the global
+        ``(Z, Y, X)`` numpy array, or across processes this process's
+        per-shard slabs (None for the others')."""
+        if self._space_data is None:
+            raise InvalidParameterError("no space domain data available yet")
+        if processing_unit is not None and _validate_data_location(
+                processing_unit) == ProcessingUnit.GPU:
+            return self._space_data
+        out = self._exec.unpad_space(self._space_data)
+        if isinstance(out, list):
+            return [None if s is None else s.cpu().numpy() for s in out]
+        return out.cpu().numpy()
+
+    def space_domain_data_local(self, shard: int):
+        """Shard ``shard``'s ``(local_z_length, Y, X)`` slab of the most
+        recent result, on the host (the reference's per-rank pointer); the
+        shard must be this process's."""
+        if self._space_data is None:
+            raise InvalidParameterError("no space domain data available yet")
+        local = list(self._mesh.local_shards)
+        if shard not in local:
+            raise InvalidParameterError(f"shard {shard} is not this process's ({local})")
+        full = self._space_data if self._is_r2c else torch.complex(*self._space_data)
+        slab = full[:, :, local.index(shard), :self.local_z_length(shard)].permute(2, 0, 1)
+        return slab.cpu().numpy()
+
+    @property
+    def space_domain_layout(self) -> str:
+        """Axis order of the native space: ``"yxz"``, the stacked
+        ``(Y, X, P_local, L_max)`` slabs, on both engines."""
+        return self._exec.NATIVE_LAYOUT
+
+    def _wait(self) -> None:
+        if self._exec_mode == ExecType.SYNCHRONOUS and self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+
+    def clone(self) -> "DistributedTransform":
+        """An independent plan with the same shards, mesh, engine, exchange,
+        precision and fusion as this one resolved them."""
+        c = DistributedTransform.from_parameters(
+            self._processing_unit, self._params, mesh=self._mesh,
+            exchange_type=self.exchange_type, grid=self._grid, dtype=self._real_dtype,
+            engine=self._engine, precision=self._precision, policy=self._policy,
+            fuse=self.fused)
+        c._exec._ir.requested = self._exec._ir.requested
+        c._requested_exchange = self._requested_exchange
+        return c
+
+    @property
+    def fused(self) -> bool:
+        """True if each direction runs as one program (on the card one
+        CUDA-graph replay); False on the staged path, which a plan whose
+        exchange is a collective always takes (``describe()["ir"]``)."""
+        return self._exec._ir.fused
+
+    # ---- the plan card ----------------------------------------------------------------
+
+    def describe(self) -> dict:
+        """The engine's plan decisions, the exchange (discipline, wire bytes,
+        rounds, transport, and for a DEFAULT request the wire bytes of the
+        disciplines it was chosen from) and the ``ir`` section."""
+        p = self._params
+        exchange = {
+            "type": self.exchange_type.name, "requested": self._requested_exchange.name,
+            "wire_bytes": self.exchange_wire_bytes(), "rounds": self.exchange_rounds(),
+            "transport": self._exec.exchange_transport(), "overlap_chunks": 1,
+        }
+        if self._requested_exchange == ExchangeType.DEFAULT:
+            width = 2 * wire_scalar_bytes(ExchangeType.BUFFERED, self._real_dtype)
+            exchange["policy"] = {d.name: {"wire_bytes": v * width} for d, v in
+                                  discipline_volumes(p.num_sticks_per_shard,
+                                                     p.local_z_lengths).items()}
+        return {"engine": self._engine, "num_shards": p.num_shards,
+                "local_shards": list(self._mesh.local_shards), **self._exec.describe(),
+                "exchange": exchange, "ir": self._exec._ir.describe()}
+
+    def report(self) -> dict:
+        """The plan card (:meth:`describe`)."""
+        return self.describe()
+
+    # ---- accessors ----------------------------------------------------------------------
+
+    @property
+    def _is_r2c(self) -> bool:
+        return self._params.transform_type == TransformType.R2C
+
+    @property
+    def transform_type(self) -> TransformType:
+        return self._params.transform_type
+
+    @property
+    def dim_x(self) -> int:
+        return self._params.dim_x
+
+    @property
+    def dim_y(self) -> int:
+        return self._params.dim_y
+
+    @property
+    def dim_z(self) -> int:
+        return self._params.dim_z
+
+    @property
+    def num_shards(self) -> int:
+        return self._params.num_shards
+
+    @property
+    def mesh(self):
+        return self._mesh
+
+    def local_z_length(self, shard: int) -> int:
+        return int(self._params.local_z_lengths[shard])
+
+    def local_z_offset(self, shard: int) -> int:
+        return int(self._params.z_offsets[shard])
+
+    def local_slice_size(self, shard: int) -> int:
+        return self.dim_x * self.dim_y * self.local_z_length(shard)
+
+    def num_local_elements(self, shard: int) -> int:
+        return int(self._params.num_values_per_shard[shard])
+
+    @property
+    def num_global_elements(self) -> int:
+        return int(self._params.num_values_per_shard.sum())
+
+    @property
+    def global_size(self) -> int:
+        return self._params.total_size
+
+    @property
+    def processing_unit(self) -> ProcessingUnit:
+        return self._processing_unit
+
+    @property
+    def device(self) -> torch.device:
+        return self._mesh.device
+
+    @property
+    def exchange_type(self) -> ExchangeType:
+        """The discipline the plan runs (DEFAULT resolved)."""
+        return self._exec.exchange_type
+
+    @property
+    def overlap_chunks(self) -> int:
+        return 1
+
+    def exchange_wire_bytes(self) -> int:
+        """Off-shard bytes of one exchange direction, over the mesh (the JAX
+        package's accounting; pair it with :meth:`exchange_rounds`)."""
+        return self._exec.exchange_wire_bytes()
+
+    def exchange_rounds(self) -> int:
+        """Collective rounds per exchange: 1 for every discipline here, where
+        the JAX package's COMPACT chain (and its UNBUFFERED fallback off the
+        TPU) takes P-1: ``all_to_all_single`` takes uneven split sizes."""
+        return self._exec.exchange_rounds()
+
+    @property
+    def engine(self) -> str:
+        return self._engine
+
+    @property
+    def precision(self) -> str:
+        return self._precision
+
+    @property
+    def policy(self) -> str:
+        return self._policy
+
+    @property
+    def dtype(self) -> np.dtype:
+        return self._real_dtype
+
+    @property
+    def grid(self) -> Grid | None:
+        return self._grid
+
+    @property
+    def params(self) -> DistributedParameters:
+        return self._params
+
+    def execution_mode(self) -> ExecType:
+        return self._exec_mode
+
+    def set_execution_mode(self, mode: ExecType) -> None:
+        """ASYNCHRONOUS returns once the kernels are enqueued; :meth:`synchronize` waits."""
+        self._exec_mode = ExecType(mode)
+
+    def synchronize(self) -> None:
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)

@@ -63,9 +63,9 @@ class MxuLocalExecution(ExecutionBase):
                  fuse=None):
         super().__init__(params, real_dtype, device)
         p = params
-        rt = self.real_dtype
-        S, Y, Z = p.num_sticks, p.dim_y, p.dim_z
+        S, Z = p.num_sticks, p.dim_z
         self.precision = offt.resolve_precision(precision)
+        self._zs = Z  # the z extent of the (Y, A, Z) grid
 
         if S:
             ux = np.unique(np.asarray(p.stick_x, dtype=np.int64))
@@ -73,65 +73,27 @@ class MxuLocalExecution(ExecutionBase):
         else:
             ux = np.zeros(1, dtype=np.int64)
             xslot = np.zeros(0, dtype=np.int64)
-        A = offt.compact_x_extent(ux.size, p.dim_x_freq)
-        self.num_x_active = A
+        self.num_x_active = offt.compact_x_extent(ux.size, p.dim_x_freq)
 
-        # Each stage's DFT matrix V (K x Q), prepared once for K1 (on a
-        # float32 CUDA plan: split and laid out in the kernel's tiles). A
-        # stage whose matrix is the product's left factor holds V = W^T.
-        const = lambda w: Constant(*self.put_pair(w), self.precision)
-        const_t = lambda w: Constant(*(t.mT for t in self.put_pair(w)), self.precision)
-        wz_b, wy_b, wy_f, wz_f = offt.zy_stage_matrices(Z, Y, p.total_size, rt)
-        self._wz_b = const(wz_b)
-        self._wz_f = {s: const(w) for s, w in wz_f.items()}
+        wz_b, _, _, wz_f = offt.zy_stage_matrices(Z, p.dim_y, p.total_size, self.real_dtype)
+        self._wz_b = self._const(wz_b)
+        self._wz_f = {s: self._const(w) for s, w in wz_f.items()}
 
-        # The y plan (C2C tries per-slot first, then blocked, as the JAX engine).
-        self.sy = 0  # per-slot: sticks per slot; 0 otherwise
-        self.buckets = None  # blocked: per bucket (Ag, Syg, backward V, forward V)
-        self._x0_bucket = None
+        xslot, row_of_stick = self._plan_y(xslot, p.stick_y, ux, S,
+                                           has_x0=bool(S) and int(ux[0]) == 0)
         value_indices = np.asarray(p.value_indices, dtype=np.int64)
-        table_rows = S
-        per_slot = None if self.is_r2c or not S else offt.plan_sparse_y(xslot, p.stick_y, A, Y, rt)
-        if per_slot is not None:
-            self.sy, row_of_stick, wyb, wyf = per_slot
+        self._table_rows = S
+        if self.sy:  # per-slot: decompress straight into the (A, Sy, Z) table
             value_indices = row_of_stick[value_indices // Z] * Z + value_indices % Z
-            table_rows = A * self.sy
-            self._wy_b, self._wy_f = const(wyb), const_t(wyf)
-        elif S:
-            dense_slots = (0,) if self.is_r2c and int(ux[0]) == 0 else ()
-            blk = offt.plan_sparse_y_blocked(xslot, p.stick_y, Y, rt, S, A * Y,
-                                             dense_slots=dense_slots)
-            if blk is not None:
-                self.buckets = [(*row_idx.shape, const(wyb), const_t(wyf))
-                                for row_idx, wyb, wyf in blk["buckets"]]
-                if dense_slots:  # the x == 0 plane is the last bucket
-                    self._x0_bucket = len(self.buckets) - 1
-                # one K2 gather fills every bucket's table (index S: a zero row)
-                self._bucket_rows = self.put(
-                    np.concatenate([r.reshape(-1) for r, _, _ in blk["buckets"]]))
-                self._row_of_stick = self.put(blk["row_of_stick"])
-                # bucket-major slot order: the x-stage matrices fold it
-                perm = blk["slot_perm"]
-                ux = ux[perm]
-                pos = np.empty(perm.size, dtype=np.int64)
-                pos[perm] = np.arange(perm.size)
-                xslot = pos[xslot]
-        if not self.sy and self.buckets is None:
-            self._wy_b, self._wy_f = const(wy_b), const(wy_f)
-        self._table_rows = table_rows
-
-        wx_b, wx_f = offt.x_stage_matrices(p.dim_x, ux, A, self.is_r2c, rt)
-        self._wx_b, self._wx_f = const(wx_b), const(wx_f)
-
-        # The x == 0 plane's slot, in the (possibly bucket-major) slot order,
-        # where dense-y R2C plane symmetry acts.
-        x0 = np.flatnonzero(ux == 0) if S else np.empty(0)
-        self._x0_slot = int(x0[0]) if x0.size else None
-
+            self._table_rows = self.num_x_active * self.sy
+        elif self.buckets is not None:
+            self._bucket_rows = self.put(self._bucket_rows_np)
+            self._row_of_stick = self.put(row_of_stick)
         self._vi = self.put(value_indices, torch.int64)
         if self.y_plan == "dense":
             # expand: (y, slot) row -> stick id, S (out of range) -> zero row
-            yx_map = np.full(Y * A, S, dtype=np.int32)
+            A = self.num_x_active
+            yx_map = np.full(p.dim_y * A, S, dtype=np.int32)
             keys = p.stick_y.astype(np.int64) * A + xslot
             yx_map[keys] = np.arange(S)
             self._yx_map = self.put(yx_map)
@@ -155,6 +117,66 @@ class MxuLocalExecution(ExecutionBase):
             "dim_x_freq": int(self.params.dim_x_freq),
             "sparse_y": offt.describe_sparse_y(bool(self.sy), self.buckets, self.sy),
         }
+
+    # ---- the y plan and the x matrices (shared with the mesh engine) -----------
+
+    def _const(self, w):
+        """A stage's DFT matrix V (K x Q), prepared once for K1 (on a float32
+        CUDA plan: split and laid out in the kernel's tiles)."""
+        return Constant(*self.put_pair(w), self.precision)
+
+    def _const_t(self, w):
+        """The same for a stage whose matrix is the product's left factor: V = W^T."""
+        return Constant(*(t.mT for t in self.put_pair(w)), self.precision)
+
+    def _plan_y(self, xslot, ys, ux, num_sticks, has_x0, blocked=True):
+        """Choose the y plan as the JAX engine does (C2C tries per-slot
+        first, then blocked unless ``blocked`` is False, else dense) for
+        sticks at active-x slots ``xslot`` and rows ``ys``; make the y and x
+        stage matrices. ``ux``: the x of each slot. Returns ``(xslot,
+        row_of_stick)`` in the plan's slot order (bucket-major when blocked):
+        ``row_of_stick`` is each stick's table row (per-slot) or bucket flat
+        row (blocked), else None. A blocked plan also leaves
+        ``_bucket_rows_np``: every bucket's stick per row, ``num_sticks`` for
+        none."""
+        A, Y, rt = self.num_x_active, self.params.dim_y, self.real_dtype
+        self.sy = 0  # per-slot: sticks per slot; 0 otherwise
+        self.buckets = None  # blocked: per bucket (Ag, Syg, backward V, forward V)
+        self._x0_bucket = None
+        row_of_stick = None
+        per_slot = (None if self.is_r2c or not num_sticks
+                    else offt.plan_sparse_y(xslot, ys, A, Y, rt))
+        if per_slot is not None:
+            self.sy, row_of_stick, wyb, wyf = per_slot
+            self._wy_b, self._wy_f = self._const(wyb), self._const_t(wyf)
+        elif num_sticks and blocked:
+            dense_slots = (0,) if self.is_r2c and has_x0 else ()
+            blk = offt.plan_sparse_y_blocked(xslot, ys, Y, rt, num_sticks, A * Y,
+                                             dense_slots=dense_slots)
+            if blk is not None:
+                self.buckets = [(*r.shape, self._const(wyb), self._const_t(wyf))
+                                for r, wyb, wyf in blk["buckets"]]
+                if dense_slots:  # the x == 0 plane is the last bucket
+                    self._x0_bucket = len(self.buckets) - 1
+                self._bucket_rows_np = np.concatenate(
+                    [r.reshape(-1) for r, _, _ in blk["buckets"]])
+                row_of_stick = blk["row_of_stick"]
+                # bucket-major slot order: the x-stage matrices fold it
+                perm = blk["slot_perm"]
+                ux = ux[perm]
+                pos = np.empty(perm.size, dtype=np.int64)
+                pos[perm] = np.arange(perm.size)
+                xslot = pos[xslot]
+        if not self.sy and self.buckets is None:
+            self._wy_b = self._const(offt.matrix_pair(offt.c2c_matrix(Y, +1), rt))
+            self._wy_f = self._const(offt.matrix_pair(offt.c2c_matrix(Y, -1), rt))
+        wx_b, wx_f = offt.x_stage_matrices(self.params.dim_x, ux, A, self.is_r2c, rt)
+        self._wx_b, self._wx_f = self._const(wx_b), self._const(wx_f)
+        # the x == 0 plane's slot, in the plan's slot order, where dense-y
+        # R2C plane symmetry acts
+        x0 = np.flatnonzero(np.asarray(ux) == 0) if has_x0 else np.empty(0)
+        self._x0_slot = int(x0[0]) if x0.size else None
+        return xslot, row_of_stick
 
     # ---- stage bodies (the nodes of ir.lower._lower_local_mxu) ----------------------
     # The same K1/K2 launches as one hand-ordered pipeline would make. The
@@ -201,16 +223,19 @@ class MxuLocalExecution(ExecutionBase):
 
     def _st_y_sparse_backward(self, sre, sim):
         """Per slot: the y-DFT straight off the (A, Sy, Z) table into the grid."""
-        A, Z = self.num_x_active, self.params.dim_z
+        A, Z = self.num_x_active, self._zs
         return self._mm(sre.view(A, self.sy, Z), sim.view(A, self.sy, Z), self._wy_b, _SLOTS_OUT)
 
     def _st_y_blocked_backward(self, sre, sim):
         """One K2 gather builds every bucket's (Ag, Syg, Z) table, then one K1
         launch per bucket writes its columns of the (Y, A, Z) grid."""
-        p = self.params
-        Y, A, Z = p.dim_y, self.num_x_active, p.dim_z
-        tre, tim = row_gather(sre, sim, self._bucket_rows)
-        gre, gim = sre.new_empty((Y, A, Z)), sim.new_empty((Y, A, Z))
+        return self._y_blocked_from_tables(*row_gather(sre, sim, self._bucket_rows))
+
+    def _y_blocked_from_tables(self, tre, tim):
+        """One K1 launch per bucket, from the buckets' concatenated
+        (rows, Z) tables into its columns of the (Y, A, Z) grid."""
+        Y, A, Z = self.params.dim_y, self.num_x_active, self._zs
+        gre, gim = tre.new_empty((Y, A, Z)), tim.new_empty((Y, A, Z))
         cols = sum(ag for ag, _, _, _ in self.buckets)
         gre[:, cols:], gim[:, cols:] = 0, 0  # padding slots: no bucket writes them
         row = col = 0
@@ -251,22 +276,27 @@ class MxuLocalExecution(ExecutionBase):
 
     def _st_y_sparse_forward(self, gre, gim):
         """Per slot: the y-DFT from the grid straight into the stick table."""
-        Z = self.params.dim_z
+        Z = self._zs
         sre, sim = self._mm(gre, gim, self._wy_f, _SLOTS_IN)
         return sre.view(-1, Z), sim.view(-1, Z)
 
     def _st_y_blocked_forward(self, gre, gim):
         """One K1 launch per bucket into one flat buffer, then one K2 regather
         to the sticks."""
-        Z = self.params.dim_z
-        rows = self._bucket_rows.numel()
+        return row_gather(*self._y_blocked_to_flat(gre, gim), self._row_of_stick)
+
+    def _y_blocked_to_flat(self, gre, gim):
+        """One K1 launch per bucket, from its grid columns into the buckets'
+        concatenated (rows, Z) flat buffer."""
+        Z = self._zs
+        rows = sum(ag * syg for ag, syg, _, _ in self.buckets)
         fre, fim = gre.new_empty((rows, Z)), gim.new_empty((rows, Z))
         row = col = 0
         for ag, syg, _, wf in self.buckets:
             out = tuple(t[row:row + ag * syg].view(ag, syg, Z) for t in (fre, fim))
             self._mm(gre[:, col:col + ag], gim[:, col:col + ag], wf, _SLOTS_IN, out=out)
             row, col = row + ag * syg, col + ag
-        return row_gather(fre, fim, self._row_of_stick)
+        return fre, fim
 
     def _st_z_forward(self, sre, sim, scaling):
         """The z-DFT, with the FULL scaling in its matrix."""

@@ -1,16 +1,18 @@
-"""The ``Grid`` public API object, local part.
+"""The ``Grid`` public API object.
 
 A Grid declares maximum transform extents and stick counts up front and hands
-out Transforms that must fit inside it (reference: include/spfft/grid.hpp:49-205).
+out transforms that must fit inside it (reference: include/spfft/grid.hpp:49-205).
 Buffers belong to PyTorch's allocator, so what remains is capacity validation
-and the binding of a processing unit to a ``torch.device``.
+and the binding of a processing unit to a ``torch.device``; a grid built with
+a ``mesh`` (the reference's MPI Grid, grid.hpp:89-91) hands out
+:class:`~spfft_tpu_torch.distributed.DistributedTransform` plans.
 """
 from __future__ import annotations
 
 import torch
 
 from .errors import GPUNoDeviceError, InvalidParameterError, OverflowError_
-from .types import ProcessingUnit
+from .types import ExchangeType, ProcessingUnit
 
 
 def device_for_processing_unit(processing_unit, device=None) -> torch.device:
@@ -36,9 +38,10 @@ def device_for_processing_unit(processing_unit, device=None) -> torch.device:
 
 
 class Grid:
-    """Capacity envelope and device binding for local transforms.
+    """Capacity envelope and device binding for transforms.
 
-    Reference ctor: include/spfft/grid.hpp:65-66.
+    Reference ctors: include/spfft/grid.hpp:65-66 (local), :89-91 (distributed:
+    ``max_local_z_length``, the ``mesh`` and its ``exchange_type``).
     """
 
     def __init__(
@@ -50,6 +53,9 @@ class Grid:
         processing_unit: ProcessingUnit = ProcessingUnit.HOST,
         max_num_threads: int = -1,
         *,
+        max_local_z_length: int | None = None,
+        mesh=None,
+        exchange_type: ExchangeType = ExchangeType.DEFAULT,
         device=None,
     ):
         if min(max_dim_x, max_dim_y, max_dim_z) < 1:
@@ -62,8 +68,16 @@ class Grid:
         self._max_dim_y = int(max_dim_y)
         self._max_dim_z = int(max_dim_z)
         self._max_num_local_z_columns = int(max_num_local_z_columns)
+        self._max_local_z_length = int(
+            max_dim_z if max_local_z_length is None else max_local_z_length)
         self._processing_unit = ProcessingUnit(processing_unit)
         self._max_num_threads = max_num_threads
+        self._mesh = mesh
+        self._exchange_type = ExchangeType(exchange_type)
+        if mesh is not None:
+            if device is not None:
+                raise InvalidParameterError("a mesh grid's device is its mesh's")
+            device = mesh.device
         self._device = device_for_processing_unit(self._processing_unit, device)
 
     @property
@@ -84,7 +98,20 @@ class Grid:
 
     @property
     def max_local_z_length(self) -> int:
-        return self._max_dim_z
+        return self._max_local_z_length
+
+    @property
+    def mesh(self):
+        return self._mesh
+
+    @property
+    def exchange_type(self) -> ExchangeType:
+        return self._exchange_type
+
+    @property
+    def num_shards(self) -> int:
+        """Shards of the grid's mesh (1 for a local grid)."""
+        return 1 if self._mesh is None else self._mesh.num_shards
 
     @property
     def processing_unit(self) -> ProcessingUnit:
@@ -113,10 +140,30 @@ class Grid:
         engine: str = "auto",
         precision: str = "highest",
         device=None,
+        policy: str | None = None,
+        overlap: int | None = None,
         fuse=None,
     ):
         """A transform bound to this grid (reference: include/spfft/grid.hpp:138-141),
-        with :class:`~spfft_tpu_torch.transform.Transform`'s options."""
+        with :class:`~spfft_tpu_torch.transform.Transform`'s options; a mesh
+        grid hands out a :class:`~spfft_tpu_torch.distributed.DistributedTransform`
+        (``indices`` per shard or global, ``local_z_length`` per shard)."""
+        if self._mesh is not None:
+            if device is not None:
+                raise InvalidParameterError(
+                    "device= applies to local transforms; distributed plans live on the mesh")
+            from .distributed import DistributedTransform
+
+            return DistributedTransform(
+                processing_unit, transform_type, dim_x, dim_y, dim_z, indices,
+                mesh=self._mesh, local_z_lengths=local_z_length,
+                exchange_type=self._exchange_type, grid=self, dtype=dtype, engine=engine,
+                precision=precision, policy=policy, overlap=overlap, fuse=fuse,
+            )
+        if overlap is not None or policy is not None:
+            raise InvalidParameterError(
+                "overlap= and policy= apply to distributed plans only (local transforms "
+                "have no exchange to chunk or choose)")
         from .transform import Transform
 
         return Transform(

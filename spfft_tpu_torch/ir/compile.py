@@ -19,7 +19,10 @@
 
 Nothing degrades quietly: a capture or replay that fails raises
 :class:`~spfft_tpu_torch.errors.GPUError` naming the stage, and the staged
-path runs only when it is asked for.
+path runs only when it is asked for, or where the plan cannot be captured:
+a mesh plan whose exchange is a ``torch.distributed`` collective (NCCL
+under graph capture is later work) runs staged, says so in ``describe()``
+(``"staged_because"``), and raises on ``fuse=True``.
 
 :data:`dispatches` counts program calls by ``(mode, direction)``: staged adds
 one per node, fused one per direction, batched one per batch and direction.
@@ -193,10 +196,11 @@ class EngineIr:
     ``backward_pair``/``forward_pair`` and batched entries. Built by
     :func:`init_engine_ir`."""
 
-    def __init__(self, graphs, *, path, requested, device):
+    def __init__(self, graphs, *, path, requested, device, staged_because=None):
         self.graphs = graphs  # {"backward": g, "forward": {ScalingType: g}}
         self.path = path  # "fused" | "staged"
         self.requested = requested
+        self.staged_because = staged_because
         self.device = torch.device(device)
         # the memory pool of this plan's CUDA graphs: every result is copied
         # out of it right after its replay, on the same stream, so a graph
@@ -272,7 +276,7 @@ class EngineIr:
     def describe(self) -> dict:
         """The ``ir`` section (:data:`IR_KEYS`): path, where the choice came
         from, the stage lists per direction and the donation map."""
-        return {
+        card = {
             "fused": self.fused,
             "path": self.path,
             "requested": self.requested,
@@ -284,6 +288,9 @@ class EngineIr:
             # fused program's static input buffers are what it saved.
             "donation": {"backward": [], "forward": []},
         }
+        if self.staged_because:
+            card["staged_because"] = self.staged_because
+        return card
 
 
 def _batched(graph, fn, batch: int):
@@ -306,16 +313,27 @@ def _batched(graph, fn, batch: int):
     return body
 
 
+COLLECTIVE_STAGED = ("the exchange is a torch.distributed collective, which this port "
+                     "does not capture into a CUDA graph")
+
+
 def init_engine_ir(engine, fuse=None) -> EngineIr:
     """Lower ``engine``, validate its graphs and choose its path: fused
-    unless ``fuse=False`` or ``SPFFT_TPU_FUSE=0``. A graph that fails
-    validation raises."""
+    unless ``fuse=False`` or ``SPFFT_TPU_FUSE=0``, and staged for a mesh
+    engine whose exchange is a collective (``fuse=True`` there raises). A
+    graph that fails validation raises."""
     from .lower import lower_engine
 
     fused, requested = resolve_fuse(fuse)
+    because = None
+    exchange = getattr(engine, "_exchange", None)
+    if exchange is not None and exchange.collective:
+        if fused and requested == "kwarg":
+            raise InvalidParameterError(f"fuse=True: {COLLECTIVE_STAGED} (it runs staged)")
+        fused, because = False, COLLECTIVE_STAGED
     graphs = lower_engine(engine)
     graphs["backward"].validate()
     for g in graphs["forward"].values():
         g.validate()
     return EngineIr(graphs, path="fused" if fused else "staged", requested=requested,
-                    device=engine.device)
+                    device=engine.device, staged_because=because)

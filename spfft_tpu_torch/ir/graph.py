@@ -24,8 +24,8 @@ import numpy as np
 from ..errors import InvalidParameterError
 
 # The canonical node vocabulary, the same literal as the JAX package's
-# (spfft_tpu/ir/graph.py NODES); the exchange labels belong to the
-# distributed engines, which lower nothing here yet.
+# (spfft_tpu/ir/graph.py NODES); the exchange labels belong to the mesh
+# engines (the "A"/"B" and "overlapped" ones to parts not ported yet).
 NODES = (
     "compression",
     "stick symmetry",

@@ -1,11 +1,12 @@
-"""Lowering: each local engine's pipeline as one stage graph per direction.
+"""Lowering: each engine's pipeline as one stage graph per direction.
 
 One builder per engine class turns the engine's stage bodies (its ``_st_*``
 methods) into a :class:`~spfft_tpu_torch.ir.graph.StageGraph` per direction,
-with the node order and labels of the JAX package's local builders
-(``spfft_tpu/ir/lower.py`` ``_lower_local_xla``, ``_lower_local_mxu``). The
-graphs are what the engine runs (:mod:`spfft_tpu_torch.ir.compile`): a stage
-missing here is a stage the plan does not run.
+with the node order and labels of the JAX package's builders
+(``spfft_tpu/ir/lower.py`` ``_lower_local_xla``, ``_lower_local_mxu``,
+``_lower_slab_xla``, ``_lower_slab_mxu``). The graphs are what the engine
+runs (:mod:`spfft_tpu_torch.ir.compile`): a stage missing here is a stage
+the plan does not run.
 
 Where a node writes in place (the R2C hermitian fills), it writes into an
 edge that no other node reads, so fused and staged runs see the same values.
@@ -23,8 +24,8 @@ SCALINGS = (ScalingType.NONE, ScalingType.FULL)
 
 def lower_engine(engine) -> dict:
     """``{"backward": graph, "forward": {scaling: graph}}`` of ``engine``,
-    by its class (or a base class with a builder). Only the single-device
-    engines have one; any other engine raises."""
+    by its class (or a base class with a builder); an engine with none
+    raises."""
     for klass in type(engine).__mro__:
         builder = _BUILDERS.get(klass.__name__)
         if builder is not None:
@@ -162,7 +163,86 @@ def _lower_local_mxu(e):
     return {"backward": backward(), "forward": {s: forward(s) for s in SCALINGS}}
 
 
+def _lower_slab(e):
+    """Both mesh engines (1-D slab): the per-shard pipeline of the JAX
+    builders over the stacked shards. The exchange is one ``exchange`` node
+    (a gather on the device) without a process group, else ``pack``,
+    ``exchange`` (the collective) and ``unpack``, joined by one send and one
+    receive buffer that hold every plane of a row. The MXU engine carries
+    (re, im) pairs on every edge, the ``torch.fft`` engine complex tensors."""
+    pair = hasattr(e, "y_plan")
+    rt = e.real_dtype
+    V, Pl = e._V, e.num_local
+    edge = (lambda name: (name + "re", name + "im")) if pair else (lambda name: (name,))
+    collective = e._exchange.collective
+
+    def exchange(g, direction, src, dst):
+        if not collective:
+            g.add("exchange", getattr(e, f"_st_exchange_{direction}"), src, dst)
+            return
+        g.add("pack", getattr(e, f"_st_pack_{direction}"), src, ("send",))
+        g.add("exchange", getattr(e, f"_st_exchange_rows_{direction}"), ("send",), ("recv",))
+        g.add("unpack", getattr(e, f"_st_unpack_{direction}"), ("recv",), dst)
+
+    def backward():
+        g = StageGraph("backward")
+        g.add_input("values_re", dtype=rt, shape=(Pl, V))
+        g.add_input("values_im", dtype=rt, shape=(Pl, V))
+        g.batch_inputs = ("values_re", "values_im")
+        g.add("compression", e._st_decompress, ("values_re", "values_im"), edge("s"))
+        cur = edge("s")
+        if e.is_r2c and e._zero_stick_id is not None:
+            g.add("stick symmetry", e._st_stick_symmetry, cur, edge("sh"))
+            cur = edge("sh")
+        g.add("z transform", e._st_z_backward, cur, edge("z"))
+        exchange(g, "backward", edge("z"), edge("g"))
+        cur = edge("g")
+        y_plan = e.y_plan if pair else "dense"
+        if e.is_r2c and y_plan == "dense" and (not pair or e._x0_slot is not None):
+            g.add("plane symmetry", e._st_plane_symmetry, cur, edge("p"))
+            cur = edge("p")
+        if not pair:
+            g.add("y transform", e._st_y_backward, cur, edge("y"))
+        elif y_plan == "per-slot":
+            g.add("y transform sparse", e._st_y_sparse_backward, cur, edge("y"))
+        elif y_plan == "blocked":
+            g.add("y transform blocked", e._y_blocked_from_tables, cur, edge("y"))
+        else:
+            g.add("y transform", e._st_y_dense_backward, cur, edge("y"))
+        outputs = ("space",) if e.is_r2c else ("space_re", "space_im")
+        g.add("x transform", e._st_x_backward, edge("y"), outputs)
+        g.set_outputs(list(outputs))
+        return g
+
+    def forward(s):
+        g = StageGraph("forward")
+        g.add_input("space_re", dtype=rt)
+        g.add_input("space_im", dtype=rt)  # None for R2C
+        g.batch_inputs = ("space_re", "space_im")
+        g.add("x transform", e._st_x_forward, ("space_re", "space_im"), edge("x"))
+        if not pair:
+            g.add("y transform", e._st_y_forward, edge("x"), edge("y"))
+        elif e.y_plan == "per-slot":
+            g.add("y transform sparse", e._st_y_sparse_forward, edge("x"), edge("y"))
+        elif e.y_plan == "blocked":
+            g.add("y transform blocked", e._y_blocked_to_flat, edge("x"), edge("y"))
+        else:
+            g.add("y transform", e._st_y_dense_forward, edge("x"), edge("y"))
+        exchange(g, "forward", edge("y"), edge("s"))
+        z = (lambda sre, sim: e._st_z_forward(sre, sim, s)) if pair else e._st_z_forward
+        g.add("z transform", z, edge("s"), edge("z"))
+        compress = e._st_compress if pair else (lambda sticks: e._st_compress(sticks, s))
+        g.add("compression", compress, edge("z"), ("out_re", "out_im"),
+              out_meta={"out_re": EdgeMeta(rt, (Pl, V)), "out_im": EdgeMeta(rt, (Pl, V))})
+        g.set_outputs(["out_re", "out_im"])
+        return g
+
+    return {"backward": backward(), "forward": {s: forward(s) for s in SCALINGS}}
+
+
 _BUILDERS = {
     "LocalExecution": _lower_local_xla,
     "MxuLocalExecution": _lower_local_mxu,
+    "DistributedExecution": _lower_slab,
+    "MxuDistributedExecution": _lower_slab,
 }

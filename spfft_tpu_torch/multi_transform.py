@@ -8,9 +8,10 @@ the host stages i+1), then the results are waited on, in order. The
 split-phase halves (``dispatch_*`` / ``finalize_*``) are public for callers
 that work between the two.
 
-Plans own their buffers, so transforms of one Grid may share a batch; the
-same transform object twice is rejected, since its retained space-domain data
-is per object.
+Plans own their buffers, so transforms of one Grid may share a batch, and
+local and distributed transforms mix (a distributed member takes and gives
+per-shard lists, as its own ``backward``/``forward``); the same transform
+object twice is rejected, since its retained space-domain data is per object.
 """
 from __future__ import annotations
 

@@ -8,6 +8,69 @@ from __future__ import annotations
 
 import enum
 
+import torch
+
+
+class ExchangeType(enum.IntEnum):
+    """The slab <-> pencil exchange discipline of a distributed transform.
+    Reference: include/spfft/types.h:33-62; the JAX package's extensions
+    (``*_BF16``) keep their numbers.
+
+    * BUFFERED: every shard pair exchanges one padded ``S_max x L_max``
+      block, in one equal-split ``all_to_all``;
+    * COMPACT_BUFFERED: the blocks the JAX package's COMPACT chain ships
+      (its constant ``(S_max, L_max)`` window per pair), in one collective;
+    * UNBUFFERED: exactly ``sticks_i`` rows of ``L_max`` planes per pair
+      ``i -> j``, in one collective with uneven split sizes (the
+      reference's ``MPI_Alltoallw``);
+    * ``*_FLOAT``: the payload crosses the wire in float32 (halving it for
+      float64 plans); ``*_BF16``: in bfloat16, about 3 significant digits,
+      an explicit opt-in.
+
+    DEFAULT resolves per plan through the cost model of
+    :mod:`spfft_tpu_torch.parallel.policy`, not to COMPACT_BUFFERED as in the
+    reference.
+    """
+
+    DEFAULT = 0
+    BUFFERED = 1
+    BUFFERED_FLOAT = 2
+    COMPACT_BUFFERED = 3
+    COMPACT_BUFFERED_FLOAT = 4
+    UNBUFFERED = 5
+    BUFFERED_BF16 = 6
+    COMPACT_BUFFERED_BF16 = 7
+
+
+FLOAT_EXCHANGES = (ExchangeType.BUFFERED_FLOAT, ExchangeType.COMPACT_BUFFERED_FLOAT)
+BF16_EXCHANGES = (ExchangeType.BUFFERED_BF16, ExchangeType.COMPACT_BUFFERED_BF16)
+# The exact-count disciplines (parallel/ragged.py): every other one ships
+# the padded blocks.
+RAGGED_EXCHANGES = (
+    ExchangeType.COMPACT_BUFFERED,
+    ExchangeType.COMPACT_BUFFERED_FLOAT,
+    ExchangeType.COMPACT_BUFFERED_BF16,
+    ExchangeType.UNBUFFERED,
+)
+
+
+def wire_dtype(exchange_type, real_dtype) -> torch.dtype:
+    """The real dtype an exchange puts on the wire for a plan of
+    ``real_dtype`` (numpy or torch): the one rule that the engines cast with
+    and the wire-byte accounting reads."""
+    real = real_dtype if isinstance(real_dtype, torch.dtype) else (
+        torch.float64 if str(real_dtype) == "float64" else torch.float32)
+    if exchange_type in BF16_EXCHANGES:
+        return torch.bfloat16
+    if exchange_type in FLOAT_EXCHANGES:
+        return torch.float32
+    return real
+
+
+def wire_scalar_bytes(exchange_type, real_dtype) -> int:
+    """Bytes per real scalar on the wire under ``exchange_type``."""
+    return wire_dtype(exchange_type, real_dtype).itemsize
+
 
 class ProcessingUnit(enum.IntFlag):
     """Where a transform executes. Reference: include/spfft/types.h:67-76.

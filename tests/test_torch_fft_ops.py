@@ -173,3 +173,27 @@ def test_k2_wrapper_rejects_bad_shapes():
         k2.row_gather(src, None, torch.zeros(2, 2, dtype=torch.int32))
     with pytest.raises(terr.InvalidParameterError):
         k2.row_gather(src, torch.zeros(4, 2), torch.zeros(2, dtype=torch.int32))
+
+
+@pytest.mark.parametrize("planes", [1, 2])
+def test_k2_row_strided_planes_and_out(planes):
+    """The exchange's collective route: planes side by side in one buffer,
+    gathered out of it and into another, equal the contiguous gather."""
+    rng = np.random.default_rng(planes)
+    w, n_src = 5, 9
+    src = torch.from_numpy(rng.standard_normal((n_src, planes * w)))
+    idx = torch.from_numpy(rng.integers(-1, n_src + 1, size=12).astype(np.int32))
+    cols = [src[:, q * w:(q + 1) * w] for q in range(planes)]
+    want = [k2.row_gather_plain(c.contiguous(), idx) for c in cols]
+    got = [g for g in k2.row_gather(cols[0], cols[1] if planes > 1 else None, idx)
+           if g is not None]
+    for g, e in zip(got, want):
+        np.testing.assert_array_equal(g.numpy(), e.numpy())
+    dst = torch.full((12, planes * w), 7.0, dtype=src.dtype)
+    out = [dst[:, q * w:(q + 1) * w] for q in range(planes)]
+    res = k2.row_gather(cols[0], cols[1] if planes > 1 else None, idx,
+                        out=(out[0], out[1] if planes > 1 else None))
+    assert res[0] is out[0]
+    np.testing.assert_array_equal(dst.numpy(), torch.cat(want, dim=1).numpy())
+    with pytest.raises(terr.InvalidParameterError):
+        k2.row_gather(cols[0], None, idx, out=(torch.zeros(11, w, dtype=src.dtype), None))

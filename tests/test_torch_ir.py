@@ -254,11 +254,13 @@ def test_describe_ir_section(fuse, env, requested, monkeypatch):
 
 
 def test_a_distributed_engine_has_no_lowering():
-    class DistributedExecution:
+    """The pencil engines are not ported: an engine of their name has no
+    lowering (the slab engines have theirs, tests/test_torch_distributed_ir.py)."""
+    class Pencil2Execution:
         pass
 
     with pytest.raises(tp.InvalidParameterError):
-        tir.lower_engine(DistributedExecution())
+        tir.lower_engine(Pencil2Execution())
 
 
 def test_results_stay_put(monkeypatch):
