@@ -8,15 +8,16 @@ Run from the root of a checkout, on a machine with an H100 and the CUDA toolkit:
 Phases, one JSON line each:
 
 1. the card (``nvidia-smi`` name and power limit), the kernel build (K1 at
-   its three precisions and K2, one ``nvcc`` each, in parallel), and what
-   ptxas reports for each kernel (registers, spills) and how many
-   tensor-core instructions (``HGMMA``, ``HMMA``) ``cuobjdump -sass`` finds;
-2. the plans, all at 256^3 in float32 (``PLANS``): C2C and R2C at the
+   its three float32 precisions and in float64, and K2, one ``nvcc`` each, in
+   parallel), and what ptxas reports for each kernel (registers, spills) and
+   how many tensor-core instructions (``HGMMA``, ``HMMA``, the float64
+   library's ``DMMA``) ``cuobjdump -sass`` finds;
+2. the plans, all at 256^3 (``PLANS``): in float32, C2C and R2C at the
    spherical cutoff 0.659 with the dense y stage (``SPFFT_TPU_SPARSE_Y_BLOCKS=0``)
    and with the JAX package's choice (blocked sparse-y) at ``precision``
    "highest", "high" and "default", and C2C at 0.5 (per-slot sparse-y, and
-   dense beside it); each plan's y variant, bucket shapes and Sy are
-   asserted (``EXPECT``);
+   dense beside it); in float64, C2C and R2C at 0.659, blocked; each plan's
+   y variant, bucket shapes and Sy are asserted (``EXPECT``);
 3. each kernel (K1 ``complex_matmul``, K2 ``row_gather``) at the shapes the
    main path gives it, against its plain PyTorch version on the same inputs
    (K1 "highest": the exact float32 products; "high"/"default": the bf16x3 /
@@ -28,11 +29,15 @@ Phases, one JSON line each:
    plain version (it must fail the bar that the kernel passes), the
    single-call time with the host's share in it (``call_ms``), and the least
    time the card could take (``bound_ms``: K1's on the TF32 tensor cores, or
-   the BF16 ones for "high"/"default"; ``fp32_bound_ms`` without them); K1 at
-   odd shapes and strides at each float32 precision, and once more in f64;
+   the BF16 ones for "high"/"default", or the FP64 ones for float64, where
+   the full complex forms take Gauss's three products; ``fp32_bound_ms``
+   without tensor cores, four products); K1 at odd shapes and strides at
+   each float32 precision, and once more in float64 (there also K = 0 and a
+   real constant);
 4. the main path at full width: ``Transform(ProcessingUnit.GPU, ...)`` for
    every plan, backward then forward(FULL), against a complex128 dense oracle
-   on the host (one per transform and radius). Each plan runs fused (its
+   on the host (one per transform and radius), at the bar of the plan's
+   precision (float64: 1e-12). Each plan runs fused (its
    default: one CUDA graph per direction, captured at the first call) and
    has a ``fuse=False`` twin that runs node by node. The kernels' launch
    counts come from the twin's pair, where each launch counts once; the
@@ -88,29 +93,38 @@ K1_RTOL = 1.5e-6
 K1_F64_RTOL = 1e-12
 # backward against the dense oracle, and the round trip, per precision
 ORACLE_RTOL = {"highest": 1e-5, "high": 1e-4, "default": 2e-2}
+# the same in float64: a sound float64 plan reads about 1e-13 at 256^3 on an
+# H100, the float64 mesh plan over a float32 wire 2.6e-8, so any float32
+# step fails it
+ORACLE_F64_RTOL = 1e-12
 REPLAYS = 20
 # H100 SXM published peaks (NVIDIA data sheet, 700 W): FP32 and FP64 outside
-# the tensor cores, dense TF32 and BF16 on them, and HBM3 bandwidth.
+# the tensor cores, dense TF32, BF16 and FP64 on them, and HBM3 bandwidth.
 PEAK_FLOPS = {"float32": 67e12, "float64": 34e12}
 PEAK_F64_TC = 67e12  # FP64 on the tensor cores (the data sheet's FP64 Tensor Core rate)
 PEAK_TC = {"highest": 495e12, "high": 989e12, "default": 989e12}  # TF32, BF16, BF16
 TC_PASSES = {"highest": 3, "high": 3, "default": 1}  # tensor-core products per real product
 OTHER = {"highest": "high", "high": "highest"}  # the precision a K1 row must not pass as
 PEAK_BYTES = 3.35e12
-LIBRARIES = ["complex_matmul", "complex_matmul_bf16x3", "complex_matmul_bf16x1", "row_gather"]
+LIBRARIES = ["complex_matmul", "complex_matmul_bf16x3", "complex_matmul_bf16x1",
+             "complex_matmul_f64", "row_gather"]
 BLOCKS_OFF = {"SPFFT_TPU_SPARSE_Y_BLOCKS": "0"}
-# (name, transform, radius, precision, knobs while the plan is made, y plan)
+F32, F64 = np.float32, np.float64
+# (name, transform, radius, precision, knobs while the plan is made, y plan, dtype)
 PLANS = [
-    ("c2c", "c2c", 0.659, "highest", BLOCKS_OFF, "dense"),
-    ("r2c", "r2c", 0.659, "highest", BLOCKS_OFF, "dense"),
-    ("c2c-blocked", "c2c", 0.659, "highest", {}, "blocked"),
-    ("r2c-blocked", "r2c", 0.659, "highest", {}, "blocked"),
-    ("c2c-r0.5", "c2c", 0.5, "highest", {}, "per-slot"),
-    ("c2c-r0.5-dense", "c2c", 0.5, "highest", {"SPFFT_TPU_SPARSE_Y": "0", **BLOCKS_OFF}, "dense"),
-    ("c2c-blocked-high", "c2c", 0.659, "high", {}, "blocked"),
-    ("r2c-blocked-high", "r2c", 0.659, "high", {}, "blocked"),
-    ("c2c-blocked-default", "c2c", 0.659, "default", {}, "blocked"),
-    ("r2c-blocked-default", "r2c", 0.659, "default", {}, "blocked"),
+    ("c2c", "c2c", 0.659, "highest", BLOCKS_OFF, "dense", F32),
+    ("r2c", "r2c", 0.659, "highest", BLOCKS_OFF, "dense", F32),
+    ("c2c-blocked", "c2c", 0.659, "highest", {}, "blocked", F32),
+    ("r2c-blocked", "r2c", 0.659, "highest", {}, "blocked", F32),
+    ("c2c-r0.5", "c2c", 0.5, "highest", {}, "per-slot", F32),
+    ("c2c-r0.5-dense", "c2c", 0.5, "highest", {"SPFFT_TPU_SPARSE_Y": "0", **BLOCKS_OFF}, "dense",
+     F32),
+    ("c2c-blocked-high", "c2c", 0.659, "high", {}, "blocked", F32),
+    ("r2c-blocked-high", "r2c", 0.659, "high", {}, "blocked", F32),
+    ("c2c-blocked-default", "c2c", 0.659, "default", {}, "blocked", F32),
+    ("r2c-blocked-default", "r2c", 0.659, "default", {}, "blocked", F32),
+    ("c2c-blocked-f64", "c2c", 0.659, "highest", {}, "blocked", F64),
+    ("r2c-blocked-f64", "r2c", 0.659, "highest", {}, "blocked", F64),
 ]
 # The torch.fft engine's plans: (name, transform, radius)
 XLA_PLANS = [("c2c-xla", "c2c", 0.659), ("r2c-xla", "r2c", 0.659)]
@@ -242,6 +256,8 @@ def build_report(names) -> dict:
             "sass_hgmma_bf16": len(re.findall(r"\bHGMMA\.\S*BF16", sass)),
             "sass_hgmma_first": next((ln.strip() for ln in sass.splitlines() if "HGMMA" in ln), None),
             "sass_hmma": len(re.findall(r"\bHMMA\b", sass)),
+            "sass_dmma": len(re.findall(r"\bDMMA\b", sass)),
+            "sass_dmma_first": next((ln.strip() for ln in sass.splitlines() if "DMMA" in ln), None),
         }
     return report
 
@@ -249,18 +265,20 @@ def build_report(names) -> dict:
 def k1_forms(name, t):
     """Every K1 form plan ``name`` launches that gets a row: (row name, spec,
     data pair, constant, want_imag, out pair or None). Dense plans: all four
-    of their forms; the blocked and per-slot plans at "highest": their y
-    forms; at "high"/"default": all (the non-y three and the y forms)."""
+    of their forms; the blocked and per-slot plans at float32 "highest": their
+    y forms; at "high"/"default" and in float64: all (the non-y three and the
+    y forms)."""
     import torch
 
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     ex, p = t._exec, t.params
     S, A, Y, X, Z = p.num_sticks, ex.num_x_active, p.dim_y, p.dim_x, p.dim_z
-    rnd = lambda *shape: torch.randn(shape, generator=gen, device="cuda")
+    f64 = ex.torch_dtype == torch.float64
+    rnd = lambda *shape: torch.randn(shape, generator=gen, device="cuda", dtype=ex.torch_dtype)
     pair = lambda *shape: (rnd(*shape), rnd(*shape))
     r2c = ex.is_r2c
     forms = []
-    if ex.y_plan == "dense" or ex.precision != "highest":
+    if ex.y_plan == "dense" or ex.precision != "highest" or f64:
         forms.append((f"{name}/z", "sz,zk->sk", pair(S, Z), ex._wz_b, True, None))
         if ex.y_plan == "dense":
             forms.append((f"{name}/y", "yxz,yk->kxz", pair(Y, A, Z), ex._wy_b, True, None))
@@ -299,20 +317,24 @@ def k1_key(ops, want_imag, precision):
 
 
 def k1_bounds_ms(ops, want_imag, precision, w) -> tuple[float, str, float]:
-    """(tensor-core bound, what bounds it, FP32 bound): max(operations over
-    the peak, bytes over the memory rate); the operations are the precision's
-    tensor-core products per real product on the TF32 ("highest") or BF16
-    peak, or one product per real product on the FP32 peak. The bytes count
-    the data and the result in float32 and the plan constant ``w`` as the
-    precision needs it: one bf16 plane per part at "default" (its tiles are
-    made once per plan), 4 bytes per element else."""
+    """(tensor-core bound, what bounds it, FP32 or FP64 bound without tensor
+    cores): max(operations over the peak, bytes over the memory rate); the
+    operations are the precision's tensor-core products per real product on
+    the TF32 ("highest") or BF16 peak, the real products the float64 kernel
+    issues on the FP64 tensor-core peak (three per complex product where all
+    four parts exist: Gauss's form), or the four-product form's on the FP32
+    or FP64 peak. The bytes count the data and the result in their dtype and
+    the plan constant ``w`` as the precision needs it: one bf16 plane per
+    part at "default" (its tiles are made once per plan), the dtype's size
+    else."""
     import torch
     from spfft_tpu_torch.ops import complex_matmul as k1
 
     ar, ai, br, bi = ops
     batch, m, k = ar.shape
     n = br.shape[2]
-    products = 4 if (ai is not None and bi is not None and want_imag) else 2
+    full = ai is not None and bi is not None and want_imag
+    products = 4 if full else 2
     flops = 2 * products * batch * m * n * k
     item = ar.element_size()
     v_item = 2 if precision == "default" else item
@@ -326,10 +348,10 @@ def k1_bounds_ms(ops, want_imag, precision, w) -> tuple[float, str, float]:
     )
     t_bytes = nbytes / PEAK_BYTES
     t_fp32 = flops / PEAK_FLOPS[str(ar.dtype).split(".")[1]]
-    # float64: the card's FP64 peak, on its tensor cores (K1's float64 body
-    # runs on the FMA units, at half that rate: fp32_bound_ms)
-    t_tc = (flops / PEAK_F64_TC if ar.dtype == torch.float64
-            else TC_PASSES[precision] * flops / PEAK_TC[precision])
+    # float64: the card's FP64 peak on its tensor cores, where K1's float64
+    # body runs, at the products it issues
+    t_tc = ((3 if full else products) * flops / products / PEAK_F64_TC
+            if ar.dtype == torch.float64 else TC_PASSES[precision] * flops / PEAK_TC[precision])
     bound_by = "operations" if t_tc >= t_bytes else "bytes"
     return 1e3 * max(t_tc, t_bytes), bound_by, 1e3 * max(t_fp32, t_bytes)
 
@@ -395,9 +417,10 @@ def run_k1(name, spec, x, w, want_imag, precision, out=None):
     kernel = lambda: k1.complex_matmul(*ops, want_imag, constant=w, precision=precision, out=outv)
     plain = k1_plain(precision)
     bound, bound_by, fp32_bound = k1_bounds_ms(ops, want_imag, precision, w)
+    library = k1.LIBRARY_F64[0] if f64 else k1.LIBRARIES[precision][0]
     row = {
-        "name": f"complex_matmul:{name}", "route": "cuda",
-        "source": "spfft_tpu_torch/csrc/" + k1.LIBRARIES[precision][0] + ".cu",
+        "name": f"{library}:{name}", "route": "cuda",
+        "source": f"spfft_tpu_torch/csrc/{library}.cu",
         "replaces": "spfft_tpu/ops/pallas_fft.py:95",
         "precision": "float64" if f64 else precision,
         "shape": {"batch": ar.shape[0], "M": ar.shape[1], "K": ar.shape[2], "N": br.shape[2]},
@@ -460,10 +483,17 @@ def run_k1_odd(phase, dtype, rtol, precision="highest"):
         "per-batch 5x(130,70)^T @ 5x130x90": ((r(5, 130, 70).mT, r(5, 130, 70).mT, r(5, 130, 90),
                                               r(5, 130, 90)), True),
     }
+    if dtype == torch.float64:
+        cases.update({
+            "K = 0, 3x30x0 @ 3x0x50": ((r(3, 30, 0), r(3, 30, 0), r(3, 0, 50), r(3, 0, 50)), True),
+            "real shared constant @ 3x24x70": ((shared(w_r), None, r(3, 24, 70), r(3, 24, 70)),
+                                               True),
+        })
     errs = {}
     for name, (ops, want) in cases.items():
         err, scale = k1_err(ops, want, precision=precision)
-        errs[name] = max(e / s for e, s in zip(err, scale))
+        # relative to the largest output, absolute where every output is 0 (K = 0)
+        errs[name] = max(e / s if s else e for e, s in zip(err, scale))
     # a strided output: columns of a wider grid, as the sparse-y stages write
     ops = (r(4, 60, 36).mT, r(4, 60, 36).mT, r(4, 60, 50), r(4, 60, 50))
     grid = [r(36, 7, 50) for _ in range(2)]
@@ -664,7 +694,9 @@ def main_path(sp, name, t, twin, precision, values, want):
     device values."""
     import torch
 
-    values_dev = torch.as_tensor(values.astype(np.complex64), device="cuda")
+    f64 = t.dtype == np.float64
+    values_dev = torch.as_tensor(values.astype(np.complex128 if f64 else np.complex64),
+                                 device="cuda")
     staged = run_pair(sp, twin, values_dev)
     first = run_pair(sp, t, values_dev)
     second = run_pair(sp, t, values_dev)
@@ -685,11 +717,11 @@ def main_path(sp, name, t, twin, precision, values, want):
     replay_same = all(equal(second[part], first[part])[0] for part in ("space", "back"))
     row = {
         "phase": "main_path", "plan": name, "engine": t.engine,
-        "transform": t.transform_type.name.lower(), "dims": list(DIMS), "dtype": "float32",
+        "transform": t.transform_type.name.lower(), "dims": list(DIMS), "dtype": str(t.dtype),
         "precision": precision, "y_plan": getattr(ex, "y_plan", None), "describe": t.describe(),
         "num_values": len(values), "num_sticks": t.params.num_sticks,
         "num_x_active": t.num_x_active, "oracle_rel_err": oracle_err, "roundtrip_rel_err": rt_err,
-        "bar": ORACLE_RTOL[precision],
+        "bar": ORACLE_F64_RTOL if f64 else ORACLE_RTOL[precision],
         "launches": {"complex_matmul": n_k1, "row_gather": n_k2, "from": "the staged twin's pair"},
         "launches_first_fused_pair": total(first["counts"]),
         "launches_second_fused_pair": total(second["counts"]),
@@ -703,7 +735,7 @@ def main_path(sp, name, t, twin, precision, values, want):
         "copy_out_ms": copy_out_ms(t),
     }
     emit(row)
-    bar = ORACLE_RTOL[precision]
+    bar = row["bar"]
     check(t.fused and not twin.fused, f"{name}: the plan is not fused or its twin not staged")
     check(oracle_err <= bar, f"{name} backward vs dense oracle: {oracle_err} (bar {bar})")
     check(rt_err <= bar, f"{name} round trip: {rt_err} (bar {bar})")
@@ -872,7 +904,7 @@ def profile_pair(sp, name, t, values_dev) -> dict:
         "phase": "profile", "plan": name, "window_ms": window_ms,
         "device_busy_ms": busy_us / 1e3 if spans else None,
         "device_busy_share": busy_us / 1e3 / window_ms if spans else None,
-        "k1_ms": of("tc_kernel", "complex_matmul_kernel"), "k2_ms": of("row_gather_kernel"),
+        "k1_ms": of("tc_kernel", "dmma_kernel"), "k2_ms": of("row_gather_kernel"),
         "nccl_ms": of("ncclDevKernel"), "kernels": len(kernels),
         "top": [{"name": k, "ms": ms, "count": n} for k, (ms, n) in top],
     }
@@ -1126,6 +1158,8 @@ def main() -> int:
     emit({"phase": "build", "seconds": time.perf_counter() - t0, **report})
     for name in LIBRARIES[:3]:
         check(report[name]["sass_hgmma"] > 0, f"{name} has no HGMMA instruction")
+    # the float64 body runs on the FP64 tensor cores
+    check(report["complex_matmul_f64"]["sass_dmma"] > 0, "complex_matmul_f64 has no DMMA instruction")
     # each library runs its precision's arithmetic: TF32 for "highest", BF16 below
     check(report["complex_matmul"]["sass_hgmma_bf16"] == 0, "complex_matmul has BF16 HGMMA")
     for name in LIBRARIES[1:3]:
@@ -1135,19 +1169,20 @@ def main() -> int:
     # every plan fused (the default) with a fuse=False twin under name + STAGED
     t0 = time.perf_counter()
     data, plans, twins = {}, {}, {}
-    make = lambda kind, radius, **kw: sp.Transform(
+    make = lambda kind, radius, dtype=F32, **kw: sp.Transform(
         sp.ProcessingUnit.GPU, getattr(sp.TransformType, kind.upper()), *DIMS,
-        indices=data[kind, radius][0], dtype=np.float32, **kw)
-    for name, kind, radius, precision, env, y_plan in PLANS:
+        indices=data[kind, radius][0], dtype=dtype, **kw)
+    for name, kind, radius, precision, env, y_plan, dtype in PLANS:
         if (kind, radius) not in data:
             data[kind, radius] = oracle(kind, radius)
         with knobs(env):
-            t = make(kind, radius, precision=precision)
-            twins[name] = make(kind, radius, precision=precision, fuse=False)
+            t = make(kind, radius, dtype, precision=precision)
+            twins[name] = make(kind, radius, dtype, precision=precision, fuse=False)
         ex = t._exec
         got = ex.sy if ex.y_plan == "per-slot" else (
             [(ag, syg) for ag, syg, _, _ in ex.buckets] if ex.y_plan == "blocked" else None)
-        emit({"phase": "plan", "plan": name, "precision": precision, "y_plan": ex.y_plan,
+        emit({"phase": "plan", "plan": name, "precision": precision, "dtype": str(t.dtype),
+              "y_plan": ex.y_plan,
               "num_sticks": t.params.num_sticks, "num_x_active": t.num_x_active,
               "buckets_or_sy": got, "describe": t.describe()})
         check(t.engine == "mxu", f"{name}: auto resolved to {t.engine} on the card")

@@ -62,6 +62,7 @@ from .indices import (  # noqa: F401
     check_stick_duplicates,
     convert_index_triplets,
     create_spherical_cutoff_triplets,
+    spherical_radius_for_fraction,
 )
 from .parallel.mesh import ShardMesh, init_distributed, make_fft_mesh  # noqa: F401
 from .parameters import (  # noqa: F401
@@ -81,4 +82,25 @@ from .types import (  # noqa: F401
     ProcessingUnit,
     ScalingType,
     TransformType,
+    SPFFT_EXCH_BUFFERED,
+    SPFFT_EXCH_BUFFERED_BF16,
+    SPFFT_EXCH_BUFFERED_FLOAT,
+    SPFFT_EXCH_COMPACT_BUFFERED,
+    SPFFT_EXCH_COMPACT_BUFFERED_BF16,
+    SPFFT_EXCH_COMPACT_BUFFERED_FLOAT,
+    SPFFT_EXCH_DEFAULT,
+    SPFFT_EXCH_UNBUFFERED,
+    SPFFT_EXEC_ASYNCHRONOUS,
+    SPFFT_EXEC_SYNCHRONOUS,
+    SPFFT_FULL_SCALING,
+    SPFFT_INDEX_TRIPLETS,
+    SPFFT_NO_SCALING,
+    SPFFT_PU_GPU,
+    SPFFT_PU_HOST,
+    SPFFT_TRANS_C2C,
+    SPFFT_TRANS_R2C,
 )
+
+__version__ = "0.3.0"  # the JAX package's version, which this port follows
+# The reference API surface it mirrors (reference: CMakeLists.txt:2).
+__reference_api_version__ = "1.0.2"

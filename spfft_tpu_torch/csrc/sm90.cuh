@@ -30,6 +30,21 @@ __device__ __forceinline__ void cp_async_4(uint32_t dst, const void* src, bool v
                :: "r"(dst), "l"(src), "r"(valid ? 4 : 0) : "memory");
 }
 
+// An 8-byte asynchronous copy into shared memory (one float64); an invalid
+// source copies nothing and fills the destination with zeros.
+__device__ __forceinline__ void cp_async_8(uint32_t dst, const void* src, bool valid) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 8, %2;\n"
+               :: "r"(dst), "l"(src), "r"(valid ? 8 : 0) : "memory");
+}
+
+// A 16-byte asynchronous copy into shared memory of the first bytes (0, 8 or
+// 16) of src, the rest of the 16 filled with zeros; both addresses 16-byte
+// aligned.
+__device__ __forceinline__ void cp_async_16(uint32_t dst, const void* src, int bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
+               :: "r"(dst), "l"(src), "r"(bytes) : "memory");
+}
+
 // One bulk copy (the Tensor Memory Accelerator, no tensor map) of bytes (a
 // multiple of 16) from 16-byte-aligned global memory to 16-byte-aligned
 // shared memory; its bytes count against the transaction count of mbarrier bar.

@@ -160,14 +160,15 @@ class Grid:
                 exchange_type=self._exchange_type, grid=self, dtype=dtype, engine=engine,
                 precision=precision, policy=policy, overlap=overlap, fuse=fuse,
             )
-        if overlap is not None or policy is not None:
+        if overlap is not None:
             raise InvalidParameterError(
-                "overlap= and policy= apply to distributed plans only (local transforms "
-                "have no exchange to chunk or choose)")
+                "overlap= applies to distributed plans only (local transforms have no "
+                "exchange to chunk)")
         from .transform import Transform
 
         return Transform(
             processing_unit, transform_type, dim_x, dim_y, dim_z,
             num_local_elements, indices, local_z_length=local_z_length, grid=self,
-            dtype=dtype, engine=engine, precision=precision, device=device, fuse=fuse,
+            dtype=dtype, engine=engine, precision=precision, device=device, policy=policy,
+            fuse=fuse,
         )

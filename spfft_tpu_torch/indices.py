@@ -107,6 +107,14 @@ def check_stick_duplicates(indices_per_shard: Sequence[np.ndarray]) -> None:
         raise DuplicateIndicesError("a z-stick is owned by more than one shard")
 
 
+def spherical_radius_for_fraction(fraction: float) -> float:
+    """The radius fraction whose ball holds ``fraction`` of the cube's grid
+    points (the normalised ball volume pi f^3 / 6 equals ``fraction``). Past
+    pi / 6 the cube clips the ball, so the points it holds fall short of the
+    request."""
+    return float((6.0 * fraction / np.pi) ** (1.0 / 3.0))
+
+
 def create_spherical_cutoff_triplets(
     dim_x: int, dim_y: int, dim_z: int, radius_fraction: float,
     hermitian_symmetry: bool = False,

@@ -1,9 +1,10 @@
 """K1: planar batched strided complex matrix product, ``C[b] = A[b] @ B[b]``.
 
 Replaces the TPU kernel ``spfft_tpu/ops/pallas_fft.py:95``
-(``complex_matmul_fused``). The CUDA source, with its design and bound, is
-``csrc/complex_matmul.cu``; :func:`complex_matmul_plain` beside it is the same
-function in PyTorch, in the same four-product form.
+(``complex_matmul_fused``). The CUDA sources, with their design and bound,
+are ``csrc/complex_matmul.cu`` (float32) and ``csrc/complex_matmul_f64.cu``
+(float64); :func:`complex_matmul_plain` beside them is the same function in
+PyTorch, in the four-product form.
 
 Operands are 3-D ``(batch, rows, cols)`` real tensors, one per part, of any
 strides: ``expand`` gives a shared matrix (batch stride 0) and ``.mT`` a
@@ -17,10 +18,13 @@ two TF32 parts (:func:`split_tf32`) and each real product
 (:func:`complex_matmul_3xtf32` is that arithmetic in PyTorch); ``"high"`` is
 the same with BF16 parts (:func:`split_bf16`, :func:`complex_matmul_bf16x3`);
 ``"default"`` is one BF16 product ``hi.hi`` (:func:`complex_matmul_bf16x1`).
-Float64 ignores the precision. One operand, the DFT matrix of a stage (shared
-by the batch, or one per batch entry), goes to the kernel prepared: split and
-laid out in tiles (:func:`tile_constant`), once per plan in a
-:class:`Constant`. Results go to new tensors or, through ``out=``, into
+Float64 ignores the precision: its kernel (``csrc/complex_matmul_f64.cu``) runs
+on the FP64 tensor cores, in Gauss's three-product form where all four parts
+exist (:func:`complex_matmul_gauss` is that arithmetic in PyTorch). One
+operand, the DFT matrix of a stage (shared by the batch, or one per batch
+entry), goes to the kernel prepared: split and laid out in tiles
+(:func:`tile_constant`; float64: :func:`tile_constant_f64`), once per plan in
+a :class:`Constant`. Results go to new tensors or, through ``out=``, into
 strided views that the caller owns.
 """
 from __future__ import annotations
@@ -45,25 +49,39 @@ LIBRARIES = {
     "high": ("complex_matmul_bf16x3", "spfft_complex_matmul_bf16x3"),
     "default": ("complex_matmul_bf16x1", "spfft_complex_matmul_bf16x1"),
 }
+# The float64 library and its C entry point.
+LIBRARY_F64 = ("complex_matmul_f64", "spfft_complex_matmul_f64")
 # K per stage of the tensor-core kernel (csrc/k1_tc.cuh, tc::bk): one
 # 128-byte row of V, 32 tf32 or 64 bf16.
 TILE_K = 32
 TILE_K_BF16 = 64
+# The float64 kernel's tiles (csrc/complex_matmul_f64.cu): Q and K of V per
+# stage, and K per DMMA (m16n8k8).
+F64_TILE_Q = 64
+F64_TILE_K = 32
+F64_MMA_K = 8
+_INT32_MAX = 2**31 - 1
 
 
 def supports(batch: int, m: int, k: int, n: int, dtype) -> bool:
-    """True if the CUDA kernel takes this shape and dtype (grid limits of
-    ``csrc/complex_matmul.cu``: batch and M/64 at most 65535)."""
-    return (
-        dtype in _DTYPES and 1 <= batch <= 65535 and m >= 1 and n >= 1
-        and k >= 0 and -(-m // 64) <= 65535
-    )
+    """True if the CUDA kernel takes this shape and dtype. Both kernels walk
+    their output tiles (at least 64 x 64) with persistent blocks, counting
+    them in 32 bits; the float32 kernel takes at most 65535 batches."""
+    if dtype not in _DTYPES or batch < 1 or m < 1 or n < 1 or k < 0:
+        return False
+    tiles = -(-m // 64) * -(-n // 64)
+    if dtype == torch.float64:
+        return batch * tiles <= _INT32_MAX
+    return batch <= 65535 and tiles <= _INT32_MAX
+
+
+def _mm(a, b):
+    return torch.einsum("bmk,bkn->bmn", a, b)
 
 
 def complex_matmul_plain(ar, ai, br, bi, want_imag: bool = True):
     """The four-product form of ``(ar + i ai) @ (br + i bi)`` with einsum."""
-    return _four_products(lambda a, b: torch.einsum("bmk,bkn->bmn", a, b),
-                          ar, ai, br, bi, want_imag)
+    return _four_products(_mm, ar, ai, br, bi, want_imag)
 
 
 def _four_products(dot, ar, ai, br, bi, want_imag):
@@ -82,6 +100,18 @@ def _four_products(dot, ar, ai, br, bi, want_imag):
     else:
         ci = torch.zeros_like(cr)
     return cr, ci
+
+
+def complex_matmul_gauss(ar, ai, br, bi, want_imag: bool = True):
+    """The float64 kernel's arithmetic in PyTorch: where all four parts exist,
+    Gauss's three products ``t1 = ar.br``, ``t2 = ai.bi``,
+    ``t3 = (ar + ai).(br + bi)`` and ``(t1 - t2, (t3 - t1) - t2)``, as the JAX
+    package's ``complex_matmul`` (``spfft_tpu/ops/fft.py:524-543``); the forms
+    with a part missing are the four-product form's."""
+    if ai is None or bi is None or not want_imag:
+        return _four_products(_mm, ar, ai, br, bi, want_imag)
+    t1, t2 = _mm(ar, br), _mm(ai, bi)
+    return t1 - t2, (_mm(ar + ai, br + bi) - t1) - t2
 
 
 # ---- the 3xTF32 split ---------------------------------------------------------
@@ -113,11 +143,10 @@ def _split_products(split, passes, ar, ai, br, bi, want_imag):
     """The four-product form with every real product ``a.b`` built from the
     parts of ``split``: ``a_lo.b_hi + a_hi.b_lo + a_hi.b_hi`` (``passes`` 3)
     or ``a_hi.b_hi`` (1), summed in float32."""
-    mm = lambda x, y: torch.einsum("bmk,bkn->bmn", x, y)
     if passes == 3:
-        dot = lambda a, b: mm(a[1], b[0]) + mm(a[0], b[1]) + mm(a[0], b[0])
+        dot = lambda a, b: _mm(a[1], b[0]) + _mm(a[0], b[1]) + _mm(a[0], b[0])
     else:
-        dot = lambda a, b: mm(a[0], b[0])
+        dot = lambda a, b: _mm(a[0], b[0])
     parts = lambda t: None if t is None else split(t)
     return _four_products(dot, parts(ar), parts(ai), parts(br), parts(bi), want_imag)
 
@@ -198,17 +227,43 @@ def tile_constant(vr, vi=None, precision: str = "highest"):
     return torch.gather(t, 5, swizzle.expand(t.shape)).contiguous()
 
 
+def tile_constant_f64(vr, vi=None):
+    """A float64 constant ``V`` (``(K, Q)`` or ``(batch, K, Q)``, any strides)
+    in the float64 kernel's layout: ``(batch, Q/64, K/32, planes, 8, 4, 32,
+    2)``, zero-padded to whole tiles, the planes ``vr`` and ``vi`` if it has
+    one (the kernel adds ``vr + vi`` for Gauss's third product itself). Per
+    (Q tile, K tile), one contiguous block of the planes, which a bulk copy
+    puts in shared memory; in each plane, per n tile ``j`` of 8 columns and
+    k step ``s`` of 8 rows, lane ``4 g + t`` holds the pair
+    ``V[k0 + 8 s + 2 t + c, q0 + 8 j + g]``, ``c = 0, 1``: its DMMA B
+    fragment (k slots ``t`` and ``t + 4``), one 16-byte load."""
+    parts = [vr] if vi is None else [vr, vi]
+    v = torch.stack([p if p.dim() == 3 else p[None] for p in parts], 1).double()
+    b, npl, k, q = v.shape
+    tq, tk, ki = F64_TILE_Q, F64_TILE_K, F64_MMA_K
+    qt, kt = -(-q // tq), -(-k // tk)
+    t = v.new_zeros((b, npl, kt * tk, qt * tq))
+    t[:, :, :k, :q] = v
+    # k = kt tk + s ki + 2 (lane % 4) + c, q = qt tq + 8 j + lane // 4
+    t = t.reshape(b, npl, kt, tk // ki, 4, 2, qt, tq // 8, 8)
+    t = t.permute(0, 6, 2, 1, 7, 3, 8, 4, 5).contiguous()
+    return t.view(b, qt, kt, npl, tq // 8, tk // ki, 32, 2)
+
+
 class Constant:
     """A stage's DFT matrix ``V`` (``(K, Q)``, or ``(batch, K, Q)`` with one
     matrix per batch entry), shared by every launch of a plan: the raw
     ``(re, im)`` pair, which the plain version and the operand views use, and
-    on a CUDA float32 plan its tiles at the plan's ``precision``
-    (:func:`tile_constant`), made once here."""
+    on a CUDA plan its tiles, made once here: float32 at the plan's
+    ``precision`` (:func:`tile_constant`), float64 for the DMMA kernel
+    (:func:`tile_constant_f64`)."""
 
     def __init__(self, re, im=None, precision: str = "highest"):
         self.re, self.im, self.precision = re, im, precision
-        f32_cuda = re.device.type == "cuda" and re.dtype == torch.float32
-        self.tiles = tile_constant(re, im, precision) if f32_cuda else None
+        self.tiles = None
+        if re.device.type == "cuda":
+            self.tiles = (tile_constant_f64(re, im) if re.dtype == torch.float64
+                          else tile_constant(re, im, precision))
 
     @property
     def pair(self):
@@ -254,7 +309,7 @@ def complex_matmul(ar, ai, br, bi, want_imag: bool = True, constant: Constant | 
 
     ``ci`` is ``None`` when ``want_imag`` is False. CPU tensors take
     :func:`complex_matmul_plain`; CUDA tensors launch the kernel or raise.
-    ``precision`` picks the float32 kernel (float64 ignores it).
+    ``precision`` picks the float32 kernel (float64 ignores it: one DMMA kernel).
     ``constant`` is the :class:`Constant` that ``B`` or ``A^T`` views (every
     batch the same matrix, or one per batch), prepared at ``precision``.
     Without it, the float32 kernel prepares the shared operand, or ``B``,
@@ -286,15 +341,12 @@ def complex_matmul(ar, ai, br, bi, want_imag: bool = True, constant: Constant | 
         raise InvalidParameterError(
             f"complex_matmul kernel does not take batch={batch} M={m} K={k} N={n} {ar.dtype}"
         )
-    ptr = lambda t: None if t is None else t.data_ptr()
     with torch.cuda.device(ar.device):
         stream = torch.cuda.current_stream(ar.device).cuda_stream
         if ar.dtype == torch.float64:
             precision = "highest"  # one body at every precision
-            err = _library("highest").spfft_complex_matmul_f64(
-                ar.data_ptr(), ptr(ai), *ar.stride(), br.data_ptr(), ptr(bi), *br.stride(),
-                cr.data_ptr(), ptr(ci), *cr.stride(), batch, m, n, k, stream,
-            )
+            err = _launch_f64(_library_f64().spfft_complex_matmul_f64, ar, ai, br, bi, cr, ci,
+                              constant, stream)
         else:
             entry = getattr(_library(precision), LIBRARIES[precision][1])
             err = _launch_tc(entry, ar, ai, br, bi, cr, ci, constant, stream, precision)
@@ -319,10 +371,14 @@ def _shared(t) -> bool:
     return t.shape[0] == 1 or t.stride(0) == 0
 
 
-def _launch_tc(entry, ar, ai, br, bi, cr, ci, constant, stream, precision="highest") -> int:
-    """O = D @ V on the float32 tensor-core kernel ``entry`` of
-    ``precision``: V is the constant side (B, or A^T when the constant is A's
-    transpose), D the data side."""
+def _sides(ar, ai, br, bi, cr, constant, prepare, precision=None):
+    """The kernels' O = D @ V view of ``C = A @ B``: V is the constant side
+    (B, or A^T when the constant is A's transpose), prepared by ``prepare``
+    (``(vr, vi) -> tiles``) unless ``constant`` holds its tiles; D the data
+    side. Returns ``(tiles, v_im, v_sb, d_r, d_i, kmajor, P, Q, o_strides)``:
+    ``v_sb`` the tiles' batch stride in bytes (0 when shared), ``kmajor``
+    whether D's k axis has the smaller stride. ``precision`` (float32) must
+    be the one the constant was prepared at."""
     batch, m, k = ar.shape
     n = br.shape[2]
     if constant is not None:
@@ -334,7 +390,7 @@ def _launch_tc(entry, ar, ai, br, bi, cr, ci, constant, stream, precision="highe
             raise InvalidParameterError("complex_matmul constant is neither B nor A^T")
         if constant.tiles is None or (constant.im is None) != ((ai if transposed else bi) is None):
             raise InvalidParameterError("complex_matmul constant does not match its operand")
-        if constant.precision != precision:
+        if precision is not None and constant.precision != precision:
             raise InvalidParameterError(
                 f"complex_matmul constant prepared for {constant.precision!r}, not {precision!r}"
             )
@@ -342,9 +398,8 @@ def _launch_tc(entry, ar, ai, br, bi, cr, ci, constant, stream, precision="highe
     else:
         transposed = _shared(ar) and not _shared(br)
         v_r, v_i = (ar.mT, None if ai is None else ai.mT) if transposed else (br, bi)
-        tiles = tile_constant(v_r[:1] if _shared(v_r) else v_r,
-                              None if v_i is None else (v_i[:1] if _shared(v_i) else v_i),
-                              precision)
+        tiles = prepare(v_r[:1] if _shared(v_r) else v_r,
+                        None if v_i is None else (v_i[:1] if _shared(v_i) else v_i))
         v_im = v_i is not None
     if transposed:  # C^T = B^T A^T: D = B^T (N x K), O = C^T
         d_r, d_i, p, q = br.mT, (None if bi is None else bi.mT), n, m
@@ -352,12 +407,22 @@ def _launch_tc(entry, ar, ai, br, bi, cr, ci, constant, stream, precision="highe
     else:
         d_r, d_i, p, q = ar, ai, m, n
         o_strides = cr.stride()
-    d_sb, d_sp, d_sk = d_r.stride()
+    _, d_sp, d_sk = d_r.stride()
     kmajor = d_sk == 1 or (d_sp != 1 and abs(d_sk) <= abs(d_sp))
+    v_sb = tiles.stride(0) * tiles.element_size() if tiles.shape[0] > 1 else 0
+    return tiles, v_im, v_sb, d_r, d_i, kmajor, p, q, o_strides
+
+
+def _launch_tc(entry, ar, ai, br, bi, cr, ci, constant, stream, precision="highest") -> int:
+    """O = D @ V on the float32 tensor-core kernel ``entry`` of ``precision``
+    (:func:`_sides`)."""
+    tiles, v_im, v_sb, d_r, d_i, kmajor, p, q, o_strides = _sides(
+        ar, ai, br, bi, cr, constant, lambda vr, vi: tile_constant(vr, vi, precision), precision)
+    batch, k = ar.shape[0], ar.shape[2]
+    d_sb, d_sp, d_sk = d_r.stride()
     inner, outer = (d_sk, d_sp) if kmajor else (d_sp, d_sk)
     aligned = all(t.data_ptr() % 16 == 0 for t in (d_r, d_i) if t is not None)
     tma = inner == 1 and outer % 4 == 0 and (batch == 1 or d_sb % 4 == 0) and aligned
-    v_sb = tiles.stride(0) * tiles.element_size() if tiles.shape[0] > 1 else 0
     return entry(
         d_r.data_ptr(), None if d_i is None else d_i.data_ptr(), d_sb, d_sp, d_sk,
         int(kmajor), int(tma), tiles.data_ptr(), v_sb, int(v_im), tiles.shape[4],
@@ -366,19 +431,45 @@ def _launch_tc(entry, ar, ai, br, bi, cr, ci, constant, stream, precision="highe
     )
 
 
-def _library(precision: str):
-    """The loaded library of K1 at ``precision`` (float64's body is in the
-    "highest" one), its argument types set."""
-    name, entry = LIBRARIES[precision]
+def _launch_f64(entry, ar, ai, br, bi, cr, ci, constant, stream) -> int:
+    """O = D @ V on the float64 DMMA kernel ``entry`` (:func:`_sides`). D's
+    pairs of values along its contiguous axis go as one 16-byte copy where
+    that axis has stride 1 and every pair starts 16-byte aligned."""
+    tiles, v_im, v_sb, d_r, d_i, kmajor, p, q, o_strides = _sides(
+        ar, ai, br, bi, cr, constant, tile_constant_f64)
+    d_sb, d_sp, d_sk = d_r.stride()
+    inner, outer = (d_sk, d_sp) if kmajor else (d_sp, d_sk)
+    aligned = all(t.data_ptr() % 16 == 0 for t in (d_r, d_i) if t is not None)
+    vec = inner == 1 and outer % 2 == 0 and (ar.shape[0] == 1 or d_sb % 2 == 0) and aligned
+    return entry(
+        d_r.data_ptr(), None if d_i is None else d_i.data_ptr(), d_sb, d_sp, d_sk, int(kmajor),
+        int(vec), tiles.data_ptr(), v_sb, int(v_im),
+        cr.data_ptr(), None if ci is None else ci.data_ptr(), *o_strides,
+        ar.shape[0], p, q, ar.shape[2], stream,
+    )
+
+
+_P, _I64, _I32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
+
+
+def _bound(name: str, entry: str, argtypes):
+    """The loaded library ``csrc/<name>.cu``, its entry's argument types set."""
     lib = _build.library(name)
-    p, i64, i32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
     fn = getattr(lib, entry)
     if not fn.argtypes:
-        fn.argtypes = [p, p, i64, i64, i64, i32, i32, p, i64, i32, i32,
-                       p, p, i64, i64, i64, i64, i64, i64, i64, p]
+        fn.argtypes = argtypes
         fn.restype = ctypes.c_int
-    if precision == "highest" and not lib.spfft_complex_matmul_f64.argtypes:
-        lib.spfft_complex_matmul_f64.argtypes = [p, p, i64, i64, i64, p, p, i64, i64, i64,
-                                                 p, p, i64, i64, i64, i64, i64, i64, i64, p]
-        lib.spfft_complex_matmul_f64.restype = ctypes.c_int
     return lib
+
+
+def _library(precision: str):
+    """The loaded float32 library of K1 at ``precision``."""
+    return _bound(*LIBRARIES[precision], [_P, _P, _I64, _I64, _I64, _I32, _I32, _P, _I64, _I32,
+                                          _I32, _P, _P, _I64, _I64, _I64, _I64, _I64, _I64,
+                                          _I64, _P])
+
+
+def _library_f64():
+    """The loaded float64 library of K1."""
+    return _bound(*LIBRARY_F64, [_P, _P, _I64, _I64, _I64, _I32, _I32, _P, _I64, _I32, _P, _P,
+                                 _I64, _I64, _I64, _I64, _I64, _I64, _I64, _P])

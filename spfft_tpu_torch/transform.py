@@ -20,6 +20,7 @@ from .execution import LocalExecution, from_pair
 from .execution_mxu import MxuLocalExecution
 from .grid import Grid, device_for_processing_unit
 from .ops.fft import resolve_precision
+from .parallel.policy import resolve_policy
 from .parameters import LocalParameters, make_local_parameters
 from .types import ExecType, IndexFormat, ProcessingUnit, ScalingType, TransformType
 
@@ -43,6 +44,9 @@ class Transform:
     ``fuse``: each direction runs as one program (on the card one CUDA-graph
     replay) when true, node by node when false; None reads
     ``SPFFT_TPU_FUSE`` (default fused).
+
+    ``policy`` takes only ``None`` or ``"default"``: ``"tuned"`` (measured
+    plan choices) is not ported and raises.
     """
 
     def __init__(
@@ -62,6 +66,7 @@ class Transform:
         engine: str = "auto",
         precision: str = "highest",
         device=None,
+        policy: str | None = None,
         fuse=None,
     ):
         if IndexFormat(index_format) != IndexFormat.TRIPLETS:
@@ -84,23 +89,30 @@ class Transform:
                     f"a local transform spans the full z-extent: local_z_length "
                     f"must be dim_z ({int(dim_z)}), got {local_z_length}"
                 )
+            local_z_length = local_z_length or None
         params = make_local_parameters(
             TransformType(transform_type), dim_x, dim_y, dim_z, indices
         )
-        self._setup(processing_unit, params, grid, dtype, engine, precision, device, fuse)
+        self._setup(processing_unit, params, grid, dtype, engine, precision, device, fuse,
+                    policy, local_z_length)
 
     @classmethod
     def from_parameters(
         cls, processing_unit, params: LocalParameters, *, grid: Grid | None = None,
         dtype=None, engine: str = "auto", precision: str = "highest", device=None, fuse=None,
+        policy: str | None = None,
     ) -> "Transform":
         """A plan from already built parameters, e.g. carried over from the
         JAX package by :func:`~spfft_tpu_torch.parameters.from_jax_params`."""
         self = cls.__new__(cls)
-        self._setup(processing_unit, params, grid, dtype, engine, precision, device, fuse)
+        self._setup(processing_unit, params, grid, dtype, engine, precision, device, fuse,
+                    policy)
         return self
 
-    def _setup(self, processing_unit, params, grid, dtype, engine, precision, device, fuse):
+    def _setup(self, processing_unit, params, grid, dtype, engine, precision, device, fuse,
+               policy=None, local_z_length=None):
+        """``local_z_length``: the caller's explicit one (None if unspecified),
+        checked against the grid's maximum as the JAX package checks it."""
         self._processing_unit = ProcessingUnit(processing_unit)
         self._params = params
         self._grid = grid
@@ -112,6 +124,8 @@ class Transform:
                 or params.dim_z > grid.max_dim_z
             ):
                 raise InvalidParameterError("transform dimensions exceed grid maxima")
+            if local_z_length is not None and local_z_length > grid.max_local_z_length:
+                raise InvalidParameterError("local z length exceeds grid maximum")
             if params.num_sticks > grid.max_num_local_z_columns:
                 raise InvalidParameterError("more z-columns than grid maximum")
             if not (self._processing_unit & grid.processing_unit):
@@ -124,6 +138,7 @@ class Transform:
         if self._real_dtype not in (np.dtype(np.float32), np.dtype(np.float64)):
             raise InvalidParameterError("dtype must be float32 or float64")
         self._precision = resolve_precision(precision)
+        resolve_policy(policy)  # "default" is the only policy: nothing to keep
         if engine not in ("auto", "mxu", "xla"):
             raise InvalidParameterError(f"unknown engine {engine!r}")
         self._device = device_for_processing_unit(self._processing_unit, device)
@@ -433,6 +448,10 @@ class Transform:
     @property
     def device_id(self) -> int:
         return self._device.index or 0
+
+    @property
+    def num_threads(self) -> int:
+        return 1
 
     @property
     def dtype(self) -> np.dtype:

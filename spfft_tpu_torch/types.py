@@ -112,3 +112,29 @@ class ExecType(enum.IntEnum):
 
     SYNCHRONOUS = 0
     ASYNCHRONOUS = 1
+
+
+# The reference's C enum names (include/spfft/types.h), as the JAX package
+# exports them.
+SPFFT_EXCH_DEFAULT = ExchangeType.DEFAULT
+SPFFT_EXCH_BUFFERED = ExchangeType.BUFFERED
+SPFFT_EXCH_BUFFERED_FLOAT = ExchangeType.BUFFERED_FLOAT
+SPFFT_EXCH_COMPACT_BUFFERED = ExchangeType.COMPACT_BUFFERED
+SPFFT_EXCH_COMPACT_BUFFERED_FLOAT = ExchangeType.COMPACT_BUFFERED_FLOAT
+SPFFT_EXCH_UNBUFFERED = ExchangeType.UNBUFFERED
+SPFFT_EXCH_BUFFERED_BF16 = ExchangeType.BUFFERED_BF16
+SPFFT_EXCH_COMPACT_BUFFERED_BF16 = ExchangeType.COMPACT_BUFFERED_BF16
+
+SPFFT_PU_HOST = ProcessingUnit.HOST
+SPFFT_PU_GPU = ProcessingUnit.GPU
+
+SPFFT_INDEX_TRIPLETS = IndexFormat.TRIPLETS
+
+SPFFT_TRANS_C2C = TransformType.C2C
+SPFFT_TRANS_R2C = TransformType.R2C
+
+SPFFT_NO_SCALING = ScalingType.NONE
+SPFFT_FULL_SCALING = ScalingType.FULL
+
+SPFFT_EXEC_SYNCHRONOUS = ExecType.SYNCHRONOUS
+SPFFT_EXEC_ASYNCHRONOUS = ExecType.ASYNCHRONOUS

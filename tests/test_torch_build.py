@@ -12,6 +12,7 @@ def test_sources_follow_local_includes():
     assert names("complex_matmul") == ["complex_matmul.cu", "k1_tc.cuh", "sm90.cuh"]
     for bf16 in ("complex_matmul_bf16x3", "complex_matmul_bf16x1"):
         assert names(bf16) == [f"{bf16}.cu", "k1_tc.cuh", "sm90.cuh"]
+    assert names("complex_matmul_f64") == ["complex_matmul_f64.cu", "sm90.cuh"]
     assert names("row_gather") == ["row_gather.cu"]
 
 
