@@ -63,14 +63,40 @@ Phases, one JSON line each:
 7. one pair of every plan and twin under ``torch.profiler``: the device's
    busy share and the kernels that take its time; then the pair times, all
    plans taking turns, for comparisons within the run;
-8. the ``kernels`` line; last, the ``{"ok": true, "device": ...}`` line.
+8. the ``obs`` phase: the cost of the timing tree, the metrics registry and
+   the flight recorder, each alone, all on and all off, on the fused
+   ``c2c-blocked`` pair and its staged twin in turns; the one-line figure
+   (``spfft_tpu_torch.programs.bench``, the plan of ``c2c-blocked``); the
+   benchmark program
+   (``spfft_tpu_torch.programs.benchmark``) through its ``main()`` with
+   ``-p gpu`` at ``BASELINE.json``'s five configurations (``BENCH_CONFIGS``;
+   the 512^3 one in single and double precision), the shards stacked on the
+   card, each with the launch counts set to 0 just before it; each report
+   held to the port's validators (plan card, timing-tree labels, perf
+   report) and its round-trip residual to the dtype's bar; per configuration
+   ms per pair, GFLOP/s, residual, the busy ms of one profiled pair and the
+   peak memory; each configuration's K1 and K2 forms against their plain
+   versions, as in phase 3; the per-stage device times of each mesh
+   configuration's staged twin under the ``obs.STAGES`` names (the
+   exchange's measured share among them); the 512^3 host staging
+   rates; and a fence with a tiny ``SPFFT_TPU_FENCE_BUDGET_S`` that must
+   raise ``FenceTimeout`` on a long launch;
+9. the ``kernels`` line; last, the ``{"ok": true, "device": ...}`` line.
 
 Exits non-zero, with no result line, when there is no CUDA device or any
 check fails.
+
+``python3 chip_smoke.py --against DIR [DIR ...]`` compares trees instead:
+the host-facing pair times of four 256^3 local plans and two 4-shard plans,
+each fused and staged, in one worker process per tree and turn (DIR...,
+this tree twice, ...DIR, and that sequence again), e.g. against the parent commit unpacked into an
+ignored directory with ``git archive``. It checks no kernel.
 """
 from __future__ import annotations
 
 import contextlib
+import gc
+import io
 import json
 import os
 import re
@@ -150,6 +176,33 @@ DIST_PLANS = [
     ("dist4-c2c-xla", "c2c", "xla", "DEFAULT", np.float32, None, None, False, "c2c-blocked"),
     ("dist4-c2c-nccl1", "c2c", "auto", "DEFAULT", np.float32, None, None, True, "c2c-blocked"),
 ]
+# The obs phase: the benchmark program at BASELINE.json's configurations, the
+# shards stacked on the card: (name, arguments besides -p gpu -o). Depth
+# (-r, the timed dependent pairs) is cut to stay inside the time limit.
+BENCH_CONFIGS = [
+    ("bench-32-c2c-dense", ["-d", "32", "32", "32", "-r", "16", "-t", "c2c", "-s", "1.0"]),
+    ("bench-128-c2c-sphere", ["-d", "128", "128", "128", "-r", "16", "-t", "c2c",
+                              "--model", "spherical", "-s", "0.15"]),
+    ("bench-128-r2c-sphere", ["-d", "128", "128", "128", "-r", "16", "-t", "r2c",
+                              "--model", "spherical", "-s", "0.15"]),
+    ("bench-256-c2c-4", ["-d", "256", "256", "256", "-r", "8", "-t", "c2c", "--shards", "4"]),
+    ("bench-512-r2c-16-single", ["-d", "512", "512", "512", "-r", "4", "-t", "r2c",
+                                 "--model", "spherical", "-s", "0.15", "--shards", "16",
+                                 "--precision", "single"]),
+    ("bench-512-r2c-16-double", ["-d", "512", "512", "512", "-r", "4", "-t", "r2c",
+                                 "--model", "spherical", "-s", "0.15", "--shards", "16",
+                                 "--precision", "double"]),
+]
+# the benchmark's round-trip residual (one backward + forward(FULL) of the
+# inputs against them, not the timed chain's last values, which carry every
+# pair's rounding): the main path's float32 bar at "highest", and the float64 bar
+BENCH_RTOL = {"single": 1e-5, "double": 1e-12}
+# where the benchmark program writes each configuration's report (ignored by git)
+REPORTS = os.path.join("build", "smoke")
+# the timing tree's labels in every report (local plans add "Execution init")
+BENCH_LABELS = {"Grid + Transform init", "warmup", "multi backward", "multi forward",
+                "dispatch all", "finalize all", "input staging", "dispatch", "warmup chain",
+                "benchmark loop"}
 # float64 over a float32 wire, the oracle and the round trip: between what a
 # sound plan reads (about 3e-8) and what the same plan computed in float32
 # would (about 1.2e-6, the float32 distributed plans' reading), with room both ways
@@ -847,11 +900,12 @@ def multi_transform_phase(sp, names, plans, values) -> None:
     check(all(b for b, _ in same), "multi-transform results differ from the single calls")
 
 
-def interleaved_pair_ms(sp, plans, values, rounds: int = 6, pairs: int = 4) -> dict:
+def interleaved_pair_ms(sp, plans, values, rounds: int = 6, pairs: int = 4, raw=None) -> dict:
     """Median ms per backward+forward(FULL) pair of every plan (``plans``:
     name -> Transform), host clock, the plans taking turns (forward order,
     then reversed, ``rounds`` times, ``pairs`` timed pairs after one untimed
-    pair at each turn), so that the host's drift falls on all of them alike."""
+    pair at each turn), so that the host's drift falls on all of them alike.
+    ``raw``, a dict, receives every plan's timed pairs."""
     import torch
 
     times = {name: [] for name in plans}
@@ -865,14 +919,40 @@ def interleaved_pair_ms(sp, plans, values, rounds: int = 6, pairs: int = 4) -> d
                 torch.cuda.synchronize()
                 if i:
                     times[name].append(1e3 * (time.perf_counter() - t0))
+    if raw is not None:
+        raw.update(times)
     return {name: statistics.median(v) for name, v in times.items()}
+
+
+def device_kernels(prof) -> list:
+    """The profiler's device events but for the stage ranges that the staged
+    path's ``trace_annotation`` draws on the device timeline: the kernels
+    and copies."""
+    from torch.autograd import DeviceType
+
+    from spfft_tpu_torch.obs import STAGES
+
+    return [e for e in prof.events() if e.device_type == DeviceType.CUDA
+            and e.name not in STAGES]
+
+
+def union_us(spans) -> float:
+    """Length of the union of sorted ``(start, end)`` intervals."""
+    busy_us, reach = 0.0, None
+    for start, end in spans:
+        if reach is None or start > reach:
+            busy_us += end - start
+            reach = end
+        elif end > reach:
+            busy_us += end - reach
+            reach = end
+    return busy_us
 
 
 def profile_pair(sp, name, t, values_dev) -> dict:
     """One backward+forward(FULL) pair under torch.profiler: the share of the
     window the device is busy, and the kernels by device time."""
     import torch
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -882,16 +962,9 @@ def profile_pair(sp, name, t, values_dev) -> dict:
         t.forward(scaling=sp.ScalingType.FULL)
         torch.cuda.synchronize()
         window_ms = 1e3 * (time.perf_counter() - t0)
-    kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    kernels = device_kernels(prof)
     spans = sorted((e.time_range.start, e.time_range.end) for e in kernels)
-    busy_us, reach = 0.0, None
-    for start, end in spans:  # union of the kernels' intervals
-        if reach is None or start > reach:
-            busy_us += end - start
-            reach = end
-        elif end > reach:
-            busy_us += end - reach
-            reach = end
+    busy_us = union_us(spans)
     by_name = {}
     for e in kernels:
         short = e.name if len(e.name) <= 90 else e.name[:87] + "..."
@@ -915,12 +988,13 @@ def profile_pair(sp, name, t, values_dev) -> dict:
 # ---- the distributed phase -------------------------------------------------------
 
 
-def dist_k1_forms(name, t):
+def dist_k1_forms(name, t, every=False):
     """The K1 forms of distributed plan ``name`` that get a row: its z stages,
     stacked over the four shards with the z-slab split in their matrices
     (``(P_local * S_max, Z) @ (Z, P * L_max)`` and back); for a plan whose
     slab side differs from the local plan's (ragged slabs: z extent
-    P_local * L_max = 280; float64), also its x and y forms."""
+    P_local * L_max = 280; float64), or with ``every``, also its x and y
+    forms."""
     import torch
     from spfft_tpu_torch import ScalingType
 
@@ -937,17 +1011,30 @@ def dist_k1_forms(name, t):
     else:
         forms = [(f"{name}/z_backward", "sz,zk->sk", pair(rows, p.dim_z), ex._wz_b, True, None),
                  (f"{name}/z_forward", "sz,zk->sk", pair(rows, PL), ex._wz_f[FULL], True, None)]
-    if ex._zs == p.dim_z and dt == torch.float32:
+    if ex._zs == p.dim_z and dt == torch.float32 and not every:
         return forms
     Y, A, X, Zs = p.dim_y, ex.num_x_active, p.dim_x, ex._zs
-    forms += [(f"{name}/x_backward", "kxz,xl->klz", pair(Y, A, Zs), ex._wx_b, True, None),
-              (f"{name}/x_forward", "yxz,xk->ykz", pair(Y, X, Zs), ex._wx_f, True, None)]
-    grid, col = pair(Y, A, Zs), 0
-    for b, (ag, syg, wb, wf) in enumerate(ex.buckets):
-        cols = tuple(g[:, col:col + ag] for g in grid)
-        forms.append((f"{name}/bucket{b}_backward", SLOTS_OUT, pair(ag, syg, Zs), wb, True, cols))
-        forms.append((f"{name}/bucket{b}_forward", SLOTS_IN, cols, wf, True, None))
-        col += ag
+    if ex.is_r2c:
+        forms += [(f"{name}/x_backward_real_out", "kxz,xl->klz", pair(Y, A, Zs), ex._wx_b, False,
+                   None),
+                  (f"{name}/x_forward_real_in", "yxz,xk->ykz", (rnd(Y, X, Zs), None), ex._wx_f,
+                   True, None)]
+    else:
+        forms += [(f"{name}/x_backward", "kxz,xl->klz", pair(Y, A, Zs), ex._wx_b, True, None),
+                  (f"{name}/x_forward", "yxz,xk->ykz", pair(Y, X, Zs), ex._wx_f, True, None)]
+    if ex.y_plan == "dense":
+        forms.append((f"{name}/y", "yxz,yk->kxz", pair(Y, A, Zs), ex._wy_b, True, None))
+    elif ex.y_plan == "per-slot":
+        forms += [(f"{name}/slot_backward", SLOTS_OUT, pair(A, ex.sy, Zs), ex._wy_b, True, None),
+                  (f"{name}/slot_forward", SLOTS_IN, pair(Y, A, Zs), ex._wy_f, True, None)]
+    else:
+        grid, col = pair(Y, A, Zs), 0
+        for b, (ag, syg, wb, wf) in enumerate(ex.buckets):
+            cols = tuple(g[:, col:col + ag] for g in grid)
+            forms.append((f"{name}/bucket{b}_backward", SLOTS_OUT, pair(ag, syg, Zs), wb, True,
+                          cols))
+            forms.append((f"{name}/bucket{b}_forward", SLOTS_IN, cols, wf, True, None))
+            col += ag
     return forms
 
 
@@ -1131,6 +1218,433 @@ def dist_phase(sp, data, plans, values):
         out[name], dvalues[name] = (t, None if over_group else twin), vals
     return out, counts, rows, dvalues, dist
 
+# ---- the obs phase ---------------------------------------------------------------
+
+
+# the obs phase's overhead modes: which of timing, metrics, tracing are on
+OBS_MODES = {"off": (), "timing": ("timing",), "metrics": ("metrics",), "trace": ("trace",),
+             "all": ("timing", "metrics", "trace")}
+
+
+def set_obs(layers) -> None:
+    """Exactly ``layers`` of timing, metrics and tracing on."""
+    from spfft_tpu_torch import obs, timing
+
+    for layer, module in (("timing", timing), ("metrics", obs), ("trace", obs.trace)):
+        (module.enable if layer in layers else module.disable)()
+
+
+def overhead_phase(sp, plans, values, rounds: int = 8, pairs: int = 10) -> dict:
+    """ms per host-facing pair of each plan of ``plans`` (name -> plan: the
+    fused plan and its staged twin, whose hooks run once per node) in each
+    of ``OBS_MODES`` (all off, each layer alone, all on), taking turns (the
+    modes' order reversed every other round), ``pairs`` timed pairs after
+    one untimed pair at each turn; medians and quartiles per plan."""
+    import torch
+
+    from spfft_tpu_torch import obs
+
+    times = {(n, m): [] for n in plans for m in OBS_MODES}
+    for r in range(rounds):
+        for mode in (list(OBS_MODES) if r % 2 == 0 else list(reversed(OBS_MODES))):
+            set_obs(OBS_MODES[mode])
+            for name, t in plans.items():
+                for i in range(pairs + 1):
+                    t0 = time.perf_counter()
+                    t.backward(values)
+                    t.forward(scaling=sp.ScalingType.FULL)
+                    torch.cuda.synchronize()
+                    if i:
+                        times[name, mode].append(1e3 * (time.perf_counter() - t0))
+            obs.trace.clear()
+    set_obs(("metrics",))  # the defaults: metrics on, timing and tracing off
+    rows = {}
+    for name in plans:
+        med = {m: statistics.median(times[name, m]) for m in OBS_MODES}
+        rows[name] = {"ms_per_pair": med,
+                      "minus_off_ms": {m: v - med["off"] for m, v in med.items()},
+                      "min_ms": {m: min(times[name, m]) for m in OBS_MODES},
+                      "quartiles_ms": {m: statistics.quantiles(times[name, m], n=4)
+                                       for m in OBS_MODES}}
+    row = {"phase": "obs_overhead", "pairs_each": rounds * pairs, "plans": rows}
+    emit(row)
+    return row
+
+
+def random_pair(t, seed):
+    """Random values of plan ``t``'s exact shape on the card, in the layout
+    of its device-side entry points."""
+    import torch
+
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    rnd = lambda n: torch.randn(n, generator=gen, device="cuda", dtype=torch.float64)
+    if hasattr(t, "mesh"):
+        vals = [torch.complex(rnd(t.num_local_elements(r)), rnd(t.num_local_elements(r)))
+                for r in range(t.num_shards)]
+        return t._exec.pad_values(vals)
+    return t._exec.values_pair(torch.complex(rnd(t.num_local_elements),
+                                             rnd(t.num_local_elements)))
+
+
+def busy_pair_ms(sp, t, pair) -> float:
+    """Device busy ms (the union of the kernels' intervals) of one
+    device-side backward + forward(FULL) pair under torch.profiler."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t.backward_pair(*pair)
+        t.forward_pair(sp.ScalingType.FULL)
+        torch.cuda.synchronize()
+    return union_us(sorted((e.time_range.start, e.time_range.end)
+                           for e in device_kernels(prof))) / 1e3
+
+
+def stage_profile(sp, name, t) -> dict:
+    """One pair of plan ``t``'s staged twin under torch.profiler: each stage
+    node runs under ``timing.trace_annotation(<its STAGES label>)``, which
+    the profiler also draws as a range on the device's timeline; per stage
+    label, the busy time of the kernels inside those ranges. (The CPU
+    range's own ``device_time_total`` misses the kernels that the ctypes
+    wrappers launch, so the device-side range is what is read.)"""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from spfft_tpu_torch.obs import STAGES
+
+    twin = sp.DistributedTransform.from_parameters(
+        t.processing_unit, t.params, mesh=t.mesh, exchange_type=t.exchange_type,
+        dtype=t.dtype, engine=t.engine, precision=t.precision, fuse=False)
+    pair = random_pair(twin, SEED + 7)
+    twin.backward_pair(*pair)
+    twin.forward_pair(sp.ScalingType.FULL)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        twin.backward_pair(*pair)
+        twin.forward_pair(sp.ScalingType.FULL)
+        torch.cuda.synchronize()
+    events = prof.events()
+    kernels = sorted((e.time_range.start, e.time_range.end) for e in device_kernels(prof))
+    stage_ms, ranges = {}, {}
+    for e in events:
+        if e.name in STAGES and e.device_type == DeviceType.CUDA:
+            lo, hi = e.time_range.start, e.time_range.end
+            inside = [(max(a, lo), min(b, hi)) for a, b in kernels if b > lo and a < hi]
+            stage_ms[e.name] = stage_ms.get(e.name, 0.0) + union_us(sorted(inside)) / 1e3
+            ranges[e.name] = ranges.get(e.name, 0) + 1
+    busy = union_us(kernels) / 1e3
+    stages = twin._exec._ir.describe()["stages"]
+    want = set(stages["backward"]) | set(stages["forward"])
+    row = {"phase": "obs_stage_profile", "plan": name + STAGED, "busy_ms": busy,
+           "ranges": ranges, "device_ms_by_stage": stage_ms,
+           "stages_cover": sum(stage_ms.values()) / busy, "stages": sorted(want),
+           "exchange_share": stage_ms.get("exchange", 0.0) / busy}
+    emit(row)
+    check(want <= set(ranges), f"{name}: stage ranges {sorted(ranges)}, want {sorted(want)}")
+    check(0.5 < row["stages_cover"] <= 1.0 + 1e-9,
+          f"{name}: the stage ranges hold {row['stages_cover']} of the busy time")
+    del twin
+    return row
+
+
+def staging_phase(sp, name, t) -> dict:
+    """Host staging at 512^3: a backward whose result goes to the host
+    (``space_domain_data()``) against one that stays on the card, and a
+    forward from a host array against one from a device tensor; medians of
+    three, and the bytes over the difference."""
+    import torch
+
+    space_dev = t.backward(t.forward(torch.randn((t.dim_z, t.dim_y, t.dim_x), device="cuda",
+                                                 dtype=torch.float32 if t.dtype == np.float32
+                                                 else torch.float64), sp.ScalingType.NONE))
+    values = t.forward(space_dev, sp.ScalingType.NONE)
+    host = t.space_domain_data()
+    nbytes = host.nbytes
+
+    def med(fn):
+        times = []
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+        return statistics.median(times)
+
+    bwd_dev = med(lambda: t.backward(values))
+    bwd_host = med(lambda: (t.backward(values), t.space_domain_data()))
+    fwd_dev = med(lambda: t.forward(space_dev, sp.ScalingType.NONE))
+    fwd_host = med(lambda: t.forward(host, sp.ScalingType.NONE))
+    # the copies alone, one contiguous grid: into fresh pageable memory (as
+    # space_domain_data does), into pageable memory touched before, the same
+    # in 8 pieces (the JAX package's chunked staging), and pinned memory
+    dense = space_dev.contiguous()
+    warm = torch.empty(dense.shape, dtype=dense.dtype)
+    warm.fill_(0)
+    pinned = torch.empty(dense.shape, dtype=dense.dtype, pin_memory=True)
+    pieces = [(i, i + -(-dense.shape[0] // 8)) for i in range(0, dense.shape[0],
+                                                               -(-dense.shape[0] // 8))]
+    raw = {
+        "d2h_fresh_pageable": med(lambda: dense.cpu()),
+        "d2h_warm_pageable": med(lambda: warm.copy_(dense)),
+        "d2h_warm_pageable_8_pieces": med(lambda: [warm[a:b].copy_(dense[a:b])
+                                                   for a, b in pieces]),
+        "d2h_pinned": med(lambda: pinned.copy_(dense)),
+        "h2d_pageable": med(lambda: dense.copy_(warm)),
+        "h2d_pinned": med(lambda: dense.copy_(pinned)),
+    }
+    row = {"phase": "obs_staging", "plan": name, "bytes": nbytes,
+           "backward_ms": 1e3 * bwd_dev, "backward_to_host_ms": 1e3 * bwd_host,
+           "forward_ms": 1e3 * fwd_dev, "forward_from_host_ms": 1e3 * fwd_host,
+           "device_to_host_gb_s": nbytes / max(bwd_host - bwd_dev, 1e-9) / 1e9,
+           "host_to_device_gb_s": nbytes / max(fwd_host - fwd_dev, 1e-9) / 1e9,
+           "copy_gb_s": {k: dense.numel() * dense.element_size() / v / 1e9
+                         for k, v in raw.items()}}
+    emit(row)
+    return row
+
+
+def fence_timeout_phase() -> dict:
+    """A fence with a 5 ms budget on about a second of queued matrix
+    products must raise FenceTimeout; without a budget the same fence
+    returns once the work is done."""
+    import torch
+
+    from spfft_tpu_torch.sync import FenceTimeout, fence
+
+    a = torch.randn((8192, 8192), device="cuda")
+    torch.cuda.synchronize()
+    raised, t0 = False, time.perf_counter()
+    with knobs({"SPFFT_TPU_FENCE_BUDGET_S": "0.005"}):
+        for _ in range(48):
+            a = torch.tanh(a @ a)
+        try:
+            fence(a)
+        except FenceTimeout:
+            raised = True
+    raised_after_ms = 1e3 * (time.perf_counter() - t0)
+    fence(a)
+    done = torch.cuda.Event()
+    done.record()
+    row = {"phase": "obs_fence", "raised_fence_timeout": raised,
+           "raised_after_ms": raised_after_ms, "unbudgeted_fence_complete": done.query()}
+    emit(row)
+    check(raised, "a fence with a 5 ms budget did not raise FenceTimeout on a long launch")
+    torch.cuda.synchronize()
+    return row
+
+
+def bench_phase(sp) -> tuple:
+    """The benchmark program at every configuration of ``BENCH_CONFIGS``
+    (module docstring, phase 8). Returns the launch counts, the kernel rows
+    and one summary row per configuration."""
+    import torch
+
+    from spfft_tpu_torch import obs
+    from spfft_tpu_torch.programs import benchmark
+
+    from spfft_tpu_torch.programs import bench
+
+    counts, rows, summary = {}, [], {}
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 8)
+    os.makedirs(REPORTS, exist_ok=True)
+    # the one-line figure: 256^3 C2C in the 0.659 sphere, float32, the plan
+    # of c2c-blocked, timed by obs.perf.measure_pair_seconds
+    clear_counts()
+    with contextlib.redirect_stdout(io.StringIO()):
+        line = bench.main([])
+    counts["bench-line"] = launch_counts()
+    emit({"phase": "obs_bench_line", "value": line["value"], "unit": line["unit"],
+          "vs_baseline": line["vs_baseline"], "platform": line["platform"],
+          "seconds_per_pair": line["perf"]["seconds_per_pair"],
+          "y_plan": line["plan"]["execution"]["sparse_y"], "launches": {
+              k: sum(v.values()) for k, v in counts["bench-line"].items()}})
+    check(line["platform"] == "gpu" and obs.perf.validate_perf_report(line["perf"]) == [],
+          "bench: not a device line, or its perf report is malformed")
+    check(all(sum(v.values()) > 0 for v in counts["bench-line"].values()),
+          f"bench: a kernel was not launched: {counts['bench-line']}")
+    for name, argv in BENCH_CONFIGS:
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        before = torch.cuda.memory_allocated()
+        t0 = time.perf_counter()
+        clear_counts()
+        with contextlib.redirect_stdout(io.StringIO()):
+            report, transforms = benchmark.main(
+                [*argv, "-p", "gpu", "-o", os.path.join(REPORTS, name + ".json")])
+        counts[name] = launch_counts()
+        peak = torch.cuda.max_memory_allocated() - before
+        seconds = time.perf_counter() - t0
+        t = transforms[0]
+        res, par = report["results"], report["parameters"]
+        card = res["plan"]
+        labels, stack = set(), [report["timings"]]
+        while stack:
+            node = stack.pop()
+            labels.add(node["label"])
+            stack.extend(node["sub"])
+        want = BENCH_LABELS | ({"Execution init"} if card["kind"] == "local" else set())
+        perf = obs.perf.perf_report(t, res["wall_s_per_transform_pair"], repeats=par["repeats"])
+        bar = BENCH_RTOL[par["precision"]]
+        launched = {k: sum(v.values()) for k, v in counts[name].items()}
+        pair = random_pair(t, SEED + 9)
+        busy = busy_pair_ms(sp, t, pair)
+        row = {"phase": "obs_bench", "config": name, "argv": argv, "seconds": seconds,
+               "ms_per_pair": 1e3 * res["wall_s_per_transform_pair"],
+               "gflops": res["gflops_per_pair"], "roundtrip_residual": res["roundtrip_residual"],
+               "residual_bar": bar, "busy_ms_one_pair": busy,
+               "busy_share": busy / (1e3 * res["wall_s_per_transform_pair"]),
+               "peak_mib": peak / 2**20,
+               "engine": card["engine"], "y_plan": card["execution"].get("sparse_y"),
+               "num_sticks": card["num_sticks"], "num_elements": card["num_elements"],
+               "launches": launched, "perf_exchange_fraction": perf["exchange_fraction"],
+               "exchange": card.get("exchange")}
+        emit(row)
+        summary[name] = row
+        check(obs.validate_plan_card(card) == [],
+              f"{name}: plan card {obs.validate_plan_card(card)}")
+        check(card["platform"] == "gpu" and card["engine"] == "mxu",
+              f"{name}: platform {card['platform']}, engine {card['engine']}")
+        check(want <= labels, f"{name}: timing tree lacks {sorted(want - labels)}")
+        check(obs.perf.validate_perf_report(perf) == [],
+              f"{name}: perf report {obs.perf.validate_perf_report(perf)}")
+        check(res["roundtrip_residual"] <= bar,
+              f"{name}: round-trip residual {res['roundtrip_residual']} above {bar}")
+        check(all(n > 0 for n in launched.values()), f"{name}: a kernel was not launched")
+        # the kernels at this configuration's forms, against their plain versions
+        forms = (dist_k1_forms(name, t, every=True) if card["kind"] == "distributed"
+                 else k1_forms(name, t))
+        for form, spec, x, w, want_imag, o in forms:
+            krow, key = run_k1(form, spec, x, w, want_imag, t.precision, o)
+            rows.append((krow, name, "complex_matmul", key))
+        k2 = (dist_k2_forms(name, t, gen) if card["kind"] == "distributed"
+              else [(f, src, idx, False) for f, src, idx in k2_forms(name, t, gen)])
+        for form, src, idx, packed in k2:
+            krow, key = run_k2(form, src, idx, packed)
+            rows.append((krow, name, "row_gather", key))
+        if card["kind"] == "distributed":
+            stage_profile(sp, name, t)
+        if name == "bench-512-r2c-16-single":
+            staging_phase(sp, name, t)
+        del transforms, t, pair, forms, k2
+    return counts, rows, summary
+
+
+
+# ---- pair times against other trees (--against) ----------------------------------
+
+# the 256^3 plans that --against times, fused and staged: local names of
+# PLANS, and the mesh plans of DIST_PLANS without a process group
+TURN_PLANS = ("c2c-blocked", "c2c-blocked-high", "r2c-blocked", "r2c-blocked-high")
+TURN_DIST = ("dist4-c2c", "dist4-r2c")
+
+
+def turns_worker(root) -> int:
+    """One tree's pair times (``--turns-worker ROOT``): ``spfft_tpu_torch``
+    imported from ``ROOT``, every plan of ``TURN_PLANS`` and ``TURN_DIST``
+    fused and staged, all taking turns (:func:`interleaved_pair_ms`); one
+    JSON line. Uses only what the port's public API has had since the
+    distributed slice, so that an older tree runs it too."""
+    root = os.path.abspath(root)
+    sys.path.insert(0, root)
+    import torch
+    import spfft_tpu_torch as sp
+    from spfft_tpu_torch import _build
+
+    check(sp.__file__.startswith(os.path.join(root, "")), f"imported {sp.__file__}, not {root}")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    _build.build_all(LIBRARIES)
+    data, plans, values = {}, {}, {}
+    local = {p[0]: p for p in PLANS}
+    dist = {p[0]: p for p in DIST_PLANS}
+    for name in TURN_PLANS + TURN_DIST:
+        kind, radius = (local[name][1], local[name][2]) if name in local else (dist[name][1], 0.659)
+        if (kind, radius) not in data:
+            data[kind, radius] = oracle(kind, radius)[:2]
+        triplets, vals = data[kind, radius]
+        ttype = getattr(sp.TransformType, kind.upper())
+        for suffix, fuse in (("", True), (STAGED, False)):
+            if name in local:
+                _, _, _, precision, env, _, dtype = local[name]
+                with knobs(env):
+                    plans[name + suffix] = sp.Transform(
+                        sp.ProcessingUnit.GPU, ttype, *DIMS, indices=triplets, dtype=dtype,
+                        precision=precision, fuse=fuse)
+                values[name + suffix] = torch.as_tensor(vals.astype(np.complex64), device="cuda")
+            else:
+                _, _, engine, exchange, dtype, *_ = dist[name]
+                per = sp.distribute_triplets(triplets, 4, DIMS[1])
+                plans[name + suffix] = sp.DistributedTransform(
+                    sp.ProcessingUnit.GPU, ttype, *DIMS, per, mesh=sp.make_fft_mesh(4),
+                    engine=engine, exchange_type=getattr(sp.ExchangeType, exchange),
+                    dtype=dtype, fuse=fuse)
+                values[name + suffix] = [torch.as_tensor(vals[i].astype(np.complex64),
+                                                         device="cuda")
+                                         for i in shard_index(triplets, per)]
+    raw = {}
+    interleaved_pair_ms(sp, plans, values, raw=raw)
+    emit({"phase": "turns", "root": root, "pair_ms": raw})
+    return 0
+
+
+def against(others) -> int:
+    """``--against DIR [DIR ...]``: this tree's pair times against each
+    other tree's (a checkout of the same port, e.g. the parent commit
+    unpacked with ``git archive``), one :func:`turns_worker` process per
+    turn, in the order DIR..., this tree, this tree, ...DIR, twice, so that
+    drift over the run falls on every tree alike; per plan the median and
+    the least of the pairs of all of a tree's turns. The kernels are built once here and their libraries
+    copied to the other trees, which load those whose sources hash the same
+    and build the rest."""
+    import torch
+
+    check(bool(others), "--against needs at least one tree")
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 2
+    from spfft_tpu_torch import _build
+
+    card = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True,
+    ).stdout.strip().splitlines()[0]
+    print(card, flush=True)
+    _build.build_all(LIBRARIES)
+    here = os.path.dirname(os.path.abspath(__file__))
+    others = [os.path.abspath(o) for o in others]
+    for root in others:
+        target = os.path.join(root, "build", "spfft_tpu_torch")
+        os.makedirs(target, exist_ok=True)
+        for f in os.listdir(_build.BUILD_DIR):
+            if not os.path.exists(os.path.join(target, f)):
+                shutil.copy2(os.path.join(_build.BUILD_DIR, f), target)
+    order = [*others, here, here, *reversed(others)] * 2
+    runs = {}
+    for root in order:
+        run = subprocess.run([sys.executable, os.path.abspath(__file__), "--turns-worker", root],
+                             capture_output=True, text=True, timeout=900)
+        check(run.returncode == 0, f"worker on {root}: {run.stderr[-3000:]}")
+        row = json.loads(run.stdout.strip().splitlines()[-1])
+        print(json.dumps(row), flush=True)
+        runs.setdefault(root, []).append(row["pair_ms"])
+    pooled = {root: {plan: [x for r in rs for x in r[plan]] for plan in rs[0]}
+              for root, rs in runs.items()}
+    stats = {"median": statistics.median, "min": min}
+    got = {s: {root: {plan: f(v) for plan, v in by.items()} for root, by in pooled.items()}
+           for s, f in stats.items()}
+    emit({"phase": "against", "card": card, "order": order,
+          "what": "ms per host-facing pair, each plan and its staged twin taking turns "
+                  "in each worker (6 rounds of 4 timed pairs); median and min over the "
+                  "pairs of all of a tree's workers", "pair_ms": got,
+          "over_this_tree": {s: {root: {p: got[s][root][p] / got[s][here][p]
+                                        for p in got[s][here]} for root in others}
+                             for s in stats}})
+    return 0
+
 
 def main() -> int:
     import torch
@@ -1273,6 +1787,17 @@ def main() -> int:
           "the compare line), device busy ms of one profiled pair; exchange_k2_ms is the "
           "exchange's K2 gathers, nccl_ms its collective kernels", **dist_rows})
 
+    # ---- the obs phase: the cost of observability, then the benchmark program ----
+    t0 = time.perf_counter()
+    overhead_phase(sp, {"c2c-blocked": plans["c2c-blocked"][0],
+                        "c2c-blocked" + STAGED: twins["c2c-blocked"]}, values["c2c-blocked"])
+    del every, plans, twins, dplans, values, dvalues, busy
+    bcounts, brows, _ = bench_phase(sp)
+    counts.update(bcounts)
+    rows += brows
+    fence_timeout_phase()
+    emit({"phase": "obs", "seconds": time.perf_counter() - t0})
+
     kernels = []
     for row, name, kernel, key in rows:
         launches = counts[name][kernel].get(key, 0)
@@ -1292,4 +1817,8 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--turns-worker"]:
+        sys.exit(turns_worker(sys.argv[2]))
+    if sys.argv[1:2] == ["--against"]:
+        sys.exit(against(sys.argv[2:]))
     sys.exit(main())

@@ -11,7 +11,11 @@ are row gathers (kernel K2, ``csrc/row_gather.cu``), both CUDA C++ for
 (``ProcessingUnit.HOST``) each kernel's plain PyTorch version runs instead.
 ``engine="xla"`` (the default on the CPU) is the ``torch.fft`` engine. Each
 direction runs as one program (:mod:`spfft_tpu_torch.ir`; on the card one
-CUDA-graph replay), or node by node with ``fuse=False``.
+CUDA-graph replay), or node by node with ``fuse=False``. Plan cards (``t.report()``), the timing tree
+(:mod:`spfft_tpu_torch.timing`), run metrics and the flight recorder
+(:mod:`spfft_tpu_torch.obs`) and the completion fence
+(:mod:`spfft_tpu_torch.sync`) are the JAX package's observability layers;
+``python -m spfft_tpu_torch.programs.benchmark`` is the reference benchmark.
 
     import spfft_tpu_torch as sp
     trip = sp.create_spherical_cutoff_triplets(64, 64, 64, 0.659)
@@ -48,6 +52,7 @@ from .errors import (  # noqa: F401
     ServiceOverloadError,
     VerificationError,
 )
+from . import obs, sync, timing  # noqa: F401
 from .distributed import DistributedTransform  # noqa: F401
 from .grid import Grid, device_for_processing_unit  # noqa: F401
 from .multi_transform import (  # noqa: F401

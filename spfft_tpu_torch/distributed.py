@@ -16,12 +16,18 @@ by the global shard id. The shards of a process sit stacked on its device
 
 ``forward`` returns the per-shard packed values (None for another
 process's). Results are tensors on the plan's device.
+
+Observability as the local ``Transform`` and the JAX package's plan: a
+``plan`` operation with ``decision`` events (engine, exchange), ``execute``
+operations with the timing scopes and the completion fence, and
+``exchange_wire_bytes_total`` per dispatch; the plan card is :meth:`report`.
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
 
+from . import obs, timing
 from .errors import InvalidParameterError
 from .grid import Grid
 from .ops.fft import resolve_precision
@@ -32,12 +38,12 @@ from .parallel.policy import (discipline_volumes, resolve_default_for_plan,
                               resolve_overlap_chunks, resolve_policy)
 from .parameters import (DistributedParameters, distribute_triplets,
                          make_distributed_parameters)
-from .transform import _resolve_batch_count, _validate_data_location
+from .transform import _Observed, _resolve_batch_count, _validate_data_location
 from .types import (ExchangeType, ExecType, IndexFormat, ProcessingUnit, ScalingType,
                     TransformType, wire_scalar_bytes)
 
 
-class DistributedTransform:
+class DistributedTransform(_Observed):
     """A sparse 3-D FFT plan sharded over a :class:`~.parallel.mesh.ShardMesh`.
 
     ``indices``: a list of per-shard triplet arrays (every shard's, on every
@@ -113,22 +119,29 @@ class DistributedTransform:
         self._policy = resolve_policy(policy)
         resolve_overlap_chunks(overlap)
         self._requested_exchange = exchange_type
-        if exchange_type == ExchangeType.DEFAULT:
-            exchange_type = resolve_default_for_plan(p)
         self._precision = resolve_precision(precision)
-        if engine == "auto":  # the JAX package's rule (spfft_tpu/distributed.py:208-209)
-            engine = "xla" if mesh.device.type == "cpu" else "mxu"
-        if engine not in ("xla", "mxu"):
-            raise InvalidParameterError(f"unknown engine {engine!r}")
-        self._engine = engine
-        if engine == "mxu":
-            self._exec = MxuDistributedExecution(p, self._real_dtype, mesh, exchange_type,
-                                                 self._precision, fuse=fuse)
-        else:
-            self._exec = DistributedExecution(p, self._real_dtype, mesh, exchange_type,
-                                              fuse=fuse)
+        self._run_id = obs.trace.new_run_id()
+        with obs.trace.operation("plan", run_id=self._run_id, kind="distributed"):
+            if exchange_type == ExchangeType.DEFAULT:
+                exchange_type = resolve_default_for_plan(p)
+            if engine == "auto":  # the JAX package's rule (spfft_tpu/distributed.py:208-209)
+                engine = "xla" if mesh.device.type == "cpu" else "mxu"
+            if engine not in ("xla", "mxu"):
+                raise InvalidParameterError(f"unknown engine {engine!r}")
+            self._engine = engine
+            if engine == "mxu":
+                self._exec = MxuDistributedExecution(p, self._real_dtype, mesh, exchange_type,
+                                                     self._precision, fuse=fuse)
+            else:
+                self._exec = DistributedExecution(p, self._real_dtype, mesh, exchange_type,
+                                                  fuse=fuse)
+            obs.trace.event("decision", what="engine", choice=engine, policy=self._policy)
+            obs.trace.event("decision", what="exchange", choice=self.exchange_type.name,
+                            overlap=self.overlap_chunks)
         self._exec_mode = ExecType.SYNCHRONOUS
         self._space_data = None  # native: (re, im) for C2C, re for R2C
+        # a plan constant, counted on every call: summed here once
+        self._wire_bytes = self.exchange_wire_bytes()
 
     # ---- transforms -----------------------------------------------------------------
 
@@ -138,7 +151,11 @@ class DistributedTransform:
         processes, this process's per-shard slabs (None for the others')."""
         if output_location is not None:
             _validate_data_location(output_location)
-        return self._finalize_backward(self._dispatch_backward(values))
+        with self._execute("backward"):
+            out = self._dispatch_backward(values)
+            self._wait(out, "backward")
+            with timing.scoped("output staging"):
+                return self._exec.unpad_space(out)
 
     def forward(self, space=None, scaling: ScalingType = ScalingType.NONE,
                 input_location: ProcessingUnit | None = None):
@@ -146,15 +163,24 @@ class DistributedTransform:
         retained space of the last backward) -> per-shard packed values."""
         if input_location is not None:
             _validate_data_location(input_location)
-        return self._finalize_forward(self._dispatch_forward(space, scaling))
+        with self._execute("forward"):
+            pair = self._dispatch_forward(space, scaling)
+            self._wait(pair, "forward")
+            with timing.scoped("output staging"):
+                return self._exec.unpad_values(pair)
 
     # split phases (multi_transform)
     def _dispatch_backward(self, values):
-        self._space_data = self._exec.backward_pair(*self._exec.pad_values(values))
+        with timing.scoped("input staging"):
+            pair = self._exec.pad_values(values)
+        self._record_wire_bytes()
+        with timing.scoped("dispatch"), obs.phase_timer("dispatch_seconds",
+                                                        direction="backward"):
+            self._space_data = self._exec.backward_pair(*pair)
         return self._space_data
 
     def _finalize_backward(self, out):
-        self._wait()
+        self._wait(out)
         return self._exec.unpad_space(out)
 
     def _dispatch_forward(self, space, scaling):
@@ -163,12 +189,22 @@ class DistributedTransform:
                 raise InvalidParameterError(
                     "no space domain data: run backward first or pass an array")
         else:
-            self._space_data = self._native(space)
-        return self._exec.forward_pair(*self._parts(self._space_data), ScalingType(scaling))
+            with timing.scoped("input staging"):
+                self._space_data = self._native(space)
+        self._record_wire_bytes()
+        with timing.scoped("dispatch"), obs.phase_timer("dispatch_seconds",
+                                                        direction="forward"):
+            return self._exec.forward_pair(*self._parts(self._space_data),
+                                           ScalingType(scaling))
 
     def _finalize_forward(self, pair):
-        self._wait()
+        self._wait(pair)
         return self._exec.unpad_values(pair)
+
+    def _record_wire_bytes(self) -> None:
+        """Count one exchange's wire bytes into ``exchange_wire_bytes_total``
+        (a no-op with metrics off)."""
+        obs.counter("exchange_wire_bytes_total", engine=self._engine).inc(self._wire_bytes)
 
     def _native(self, space):
         re, im = self._exec.pad_space(space)
@@ -205,12 +241,17 @@ class DistributedTransform:
         count = _resolve_batch_count(count, len(values_batch))
         if not self._exec._ir.batch_available():
             return [self.backward(v) for v in values_batch[:count]] if fallback else None
-        pairs = [self._exec.pad_values(v) for v in values_batch]
-        out = self._exec.backward_pair_batch(torch.stack([p[0] for p in pairs]),
-                                             torch.stack([p[1] for p in pairs]))
-        self._wait()
-        pick = (lambda b: out[b]) if self._is_r2c else (lambda b: (out[0][b], out[1][b]))
-        return [self._exec.unpad_space(pick(b)) for b in range(count)]
+        with self._execute("backward", count):
+            with timing.scoped("input staging"):
+                pairs = [self._exec.pad_values(v) for v in values_batch]
+                re = torch.stack([p[0] for p in pairs])
+                im = torch.stack([p[1] for p in pairs])
+            with timing.scoped("dispatch"):
+                out = self._exec.backward_pair_batch(re, im)
+            self._wait(out, "backward")
+            with timing.scoped("output staging"):
+                pick = (lambda b: out[b]) if self._is_r2c else (lambda b: (out[0][b], out[1][b]))
+                return [self._exec.unpad_space(pick(b)) for b in range(count)]
 
     def forward_batch(self, spaces, scaling: ScalingType = ScalingType.NONE, *,
                       fallback: bool = True, count: int | None = None):
@@ -221,12 +262,16 @@ class DistributedTransform:
         count = _resolve_batch_count(count, len(spaces))
         if not self._exec._ir.batch_available():
             return [self.forward(s, scaling) for s in spaces[:count]] if fallback else None
-        natives = [self._exec.pad_space(s) for s in spaces]
-        re = torch.stack([n[0] for n in natives])
-        im = None if self._is_r2c else torch.stack([n[1] for n in natives])
-        out = self._exec.forward_pair_batch(re, im, ScalingType(scaling))
-        self._wait()
-        return [self._exec.unpad_values((out[0][b], out[1][b])) for b in range(count)]
+        with self._execute("forward", count):
+            with timing.scoped("input staging"):
+                natives = [self._exec.pad_space(s) for s in spaces]
+                re = torch.stack([n[0] for n in natives])
+                im = None if self._is_r2c else torch.stack([n[1] for n in natives])
+            with timing.scoped("dispatch"):
+                out = self._exec.forward_pair_batch(re, im, ScalingType(scaling))
+            self._wait(out, "forward")
+            with timing.scoped("output staging"):
+                return [self._exec.unpad_values((out[0][b], out[1][b])) for b in range(count)]
 
     # ---- retained data ----------------------------------------------------------------
 
@@ -240,6 +285,10 @@ class DistributedTransform:
         if processing_unit is not None and _validate_data_location(
                 processing_unit) == ProcessingUnit.GPU:
             return self._space_data
+        p = self._params
+        obs.counter("staged_bytes_total", direction="device_to_host").inc(
+            (1 if self._is_r2c else 2) * self._exec.num_local * max(1, p.max_local_z_length)
+            * p.dim_y * p.dim_x * self._real_dtype.itemsize)
         out = self._exec.unpad_space(self._space_data)
         if isinstance(out, list):
             return [None if s is None else s.cpu().numpy() for s in out]
@@ -263,10 +312,6 @@ class DistributedTransform:
         """Axis order of the native space: ``"yxz"``, the stacked
         ``(Y, X, P_local, L_max)`` slabs, on both engines."""
         return self._exec.NATIVE_LAYOUT
-
-    def _wait(self) -> None:
-        if self._exec_mode == ExecType.SYNCHRONOUS and self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
 
     def clone(self) -> "DistributedTransform":
         """An independent plan with the same shards, mesh, engine, exchange,
@@ -308,9 +353,12 @@ class DistributedTransform:
                 "local_shards": list(self._mesh.local_shards), **self._exec.describe(),
                 "exchange": exchange, "ir": self._exec._ir.describe()}
 
-    def report(self) -> dict:
-        """The plan card (:meth:`describe`)."""
-        return self.describe()
+    def report(self, *, include_compiled: bool = False) -> dict:
+        """The plan card (:mod:`spfft_tpu_torch.obs.plancard`), schema
+        ``spfft_tpu.obs.plan_card/1``: the local card's keys, the shards,
+        mesh and decomposition, the exchange and the DEFAULT policy's
+        alternatives. ``include_compiled=True`` raises: there is no HLO."""
+        return obs.plan_card(self, include_compiled=include_compiled)
 
     # ---- accessors ----------------------------------------------------------------------
 
@@ -420,7 +468,3 @@ class DistributedTransform:
     def set_execution_mode(self, mode: ExecType) -> None:
         """ASYNCHRONOUS returns once the kernels are enqueued; :meth:`synchronize` waits."""
         self._exec_mode = ExecType(mode)
-
-    def synchronize(self) -> None:
-        if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)

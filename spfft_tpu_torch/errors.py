@@ -44,12 +44,24 @@ class ErrorCode(enum.IntEnum):
 
 
 class GenericError(Exception):
-    """Base exception. Reference: include/spfft/exceptions.hpp:40-61."""
+    """Base exception. Reference: include/spfft/exceptions.hpp:40-61.
+
+    Constructing any typed error notifies the flight recorder
+    (:mod:`spfft_tpu_torch.obs.trace`), as in the JAX package: with tracing
+    armed the error lands as an ``error`` event stamped with the active run
+    ID, and with ``SPFFT_TPU_TRACE_DUMP`` set the recorder is flushed to disk,
+    so the events leading up to a typed failure survive it."""
 
     error_code: ErrorCode = ErrorCode.UNKNOWN
 
     def __init__(self, message: str | None = None):
         super().__init__(message or self.__class__.__doc__ or self.__class__.__name__)
+        from .obs import trace
+
+        if trace.enabled():
+            trace.event("error", type=type(self).__name__, error_code=int(self.error_code),
+                        message=str(self)[:200])
+            trace.dump(reason=type(self).__name__)
 
 
 class OverflowError_(GenericError):

@@ -16,6 +16,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from . import obs
 from .ops import compression, symmetry
 from .parameters import LocalParameters
 from .types import ScalingType, TransformType
@@ -76,7 +77,40 @@ class ExecutionBase:
                         v.imag.to(self.torch_dtype).contiguous())
             re = v.to(self.torch_dtype).contiguous()
             return re, torch.zeros_like(re)
-        return self.put_pair(as_pair(np.asarray(values).reshape(-1), self.real_dtype))
+        pair = as_pair(np.asarray(values).reshape(-1), self.real_dtype)
+        obs.counter("staged_bytes_total", direction="host_to_device").inc(
+            pair[0].nbytes + pair[1].nbytes)
+        return self.put_pair(pair)
+
+    # ---- the perf layer's model (spfft_tpu_torch.obs.perf) -------------------------
+
+    def _y_stage_scope(self) -> str:
+        """The :data:`~spfft_tpu_torch.obs.STAGES` label of the y stage."""
+        return "y transform"
+
+    def stage_accounting(self) -> list:
+        """Analytic per-stage flop/byte rows of one backward+forward pair, the
+        JAX package's ``ExecutionBase.stage_accounting``: the shared head and
+        tail rows (``obs.perf.pipeline_head_rows``/``pipeline_tail_rows``)
+        and, on the dense-y path, the ``expand``/``pack`` rows of the stick
+        <-> grid relayout (the sparse-y plans contract straight from the
+        sticks and have neither)."""
+        from .obs.perf import pipeline_head_rows, pipeline_tail_rows
+
+        p = self.params
+        Z, Y, X = p.dim_z, p.dim_y, p.dim_x
+        c_item = 2 * self.real_dtype.itemsize
+        S = int(p.num_sticks)
+        grid_elems = Z * Y * int(self.num_x_active)
+        rows = pipeline_head_rows(int(p.num_values), S, Z, c_item,
+                                  stick_symmetry=self.is_r2c and self._zero_stick_id is not None)
+        y_scope = self._y_stage_scope()
+        if y_scope == "y transform":
+            relayout = (S * Z + grid_elems) * c_item
+            rows.append({"stage": "expand", "flops": 0, "bytes": relayout})
+            rows.append({"stage": "pack", "flops": 0, "bytes": relayout})
+        return rows + pipeline_tail_rows(Z, Y, X, Z * int(self.num_x_active), c_item,
+                                         plane_symmetry=self.is_r2c, y_scope=y_scope)
 
     # ---- entry points: the stage graphs, fused or staged ---------------------------
 

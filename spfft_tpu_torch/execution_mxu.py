@@ -108,6 +108,10 @@ class MxuLocalExecution(ExecutionBase):
         """The engaged y plan: ``"per-slot"``, ``"blocked"`` or ``"dense"``."""
         return "per-slot" if self.sy else ("blocked" if self.buckets is not None else "dense")
 
+    def _y_stage_scope(self) -> str:
+        return {"per-slot": "y transform sparse", "blocked": "y transform blocked"}.get(
+            self.y_plan, "y transform")
+
     def describe(self) -> dict:
         """The engine's plan decisions, as the JAX engine's ``describe()``
         gives those the port has."""

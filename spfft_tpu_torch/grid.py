@@ -125,6 +125,25 @@ class Grid:
     def device(self) -> torch.device:
         return self._device
 
+    def report(self) -> dict:
+        """Grid card: the capacity envelope and bindings that transforms made
+        from this grid inherit, the JAX package's ``Grid.report()`` (the
+        grid-level slice of :meth:`Transform.report`'s plan card)."""
+        card = {
+            "kind": "grid",
+            "max_dims": [self._max_dim_x, self._max_dim_y, self._max_dim_z],
+            "max_num_local_z_columns": self._max_num_local_z_columns,
+            "max_local_z_length": self._max_local_z_length,
+            "processing_unit": self._processing_unit.name,
+            "num_shards": self.num_shards,
+            "exchange_type": self._exchange_type.name,
+        }
+        if self._mesh is None:
+            card["device"] = str(self._device)
+        else:
+            card["mesh"] = {"fft": int(self._mesh.num_shards)}
+        return card
+
     def create_transform(
         self,
         processing_unit,

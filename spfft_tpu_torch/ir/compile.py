@@ -25,7 +25,14 @@ under graph capture is later work) runs staged, says so in ``describe()``
 (``"staged_because"``), and raises on ``fuse=True``.
 
 :data:`dispatches` counts program calls by ``(mode, direction)``: staged adds
-one per node, fused one per direction, batched one per batch and direction.
+one per node (added once per call), fused one per direction, batched one per
+batch and direction; the metrics registry's ``ir_dispatches_total{mode,
+direction}`` counts the same. On the staged path each node runs under
+``timing.trace_annotation(<its stage label>)``, so a ``torch.profiler``
+trace names each stage's device time; with no profiler running that is the
+shared no-op scope. Every count, scope and span sits
+outside the captured region: host code inside a capture runs once at capture
+and never at a replay.
 """
 from __future__ import annotations
 
@@ -33,7 +40,7 @@ import collections
 
 import torch
 
-from .. import knobs
+from .. import knobs, obs, timing
 from ..errors import GPUError, InvalidParameterError
 from ..types import ScalingType
 
@@ -122,8 +129,11 @@ class StagedProgram:
     def __call__(self, *args):
         env = _bind(self.graph, args)
         for node in self.order:
-            _run_node(env, node)
-            dispatches["staged", self.graph.direction] += 1
+            with timing.trace_annotation(node.stage):
+                _run_node(env, node)
+        direction, n = self.graph.direction, len(self.order)
+        dispatches["staged", direction] += n
+        obs.counter("ir_dispatches_total", mode="staged", direction=direction).inc(n)
         return _results(self.graph, env)
 
 
@@ -207,6 +217,7 @@ class EngineIr:
         # may reuse what another one freed
         self._pool = torch.cuda.graph_pool_handle() if self.device.type == "cuda" else None
         self._programs = {}  # (direction, scaling or None, B or None) -> program
+        self._batch_sizes = set()  # distinct batch sizes dispatched (the card)
         if path == "staged":
             self._programs["backward", None, None] = StagedProgram(graphs["backward"])
             for s, g in graphs["forward"].items():
@@ -240,6 +251,7 @@ class EngineIr:
         out = prog(*args)
         if self.path == "fused":  # staged counts per node itself
             dispatches["fused", direction] += 1
+            obs.counter("ir_dispatches_total", mode="fused", direction=direction).inc()
         return out
 
     def run_backward(self, *args):
@@ -261,8 +273,11 @@ class EngineIr:
         one program; None when batching is unavailable (the caller loops)."""
         if not self.batch_available():
             return None
-        out = self._program(direction, scaling, int(args[0].shape[0]))(*args)
+        batch = int(args[0].shape[0])
+        out = self._program(direction, scaling, batch)(*args)
+        self._batch_sizes.add(batch)
         dispatches["batched", direction] += 1
+        obs.counter("ir_dispatches_total", mode="batched", direction=direction).inc()
         return out
 
     def run_backward_batch(self, *args):
@@ -272,6 +287,15 @@ class EngineIr:
         return self._run_batch("forward", ScalingType(scaling), args)
 
     # ---- describe -------------------------------------------------------------------
+
+    def describe_batch(self) -> dict:
+        """The plan card's ``batch`` section: whether the batched path is
+        live, where the knob came from, the distinct batch sizes dispatched
+        so far, and ``failed`` (always False: a batched program that fails
+        raises here; there is no ``batch_fuse_failed`` rung)."""
+        _, requested = resolve_batch_fuse()
+        return {"enabled": self.batch_available(), "requested": requested,
+                "sizes": sorted(self._batch_sizes), "failed": False}
 
     def describe(self) -> dict:
         """The ``ir`` section (:data:`IR_KEYS`): path, where the choice came
@@ -335,5 +359,7 @@ def init_engine_ir(engine, fuse=None) -> EngineIr:
     graphs["backward"].validate()
     for g in graphs["forward"].values():
         g.validate()
-    return EngineIr(graphs, path="fused" if fused else "staged", requested=requested,
-                    device=engine.device, staged_because=because)
+    ir = EngineIr(graphs, path="fused" if fused else "staged", requested=requested,
+                  device=engine.device, staged_because=because)
+    obs.trace.event("decision", what="fuse", choice=ir.path)
+    return ir

@@ -8,6 +8,8 @@ clamps.
 
 ``SPFFT_TPU_SPARSE_Y_MATRIX_MB`` is not ported: it bounds the bucket matrices
 that XLA embeds in a compiled program as constants, and PyTorch embeds none.
+Neither is ``SPFFT_TPU_ADVISORY_FENCE``: it selects the scalar-probe fence of
+a TPU runtime whose ``block_until_ready`` returns early (:mod:`.sync`).
 """
 from __future__ import annotations
 
@@ -20,7 +22,7 @@ from .errors import InvalidParameterError
 @dataclass(frozen=True)
 class Knob:
     name: str
-    kind: str  # "str", "int" or "float"
+    kind: str  # "str", "int", "float" or "bool"
     default: object
     doc: str
     choices: tuple | None = None
@@ -45,7 +47,30 @@ REGISTRY = {k.name: k for k in (
          "batch fusion: `1` lets a same-plan batch of B transforms run as one program "
          "per direction; `0` keeps the per-request loop. Read at call time",
          choices=("0", "1")),
+    # ---- observability (spfft_tpu_torch.obs, .timing, .sync) ----
+    Knob("SPFFT_TPU_METRICS", "bool", True,
+         "`0` disables the `spfft_tpu_torch.obs` run-metrics registry at import: "
+         "instrument factories hand out one shared no-op (`obs.enable()/disable()` "
+         "override at runtime)"),
+    Knob("SPFFT_TPU_TRACE", "bool", False,
+         "`1` arms the flight recorder at import (`obs.trace.enable()` overrides at "
+         "runtime); events land in a bounded ring buffer joined to plan cards by run ID"),
+    Knob("SPFFT_TPU_TRACE_CAP", "int", 4096,
+         "flight-recorder ring-buffer capacity (oldest events evicted; `dropped` "
+         "counts them)", floor=1),
+    Knob("SPFFT_TPU_TRACE_DUMP", "str", None,
+         "directory the recorder flushes to when a typed error is constructed; "
+         "unset = no dumps"),
+    Knob("SPFFT_TPU_PERF_FLOP_PER_BYTE", "float", 8.0,
+         "machine balance (flop/byte) with which the perf report's stage model "
+         "mixes flop-weighted and byte-weighted stages"),
+    Knob("SPFFT_TPU_FENCE_BUDGET_S", "float", 0.0,
+         "wall-clock deadline of one completion fence: past it the fence raises "
+         "`FenceTimeout`; 0 or unset = an unbudgeted wait"),
 )}
+
+_TRUE_WORDS = ("1", "true", "on")
+_FALSE_WORDS = ("0", "false", "off")
 
 
 def _knob(name: str) -> Knob:
@@ -53,6 +78,12 @@ def _knob(name: str) -> Knob:
     if knob is None:
         raise InvalidParameterError(f"unregistered env knob {name!r}")
     return knob
+
+
+def default(name: str):
+    """The registered default of ``name`` (modules bind their ``DEFAULT_*``
+    constants to it, so that the registry stays the one holder)."""
+    return _knob(name).default
 
 
 def raw(name: str):
@@ -67,9 +98,13 @@ def _ambient(name: str):
     return None if value is None or value == "" else value
 
 
-def get_str(name: str) -> str:
+def get_str(name: str):
+    """The value as a string; None for an unset knob without a default."""
     knob = _knob(name)
-    value = str(_ambient(name) or knob.default)
+    value = _ambient(name) or knob.default
+    if value is None:
+        return None
+    value = str(value)
     if knob.choices and value not in knob.choices:
         raise InvalidParameterError(
             f"invalid {name} value {value!r}: expected one of {'/'.join(knob.choices)}"
@@ -93,3 +128,18 @@ def get_int(name: str) -> int:
 
 def get_float(name: str) -> float:
     return _get_number(name, float, "a float")
+
+
+def get_bool(name: str) -> bool:
+    """``1/true/on`` and ``0/false/off`` (any case); anything else raises."""
+    knob = _knob(name)
+    value = _ambient(name)
+    if value is None:
+        return bool(knob.default)
+    lowered = value.strip().lower()
+    if lowered in _TRUE_WORDS:
+        return True
+    if lowered in _FALSE_WORDS:
+        return False
+    raise InvalidParameterError(
+        f"invalid {name} value {value!r}: expected 0/1 (or true/false, on/off)")

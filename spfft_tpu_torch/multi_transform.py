@@ -12,9 +12,12 @@ Plans own their buffers, so transforms of one Grid may share a batch, and
 local and distributed transforms mix (a distributed member takes and gives
 per-shard lists, as its own ``backward``/``forward``); the same transform
 object twice is rejected, since its retained space-domain data is per object.
+Each batch is timed as in the JAX package: "multi backward" (or "multi
+forward") over "dispatch all" and "finalize all".
 """
 from __future__ import annotations
 
+from . import timing
 from .errors import InvalidParameterError
 from .types import ScalingType
 
@@ -83,7 +86,11 @@ def multi_transform_backward(transforms, values_list):
     ``values_list[i]`` is the packed input of ``transforms[i]``; returns the
     space-domain results in order (reference: multi_transform.hpp:72-95)."""
     transforms, values_list = list(transforms), list(values_list)
-    return finalize_backward(transforms, dispatch_backward(transforms, values_list))
+    with timing.scoped("multi backward"):
+        with timing.scoped("dispatch all"):
+            pending = dispatch_backward(transforms, values_list)
+        with timing.scoped("finalize all"):
+            return finalize_backward(transforms, pending)
 
 
 def multi_transform_forward(transforms, spaces_list=None, scaling_types=None):
@@ -94,4 +101,8 @@ def multi_transform_forward(transforms, spaces_list=None, scaling_types=None):
     transforms = list(transforms)
     spaces_list = [None] * len(transforms) if spaces_list is None else list(spaces_list)
     scalings = _broadcast_scaling(scaling_types, len(transforms))
-    return finalize_forward(transforms, dispatch_forward(transforms, spaces_list, scalings))
+    with timing.scoped("multi forward"):
+        with timing.scoped("dispatch all"):
+            pending = dispatch_forward(transforms, spaces_list, scalings)
+        with timing.scoped("finalize all"):
+            return finalize_forward(transforms, pending)

@@ -1,0 +1,56 @@
+"""spfft_tpu_torch.obs: run metrics, plan cards, execution tracing and
+performance reports, the port of ``spfft_tpu/obs/``.
+
+The layers, coarse to fine, as in the JAX package:
+
+1. **Host timing tree** (:mod:`spfft_tpu_torch.timing`): rt_graph statistics
+   of the host-visible phases (init, staging, dispatch, wait).
+2. **Plan cards** (:func:`plan_card`, ``plan.report()``): the JSON record of
+   every plan-time decision, schema ``spfft_tpu.obs.plan_card/1``; and **run
+   metrics**: a process-global counter/gauge/histogram registry
+   (:func:`counter`/:func:`gauge`/:func:`histogram`/:func:`phase_timer`),
+   exported by :func:`snapshot` and :func:`prometheus_text`.
+   ``SPFFT_TPU_METRICS=0`` turns the registry into one shared no-op.
+3. **Execution trace** (:mod:`.trace`): run-ID-stamped spans and events in a
+   bounded flight recorder (``SPFFT_TPU_TRACE``).
+4. **Device traces**: ``torch.profiler`` over the staged path, whose nodes
+   run under the :data:`STAGES` names (``timing.trace_annotation``).
+5. **Performance reports** (:mod:`.perf`): fenced seconds per pair
+   attributed to :data:`STAGES` by an analytic flop/byte model.
+
+The JAX package's sixth layer, fleet aggregation (``obs/fleet.py``), and its
+HLO statistics (``obs/hlo.py``, which has no counterpart without HLO) are not
+ported (ROADMAP items 11 and 8b).
+"""
+from . import perf, trace  # noqa: F401
+from .registry import (  # noqa: F401
+    HISTOGRAM_BUCKETS,
+    METRICS_ENV,
+    SNAPSHOT_SCHEMA,
+    clear,
+    counter,
+    disable,
+    enable,
+    gauge,
+    histogram,
+    is_enabled,
+    phase_timer,
+    prometheus_text,
+    snapshot,
+    validate_snapshot,
+)
+from .stages import STAGES  # noqa: F401
+
+
+def plan_card(transform, *, include_compiled: bool = False) -> dict:
+    """Structured record of a plan's decisions (see :mod:`.plancard`)."""
+    from .plancard import plan_card as _plan_card
+
+    return _plan_card(transform, include_compiled=include_compiled)
+
+
+def validate_plan_card(card: dict) -> list:
+    """Missing-key paths of a plan card ([] when schema-complete)."""
+    from .plancard import validate_plan_card as _validate
+
+    return _validate(card)

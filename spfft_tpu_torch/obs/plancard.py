@@ -1,0 +1,214 @@
+"""Plan cards: one JSON-stable record of what a plan chose and why.
+
+The port of ``spfft_tpu/obs/plancard.py``, under the same schema
+(``spfft_tpu.obs.plan_card/1``) and the same keys: grid geometry and sparsity,
+engine and precision, the engine's decisions (``execution``: active-x
+compaction, the y plan), the stage-graph IR section and the batch section;
+distributed plans add the exchange (discipline, wire dtype and bytes,
+rounds, transport) and the DEFAULT policy's table of alternatives.
+
+Where the port lacks a subsystem of the JAX package, the card carries what
+the JAX card carries for a plan without it: ``degradations`` is empty (no
+degradation ladder), ``verification`` is the ``"off"`` record with a closed
+breaker, and the ``tuning`` and ``placement`` sections are absent.
+``include_compiled=True`` (HLO statistics, ``obs/hlo.py``) has no
+counterpart without HLO and raises.
+"""
+from __future__ import annotations
+
+PLAN_CARD_SCHEMA = "spfft_tpu.obs.plan_card/1"
+
+# Keys every card carries / keys distributed cards add (the JAX schema).
+REQUIRED_KEYS = (
+    "schema",
+    "kind",
+    # construction run ID (obs.trace): the join key between this card, the
+    # metrics window it ran under and the flight-recorder events
+    "run_id",
+    "engine",
+    "transform_type",
+    "dims",
+    "num_elements",
+    "num_sticks",
+    "nnz_fraction",
+    "dtype",
+    "precision",
+    "policy",
+    "platform",
+    "execution",
+    "degradations",
+    "verification",
+)
+DEGRADATION_KEYS = ("event", "reason")
+VERIFICATION_KEYS = ("mode", "checks", "rtol", "retries", "breaker")
+BREAKER_KEYS = ("engine", "state", "consecutive_failures", "trips", "threshold")
+DISTRIBUTED_KEYS = ("num_shards", "mesh", "decomposition", "exchange")
+EXCHANGE_KEYS = (
+    "discipline",
+    "wire_dtype",
+    "wire_bytes",
+    "rounds",
+    "transport",
+    # effective OVERLAPPED-discipline chunk count (1 = bulk-synchronous)
+    "overlap_chunks",
+)
+POLICY_KEYS = ("round_cost_bytes", "one_shot_supported", "chosen", "alternatives")
+ALTERNATIVE_KEYS = ("discipline", "wire_bytes", "rounds", "cost_bytes", "chosen")
+# the IR section (spfft_tpu_torch/ir/compile.py IR_KEYS) and the batch section
+IR_SECTION_KEYS = ("fused", "path", "requested", "stages", "donation")
+BATCH_SECTION_KEYS = ("enabled", "requested", "sizes", "failed")
+# The JAX package's breaker threshold for an engine never verified
+# (SPFFT_TPU_VERIFY_BREAKER_K's default): the closed breaker of the "off"
+# verification record.
+BREAKER_THRESHOLD = 3
+
+
+def base_discipline(exchange_type):
+    """A wire-format variant (*_FLOAT / *_BF16) -> its base discipline, the
+    granularity at which the DEFAULT policy reasons."""
+    from ..types import BF16_EXCHANGES, FLOAT_EXCHANGES, ExchangeType
+
+    if exchange_type in (ExchangeType.BUFFERED_FLOAT, ExchangeType.BUFFERED_BF16):
+        return ExchangeType.BUFFERED
+    if exchange_type in FLOAT_EXCHANGES + BF16_EXCHANGES:
+        return ExchangeType.COMPACT_BUFFERED
+    return ExchangeType(exchange_type)
+
+
+def _exchange_policy(transform) -> dict:
+    """The ``exchange_policy`` section: the wire bytes of each base
+    discipline for this plan's geometry and wire width, with the one the
+    plan runs flagged. Every discipline here is one collective round
+    (``all_to_all_single`` takes uneven split sizes, so the one-shot exchange
+    is always supported) and the port's DEFAULT rule weighs wire bytes
+    alone, with no per-round term (``parallel/policy.py``): so
+    ``round_cost_bytes`` is 0 and ``cost_bytes`` equals ``wire_bytes``."""
+    from ..parallel.policy import discipline_volumes
+    from ..types import wire_scalar_bytes
+
+    p = transform._params
+    width = 2 * wire_scalar_bytes(transform.exchange_type, transform.dtype)
+    chosen = base_discipline(transform.exchange_type)
+    volumes = discipline_volumes(p.num_sticks_per_shard, p.local_z_lengths)
+    return {
+        "round_cost_bytes": 0,
+        "one_shot_supported": True,
+        "chosen": transform.exchange_type.name,
+        "alternatives": [
+            {"discipline": d.name, "wire_bytes": int(v * width), "rounds": 1,
+             "cost_bytes": int(v * width), "chosen": d == chosen}
+            for d, v in volumes.items()
+        ],
+    }
+
+
+def _mesh_card(mesh) -> dict:
+    """The mesh as the JAX card names it: its one ``"fft"`` axis."""
+    return {"fft": int(mesh.num_shards)}
+
+
+def _platform(device) -> str:
+    """``"gpu"`` on the card, ``"cpu"`` on the CPU (JAX's ``device.platform``)."""
+    return "gpu" if device.type == "cuda" else str(device.type)
+
+
+def plan_card(transform, *, include_compiled: bool = False) -> dict:
+    """Build the card of a local or distributed plan (module docstring)."""
+    from ..errors import InvalidParameterError
+    from ..types import TransformType, wire_dtype
+
+    if include_compiled:
+        raise InvalidParameterError(
+            "include_compiled=True: the port has no compiled-program (HLO) statistics "
+            "to report (ROADMAP queue A item 8b, obs/hlo.py)")
+    ex = transform._exec
+    distributed = getattr(transform, "_mesh", None) is not None
+    p = transform._params
+    if distributed:
+        num_elements = int(transform.num_global_elements)
+        num_sticks = int(sum(int(n) for n in p.num_sticks_per_shard))
+    else:
+        num_elements = int(transform.num_local_elements)
+        num_sticks = int(p.num_sticks)
+    card = {
+        "schema": PLAN_CARD_SCHEMA,
+        "kind": "distributed" if distributed else "local",
+        "run_id": transform._run_id,
+        "engine": transform.engine,
+        "transform_type": TransformType(transform.transform_type).name,
+        "dims": [int(transform.dim_x), int(transform.dim_y), int(transform.dim_z)],
+        "num_elements": num_elements,
+        "num_sticks": num_sticks,
+        "nnz_fraction": num_elements / float(transform.global_size),
+        "dtype": str(transform.dtype),
+        "precision": str(transform.precision),
+        "policy": "default",
+        "platform": _platform(transform.device),
+        "execution": ex.describe(),
+        "degradations": [],
+        "verification": {
+            "mode": "off", "checks": [], "rtol": None, "retries": 0,
+            "breaker": {"engine": transform.engine, "state": "closed",
+                        "consecutive_failures": 0, "trips": 0,
+                        "threshold": BREAKER_THRESHOLD},
+        },
+        "ir": ex._ir.describe(),
+        "batch": ex._ir.describe_batch(),
+    }
+    if distributed:
+        card["num_shards"] = int(p.num_shards)
+        card["mesh"] = _mesh_card(transform.mesh)
+        card["decomposition"] = "slab"
+        card["num_sticks_per_shard"] = [int(n) for n in p.num_sticks_per_shard]
+        card["local_z_lengths"] = [int(n) for n in p.local_z_lengths]
+        card["exchange"] = {
+            "discipline": transform.exchange_type.name,
+            "wire_dtype": str(wire_dtype(transform.exchange_type, transform.dtype)
+                              ).removeprefix("torch."),
+            "wire_bytes": int(transform.exchange_wire_bytes()),
+            "rounds": int(transform.exchange_rounds()),
+            "transport": ex.exchange_transport(),
+            "overlap_chunks": int(transform.overlap_chunks),
+        }
+        card["exchange_policy"] = _exchange_policy(transform)
+    return card
+
+
+def validate_plan_card(card: dict) -> list:
+    """Missing/malformed key paths of a plan card ([] when valid): the JAX
+    package's check, for the sections the port's cards carry."""
+    missing = [k for k in REQUIRED_KEYS if k not in card]
+    if card.get("schema") not in (None, PLAN_CARD_SCHEMA):
+        missing.append(f"schema (unknown: {card['schema']!r})")
+    for i, entry in enumerate(card.get("degradations", ())):
+        missing.extend(f"degradations[{i}].{k}" for k in DEGRADATION_KEYS if k not in entry)
+    ver = card.get("verification")
+    if isinstance(ver, dict):
+        missing.extend(f"verification.{k}" for k in VERIFICATION_KEYS if k not in ver)
+        missing.extend(f"verification.breaker.{k}" for k in BREAKER_KEYS
+                       if k not in (ver.get("breaker") or {}))
+    if card.get("kind") == "distributed":
+        missing.extend(k for k in DISTRIBUTED_KEYS if k not in card)
+        missing.extend(f"exchange.{k}" for k in EXCHANGE_KEYS if k not in card.get("exchange", {}))
+        policy = card.get("exchange_policy")
+        if policy is not None:
+            missing.extend(f"exchange_policy.{k}" for k in POLICY_KEYS if k not in policy)
+            for i, alt in enumerate(policy.get("alternatives", ())):
+                missing.extend(f"exchange_policy.alternatives[{i}].{k}"
+                               for k in ALTERNATIVE_KEYS if k not in alt)
+        elif card.get("decomposition") == "slab":
+            missing.append("exchange_policy")
+    if "ir" in card:
+        rec = card["ir"]
+        missing.extend(f"ir.{k}" for k in IR_SECTION_KEYS if k not in rec)
+        if rec.get("path") not in ("fused", "staged", "legacy"):
+            missing.append(f"ir.path (unknown: {rec.get('path')!r})")
+        don = rec.get("donation")
+        if not isinstance(don, dict) or not {"backward", "forward"} <= set(don or {}):
+            missing.append("ir.donation.backward|forward")
+    if "batch" in card:
+        rec = card["batch"]
+        missing.extend(f"batch.{k}" for k in BATCH_SECTION_KEYS if k not in rec)
+        if rec.get("requested") not in ("env", "default"):
+            missing.append(f"batch.requested (unknown: {rec.get('requested')!r})")
+    return missing

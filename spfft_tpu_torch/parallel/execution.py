@@ -23,10 +23,11 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from .. import obs
 from ..errors import InvalidParameterError, MPIParameterMismatchError
 from ..execution import ExecutionBase
 from ..ops import symmetry
-from ..types import ScalingType, TransformType, wire_scalar_bytes
+from ..types import RAGGED_EXCHANGES, ScalingType, TransformType, wire_scalar_bytes
 from .mesh import ShardMesh, fft_mesh_size
 from .ragged import make_exchange
 
@@ -130,6 +131,9 @@ class PaddingHelpers(ExecutionBase):
             if v.numel() != n:
                 raise InvalidParameterError(f"shard {r}: expected {n} values, got {v.numel()}")
             mine.append(v)
+        if not all(torch.is_tensor(values[r]) for r in self._local):
+            obs.counter("staged_bytes_total", direction="host_to_device").inc(
+                2 * self.num_local * self._V * self.real_dtype.itemsize)
         flat = torch.cat(mine) if len(mine) > 1 else mine[0]
         re = torch.zeros(self.num_local * self._V, dtype=self.torch_dtype, device=self.device)
         im = torch.zeros_like(re)
@@ -161,12 +165,18 @@ class PaddingHelpers(ExecutionBase):
         per_shard = isinstance(space, (list, tuple))
         if per_shard:
             space = self._shard_list(space, "space")
+            host = not all(torch.is_tensor(space[r]) for r in self._local)
         else:
+            host = not torch.is_tensor(space)
             space = self._tensor(space)
             if space.numel() != p.total_size:
                 raise InvalidParameterError(
                     f"expected {p.total_size} space-domain elements, got {space.numel()}")
             space = space.reshape(p.dim_z, p.dim_y, p.dim_x)
+        if host:
+            obs.counter("staged_bytes_total", direction="host_to_device").inc(
+                len(parts) * self.num_local * self._L * p.dim_y * p.dim_x
+                * self.real_dtype.itemsize)
         for j, r in enumerate(self._local):
             l, o = self._slab(r)
             slab = self._tensor(space[r]) if per_shard else space[o:o + l]
@@ -197,6 +207,39 @@ class PaddingHelpers(ExecutionBase):
         if len(self._local) < p.num_shards:
             return [None if s is None else s.contiguous() for s in slabs]
         return torch.cat(slabs)
+
+    # ---- the perf layer's model (spfft_tpu_torch.obs.perf) -------------------------
+
+    def stage_accounting(self) -> list:
+        """Analytic per-stage flop/byte rows of one backward+forward pair, the
+        JAX package's ``PaddingHelpers.stage_accounting``: the shared head and
+        tail rows, and the slab exchange between them: ``pack``/``unpack``
+        rows for the padded disciplines, only the slab ``unpack`` for the
+        exact-count ones, and the ``exchange`` row of the wire bytes that
+        the plan card reports (forward and backward)."""
+        from ..obs.perf import pipeline_head_rows, pipeline_tail_rows
+
+        p = self.params
+        P = int(p.num_shards)
+        Z, Y, X, Xf = p.dim_z, p.dim_y, p.dim_x, p.dim_x_freq
+        c_item = 2 * self.real_dtype.itemsize
+        total_sticks = int(np.asarray(p.num_sticks_per_shard).sum())
+        rows = pipeline_head_rows(int(np.asarray(p.num_values_per_shard).sum()), total_sticks,
+                                  Z, c_item,
+                                  stick_symmetry=self.is_r2c and p.zero_stick_shard >= 0)
+        if P > 1:
+            if self.exchange_type not in RAGGED_EXCHANGES:
+                buf = P * P * self._L * self._S  # padded buffers, all shards
+                ends = P * (self._S * Z + self._L * Y * Xf)  # stage endpoints
+                for stage in ("pack", "unpack"):
+                    rows.append({"stage": stage, "flops": 0, "bytes": (2 * buf + ends) * c_item})
+            else:
+                rows.append({"stage": "unpack", "flops": 0, "bytes": Z * Y * Xf * c_item})
+            rows.append({"stage": "exchange", "flops": 0,
+                         "bytes": 2 * self.exchange_wire_bytes()})
+        return rows + pipeline_tail_rows(Z, Y, X, Z * int(self.num_x_active), c_item,
+                                         plane_symmetry=self.is_r2c,
+                                         y_scope=self._y_stage_scope())
 
     # ---- wire accounting -----------------------------------------------------------
 

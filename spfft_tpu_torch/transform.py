@@ -9,12 +9,23 @@ the space domain, ``(dim_z, dim_y, dim_x)``, complex for C2C and real for R2C;
 The device-side entry points (``backward_pair``, ``forward_pair``,
 ``space_domain_data(ProcessingUnit.GPU)``) keep the engine's native layout,
 :attr:`Transform.space_domain_layout`.
+
+Observability, as in the JAX package (:mod:`spfft_tpu_torch.obs`): plan
+construction is a ``plan`` operation of the flight recorder with an
+"Execution init" timing scope; each host-facing call is an ``execute``
+operation under the plan's run ID, timed in the scopes "backward"/"forward",
+"input staging", "dispatch", "wait" (the completion :func:`~.sync.fence`)
+and "output staging", and counted in ``transforms_total``. The plan card is
+:meth:`Transform.report`.
 """
 from __future__ import annotations
+
+from contextlib import contextmanager
 
 import numpy as np
 import torch
 
+from . import obs, timing
 from .errors import InvalidParameterError
 from .execution import LocalExecution, from_pair
 from .execution_mxu import MxuLocalExecution
@@ -22,10 +33,47 @@ from .grid import Grid, device_for_processing_unit
 from .ops.fft import resolve_precision
 from .parallel.policy import resolve_policy
 from .parameters import LocalParameters, make_local_parameters
+from .sync import fence, wait
 from .types import ExecType, IndexFormat, ProcessingUnit, ScalingType, TransformType
 
 
-class Transform:
+class _Observed:
+    """The hooks of a plan's host-facing calls, shared by :class:`Transform`
+    and :class:`~.distributed.DistributedTransform` and placed as the JAX
+    package places them. The plan holds ``_engine``, ``_run_id``,
+    ``_exec_mode``, ``_space_data`` and ``device``."""
+
+    @contextmanager
+    def _execute(self, direction: str, count: int = 1):
+        """One call of ``count`` transforms: counted in ``transforms_total``,
+        an ``execute`` operation under the plan's run ID, timed in the
+        direction's scope."""
+        obs.counter("transforms_total", direction=direction, engine=self._engine).inc(count)
+        with obs.trace.operation("execute", run_id=self._run_id, direction=direction), \
+                timing.scoped(direction):
+            yield
+
+    def _wait(self, out, direction: str | None = None) -> None:
+        """SYNCHRONOUS mode: wait for ``out``. A host-facing call names its
+        ``direction``: the fence, in the "wait" scope, observed in
+        ``wait_seconds``. A split-phase finalize names none: the bare
+        :func:`~.sync.wait`, as the JAX package waits in its host fetch."""
+        if self._exec_mode != ExecType.SYNCHRONOUS:
+            return
+        if direction is None:
+            wait(out)
+            return
+        with timing.scoped("wait"), obs.phase_timer("wait_seconds", direction=direction):
+            fence(out)
+
+    def synchronize(self) -> None:
+        """Wait for the plan's enqueued work: its retained data, and all
+        that its device's current stream holds (an ASYNCHRONOUS batch
+        retains nothing)."""
+        fence(self._space_data, self.device)
+
+
+class Transform(_Observed):
     """A sparse 3-D FFT plan on one device.
 
     ``engine``: ``"mxu"``, the matrix-product engine (every DFT stage a K1
@@ -142,14 +190,23 @@ class Transform:
         if engine not in ("auto", "mxu", "xla"):
             raise InvalidParameterError(f"unknown engine {engine!r}")
         self._device = device_for_processing_unit(self._processing_unit, device)
-        if engine == "auto":  # the JAX package's rule (spfft_tpu/transform.py:207-208)
-            engine = "xla" if self._device.type == "cpu" else "mxu"
+        # Run ID (obs.trace): the key that joins this plan's card, metrics and
+        # flight-recorder events; the "plan" operation keeps it active while
+        # the engine is built.
+        self._run_id = obs.trace.new_run_id()
+        with obs.trace.operation("plan", run_id=self._run_id, kind="local"):
+            if engine == "auto":  # the JAX package's rule (spfft_tpu/transform.py:207-208)
+                engine = "xla" if self._device.type == "cpu" else "mxu"
+            # the reference's plan-creation scope (src/execution/execution_host.cpp:56)
+            with timing.scoped("Execution init"):
+                if engine == "mxu":
+                    self._exec = MxuLocalExecution(params, self._real_dtype, self._device,
+                                                   self._precision, fuse=fuse)
+                else:
+                    self._exec = LocalExecution(params, self._real_dtype, self._device,
+                                                fuse=fuse)
+            obs.trace.event("decision", what="engine", choice=engine, policy="default")
         self._engine = engine
-        if engine == "mxu":
-            self._exec = MxuLocalExecution(params, self._real_dtype, self._device,
-                                           self._precision, fuse=fuse)
-        else:
-            self._exec = LocalExecution(params, self._real_dtype, self._device, fuse=fuse)
         self._exec_mode = ExecType.SYNCHRONOUS
         self._space_data = None  # native layout: (re, im) for C2C, re for R2C
 
@@ -164,7 +221,11 @@ class Transform:
         """
         if output_location is not None:
             _validate_data_location(output_location)
-        return self._finalize_backward(self._dispatch_backward(values))
+        with self._execute("backward"):
+            out = self._dispatch_backward(values)
+            self._wait(out, "backward")
+            with timing.scoped("output staging"):
+                return self._public_space(out)
 
     def forward(
         self,
@@ -180,20 +241,27 @@ class Transform:
         """
         if input_location is not None:
             _validate_data_location(input_location)
-        return self._finalize_forward(self._dispatch_forward(space, scaling))
+        with self._execute("forward"):
+            pair = self._dispatch_forward(space, scaling)
+            self._wait(pair, "forward")
+            with timing.scoped("output staging"):
+                return from_pair(pair)
 
     # ---- split phases (multi_transform) ---------------------------------------------
 
     def _dispatch_backward(self, values):
         """Stage the values and enqueue the backward pipeline; returns the
         native result without waiting, and retains it."""
-        re, im = self._exec.values_pair(self._checked_values(values))
-        self._space_data = self._exec.backward_pair(re, im)
+        with timing.scoped("input staging"):
+            re, im = self._exec.values_pair(self._checked_values(values))
+        with timing.scoped("dispatch"), obs.phase_timer("dispatch_seconds",
+                                                        direction="backward"):
+            self._space_data = self._exec.backward_pair(re, im)
         return self._space_data
 
     def _finalize_backward(self, out):
         """Wait (SYNCHRONOUS mode) and return the public ``(Z, Y, X)`` view."""
-        self._wait()
+        self._wait(out)
         return self._public_space(out)
 
     def _dispatch_forward(self, space, scaling):
@@ -205,12 +273,15 @@ class Transform:
                     "no space domain data: run backward first or pass an array"
                 )
         else:
-            self._space_data = self._native_space(space)
-        return self._exec.forward_pair(*self._space_parts(self._space_data),
-                                       ScalingType(scaling))
+            with timing.scoped("input staging"):
+                self._space_data = self._native_space(space)
+        with timing.scoped("dispatch"), obs.phase_timer("dispatch_seconds",
+                                                        direction="forward"):
+            return self._exec.forward_pair(*self._space_parts(self._space_data),
+                                           ScalingType(scaling))
 
     def _finalize_forward(self, pair):
-        self._wait()
+        self._wait(pair)
         return from_pair(pair)
 
     def _checked_values(self, values):
@@ -260,8 +331,14 @@ class Transform:
         count = _resolve_batch_count(count, len(values_batch))
         if not values_batch:
             return []
-        pending = self._dispatch_backward_batch(values_batch, fallback=fallback, count=count)
-        return None if pending is None else self._finalize_backward_batch(pending)[:count]
+        with self._execute("backward", count):
+            pending = self._dispatch_backward_batch(values_batch, fallback=fallback,
+                                                    count=count)
+            if pending is None:
+                return None
+            self._wait(pending, "backward")
+            with timing.scoped("output staging"):
+                return self._finalize_backward_batch(pending)[:count]
 
     def forward_batch(self, spaces, scaling: ScalingType = ScalingType.NONE, *,
                       fallback: bool = True, count: int | None = None):
@@ -271,8 +348,14 @@ class Transform:
         count = _resolve_batch_count(count, len(spaces))
         if not spaces:
             return []
-        pending = self._dispatch_forward_batch(spaces, scaling, fallback=fallback, count=count)
-        return None if pending is None else self._finalize_forward_batch(pending)[:count]
+        with self._execute("forward", count):
+            pending = self._dispatch_forward_batch(spaces, scaling, fallback=fallback,
+                                                   count=count)
+            if pending is None:
+                return None
+            self._wait(pending, "forward")
+            with timing.scoped("output staging"):
+                return self._finalize_forward_batch(pending)[:count]
 
     def _dispatch_backward_batch(self, values_batch, *, fallback=True, count=None):
         """``{"batched": stacked native}`` after one batched dispatch, else
@@ -280,16 +363,18 @@ class Transform:
         count = _resolve_batch_count(count, len(values_batch))
         rows = [self._checked_values(v) for v in values_batch]
         if self._exec._ir.batch_available():
-            pairs = [self._exec.values_pair(v) for v in rows]
-            out = self._exec.backward_pair_batch(torch.stack([p[0] for p in pairs]),
-                                                 torch.stack([p[1] for p in pairs]))
-            return {"batched": out}
+            with timing.scoped("input staging"):
+                pairs = [self._exec.values_pair(v) for v in rows]
+                re = torch.stack([p[0] for p in pairs])
+                im = torch.stack([p[1] for p in pairs])
+            with timing.scoped("dispatch"), obs.phase_timer("dispatch_seconds",
+                                                            direction="backward"):
+                return {"batched": self._exec.backward_pair_batch(re, im)}
         if not fallback:
             return None
         return {"loop": [self._dispatch_backward(v) for v in rows[:count]]}
 
     def _finalize_backward_batch(self, pending):
-        self._wait()
         if "loop" in pending:
             return [self._public_space(out) for out in pending["loop"]]
         out = pending["batched"]
@@ -299,20 +384,30 @@ class Transform:
 
     def _dispatch_forward_batch(self, spaces, scaling, *, fallback=True, count=None):
         count = _resolve_batch_count(count, len(spaces))
-        natives = [self._native_space(s) for s in spaces]
         if self._exec._ir.batch_available():
-            if self._is_r2c:
-                re, im = torch.stack(natives), None
-            else:
-                re, im = (torch.stack([n[i] for n in natives]) for i in (0, 1))
-            return {"batched": self._exec.forward_pair_batch(re, im, ScalingType(scaling))}
+            with timing.scoped("input staging"):
+                natives = [self._native_space(s) for s in spaces]
+                if self._is_r2c:
+                    re, im = torch.stack(natives), None
+                else:
+                    re, im = (torch.stack([n[i] for n in natives]) for i in (0, 1))
+            with timing.scoped("dispatch"), obs.phase_timer("dispatch_seconds",
+                                                            direction="forward"):
+                return {"batched": self._exec.forward_pair_batch(re, im,
+                                                                 ScalingType(scaling))}
         if not fallback:
             return None
-        return {"loop": [self._exec.forward_pair(*self._space_parts(n), ScalingType(scaling))
-                         for n in natives[:count]]}
+        pairs = []
+        for space in spaces[:count]:  # the retained space stays untouched
+            with timing.scoped("input staging"):
+                native = self._native_space(space)
+            with timing.scoped("dispatch"), obs.phase_timer("dispatch_seconds",
+                                                            direction="forward"):
+                pairs.append(self._exec.forward_pair(*self._space_parts(native),
+                                                     ScalingType(scaling)))
+        return {"loop": pairs}
 
     def _finalize_forward_batch(self, pending):
-        self._wait()
         if "loop" in pending:
             return [from_pair(p) for p in pending["loop"]]
         values = from_pair(pending["batched"])
@@ -328,6 +423,9 @@ class Transform:
             t = space.to(self._device)
         else:
             t = torch.tensor(np.asarray(space), device=self._device)
+            # the bytes the plan's dtype stages, as the JAX package counts them
+            obs.counter("staged_bytes_total", direction="host_to_device").inc(
+                (1 if self._is_r2c else 2) * t.numel() * self._real_dtype.itemsize)
         if t.numel() != p.total_size:
             raise InvalidParameterError(
                 f"expected {p.total_size} space-domain elements, got {t.numel()}"
@@ -355,10 +453,6 @@ class Transform:
         ``"xla"`` engine, ``"yxz"`` on the ``"mxu"`` engine."""
         return self._exec.NATIVE_LAYOUT
 
-    def _wait(self) -> None:
-        if self._exec_mode == ExecType.SYNCHRONOUS and self._device.type == "cuda":
-            torch.cuda.synchronize(self._device)
-
     def space_domain_data(self, processing_unit: ProcessingUnit | None = None):
         """The most recent space-domain result (reference: transform.hpp:245):
         a numpy ``(Z, Y, X)`` array for HOST (the default); for GPU the
@@ -371,6 +465,8 @@ class Transform:
             processing_unit
         ) == ProcessingUnit.GPU:
             return self._space_data
+        obs.counter("staged_bytes_total", direction="device_to_host").inc(
+            (1 if self._is_r2c else 2) * self._params.total_size * self._real_dtype.itemsize)
         return self._public_space(self._space_data).cpu().numpy()
 
     def clone(self) -> "Transform":
@@ -494,9 +590,11 @@ class Transform:
         the kernels are enqueued; :meth:`synchronize` waits."""
         self._exec_mode = ExecType(mode)
 
-    def synchronize(self) -> None:
-        if self._device.type == "cuda":
-            torch.cuda.synchronize(self._device)
+    def report(self, *, include_compiled: bool = False) -> dict:
+        """The plan card (:mod:`spfft_tpu_torch.obs.plancard`): this plan's
+        decisions under schema ``spfft_tpu.obs.plan_card/1``.
+        ``include_compiled=True`` raises: there is no HLO to report."""
+        return obs.plan_card(self, include_compiled=include_compiled)
 
 
 def _resolve_batch_count(count, size: int) -> int:
