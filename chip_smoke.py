@@ -31,9 +31,17 @@ Phases, one JSON line each:
    time the card could take (``bound_ms``: K1's on the TF32 tensor cores, or
    the BF16 ones for "high"/"default", or the FP64 ones for float64, where
    the full complex forms take Gauss's three products; ``fp32_bound_ms``
-   without tensor cores, four products); K1 at odd shapes and strides at
-   each float32 precision, and once more in float64 (there also K = 0 and a
-   real constant);
+   without tensor cores, four products), and for K2 the vector width it
+   took; K2's ``ms``, ``plain_ms`` and ``library_ms`` instead on
+   ``graph_ms``'s clock (20 calls in one graph over copies of the operands
+   that together hold twice the L2 cache: no host replay in the time, the
+   operands read from device memory), its ``replay_ms`` on K1's; K1 at
+   odd shapes and strides at each float32 precision, and once more in
+   float64 (there also K = 0 and a real constant); K2 at odd shapes
+   (``run_k2_odd``: widths 1 to 512, float32 and float64, misaligned and
+   packed planes, sentinel indices and past them, one row and more vectors
+   than the card's resident threads), bitwise, and its first call inside a
+   CUDA-graph capture in a fresh process;
 4. the main path at full width: ``Transform(ProcessingUnit.GPU, ...)`` for
    every plan, backward then forward(FULL), against a complex128 dense oracle
    on the host (one per transform and radius), at the bar of the plan's
@@ -124,6 +132,7 @@ ORACLE_RTOL = {"highest": 1e-5, "high": 1e-4, "default": 2e-2}
 # step fails it
 ORACLE_F64_RTOL = 1e-12
 REPLAYS = 20
+GRAPH_CALLS = 20  # calls captured in one graph by graph_ms
 # H100 SXM published peaks (NVIDIA data sheet, 700 W): FP32 and FP64 outside
 # the tensor cores, dense TF32, BF16 and FP64 on them, and HBM3 bandwidth.
 PEAK_FLOPS = {"float32": 67e12, "float64": 34e12}
@@ -254,6 +263,45 @@ def device_ms(fn, replays: int = REPLAYS) -> float:
     end.synchronize()
     del graph
     return start.elapsed_time(end) / replays
+
+
+def l2_copies(footprint: int) -> int:
+    """How many copies of operands of ``footprint`` bytes hold twice the
+    card's L2 cache together: at least 1, at most ``GRAPH_CALLS``."""
+    import torch
+
+    l2 = torch.cuda.get_device_properties(0).L2_cache_size
+    return max(1, min(GRAPH_CALLS, -(-2 * l2 // footprint)))
+
+
+def graph_ms(fns) -> float:
+    """Device time of one call, with no host replay in it: ``GRAPH_CALLS``
+    calls, call i of ``fns[i % len(fns)]`` (one function per copy of the
+    operands, so that a small form is read from device memory and not from
+    L2), captured in one CUDA graph, the graph replayed three times between
+    two events. Warmed up as :func:`device_ms`."""
+    import torch
+
+    for fn in fns:
+        fn()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fns[0]()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for i in range(GRAPH_CALLS):
+            fns[i % len(fns)]()
+    graph.replay()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(3):
+        graph.replay()
+    end.record()
+    end.synchronize()
+    del graph
+    return start.elapsed_time(end) / (3 * GRAPH_CALLS)
 
 
 def check(ok: bool, what: str) -> None:
@@ -562,56 +610,202 @@ def run_k1_odd(phase, dtype, rtol, precision="highest"):
     check(untouched, f"complex_matmul {dtype} {precision} wrote outside its strided output")
 
 
+def k2_vector_bytes(src, out) -> int:
+    """The vector width (16, 8 or 4 bytes) that K2 takes to gather the planes
+    ``src`` into ``out``, by the rule of ``vector_bytes()`` in
+    ``csrc/row_gather.cu``: the widest that divides the row's bytes, both row
+    strides (where there is more than one row) and every plane pointer."""
+    item, width = src[0].element_size(), src[0].shape[1]
+    bits = width * item
+    for ts in (src, out):
+        bits |= item * ts[0].stride(0) if ts[0].shape[0] > 1 else 0
+        for t in ts:
+            bits |= t.data_ptr()
+    return next(v for v in (16, 8, 4) if bits % v == 0)
+
+
 def run_k2(name, src, idx, packed=False):
     """K2 at one form against its plain version. ``packed``: the planes'
     rows go side by side into one ``(rows, planes * W)`` buffer, as the
     exchange's pack writes them (its unpack reads such a buffer's column
-    blocks, which ``src`` then is)."""
+    blocks, which ``src`` then is). ``ms``, ``plain_ms`` and ``library_ms``
+    on :func:`graph_ms`'s clock, over :func:`l2_copies` copies of the
+    operands, the kernel's and ``index_select``'s outputs among them (the
+    plain version allocates its own); ``replay_ms`` on :func:`device_ms`'s,
+    as the K1 rows, each call into new outputs."""
     import torch
     from spfft_tpu_torch.ops import row_gather as k2
 
     src = [t for t in src if t is not None]
     n_src, width = src[0].shape
-    second = src[1] if len(src) > 1 else None
+    n_rows, item = idx.numel(), src[0].element_size()
 
-    def kernel():
+    def outputs():
         if not packed:
-            return k2.row_gather(src[0], second, idx)
-        buf = src[0].new_empty((idx.numel(), len(src) * width))
-        cols = [buf[:, q * width:(q + 1) * width] for q in range(len(src))]
-        return k2.row_gather(src[0], second, idx, out=(cols[0], cols[1] if second is not None
-                                                        else None))
+            return [src[0].new_empty((n_rows, width)) for _ in src]
+        buf = src[0].new_empty((n_rows, len(src) * width))
+        return [buf[:, q * width:(q + 1) * width] for q in range(len(src))]
 
-    got = [o for o in kernel() if o is not None]
+    def kernel(src, idx, out=None):
+        out = outputs() if out is None else out
+        two = len(src) > 1
+        return k2.row_gather(src[0], src[1] if two else None, idx,
+                             out=(out[0], out[1] if two else None))
+
+    def library(src, idx):
+        """index_select's operands and output: the planes stacked, each
+        padded with a zero row, which every out-of-range index is sent to."""
+        il = idx.long()
+        il = torch.where((il >= 0) & (il < n_src), il, torch.full_like(il, n_src))
+        both = torch.stack([torch.cat([s, s.new_zeros((1, width))]) for s in src])
+        return both, il, both.new_empty((len(src), n_rows, width))
+
+    copies = l2_copies(len(src) * item * width * (n_src + n_rows))
+    same_layout = lambda t: torch.empty_strided(t.size(), t.stride(), dtype=t.dtype,
+                                                device=t.device).copy_(t)
+    sets = [(src, idx, outputs())] + [([same_layout(t) for t in src], idx.clone(), outputs())
+                                      for _ in range(copies - 1)]
+    got = [o for o in kernel(*sets[0]) if o is not None]
     want = [k2.row_gather_plain(t, idx) for t in src]
     torch.cuda.synchronize()
     exact = all(torch.equal(g, w) for g, w in zip(got, want))
     err = max((g - w).abs().max().item() for g, w in zip(got, want))
     il = idx.long()
     valid = (il >= 0) & (il < n_src)
-    both = torch.stack([torch.cat([s, s.new_zeros((1, width))]) for s in src])
-    il = torch.where(valid, il, torch.full_like(il, n_src))
-    item = src[0].element_size()
     rows_read = torch.unique(il[valid]).numel()
-    nbytes = len(src) * item * width * (rows_read + idx.numel()) + idx.element_size() * idx.numel()
+    nbytes = len(src) * item * width * (rows_read + n_rows) + idx.element_size() * n_rows
+    libs = [library(s, i) for s, i, _ in sets]
     row = {
         "name": f"row_gather:{name}", "route": "cuda",
         "source": "spfft_tpu_torch/csrc/row_gather.cu",
         "replaces": "programs/microbench_pallas_dma.py:140",
-        "shape": {"rows": idx.numel(), "n_src": n_src, "width": width, "planes": len(src),
+        "shape": {"rows": n_rows, "n_src": n_src, "width": width, "planes": len(src),
                   "dtype": str(src[0].dtype).split(".")[1], "ld_src": src[0].stride(0),
                   "packed_out": packed},
+        "vector_bytes": k2_vector_bytes(src, got),
         "max_abs_err": err, "bitwise_equal": exact,
-        "ms": device_ms(kernel),
-        "plain_ms": device_ms(lambda: [k2.row_gather_plain(t, idx) for t in src]),
-        "library_ms": device_ms(lambda: torch.index_select(both, 1, il)),
-        "call_ms": call_ms(kernel),
+        "ms": graph_ms([lambda st=st: kernel(*st) for st in sets]),
+        "plain_ms": graph_ms([lambda s=s, i=i: [k2.row_gather_plain(t, i) for t in s]
+                              for s, i, _ in sets]),
+        "library_ms": graph_ms([lambda b=b, li=li, o=o: torch.index_select(b, 1, li, out=o)
+                                for b, li, o in libs]),
+        "replay_ms": device_ms(lambda: kernel(src, idx)),
+        "call_ms": call_ms(lambda: kernel(src, idx)),
+        "copies": copies,
         "bound_ms": 1e3 * nbytes / PEAK_BYTES, "bound_by": "bytes",
     }
     row["bound_share"] = row["bound_ms"] / row["ms"]
     emit({"phase": "kernel", **row})
     check(exact, f"{row['name']} is not bitwise equal to its plain version")
-    return row, (idx.numel(), n_src, width, len(src))
+    del sets, libs
+    return row, (n_rows, n_src, width, len(src))
+
+
+# K2's odd shapes: widths of every vector the rule can take (1, 3, 33, 70) and
+# the main path's (32, 64, 256, 512)
+K2_ODD_WIDTHS = (1, 3, 33, 70, 32, 64, 256, 512)
+
+
+def k2_odd_operands(dtype, width, planes, layout, idx, n_src, gen):
+    """The source planes of one odd K2 case, its ``out=`` planes (None for
+    new tensors), the buffer they lie in and the parts of it that the gather
+    must leave as they were. ``offset``: planes and outputs one column into
+    wider buffers; ``packed``: plane q into column block q + 1 of planes + 1."""
+    import torch
+
+    rnd = lambda *shape: torch.randn(shape, generator=gen, device="cuda", dtype=dtype)
+    n_rows = idx.numel()
+    if layout == "contiguous":
+        return [rnd(n_src, width) for _ in range(planes)], None, None, []
+    if layout == "offset":
+        buf = rnd(planes, n_rows, width + 2)
+        return ([rnd(n_src, width + 1)[:, 1:] for _ in range(planes)],
+                [buf[q, :, 1:width + 1] for q in range(planes)], buf,
+                [(..., slice(0, 1)), (..., slice(width + 1, width + 2))])
+    buf = rnd(n_rows, (planes + 1) * width)
+    return ([rnd(n_src, width) for _ in range(planes)],
+            [buf[:, (q + 1) * width:(q + 2) * width] for q in range(planes)], buf,
+            [(..., slice(0, width))])
+
+
+def run_k2_odd() -> None:
+    """K2 at odd shapes against its plain version, bitwise: every width of
+    ``K2_ODD_WIDTHS`` in float32 and float64, one plane and two; planes
+    contiguous, at a one-element column offset in wider buffers (misaligned
+    pointers and strides), and packed into column blocks of a wider ``out=``
+    whose other columns must stay as they were; one row, and more vectors
+    (one a thread) than the card holds threads at once; indices with the
+    sentinels -1 and n_src and past them (-3, n_src + 3), which the contract
+    also sends to a zero row. A row per case with the vector width the
+    kernel's rule takes for its operands (:func:`k2_vector_bytes`). Then a
+    first gather inside a CUDA-graph capture, in a fresh process."""
+    import itertools
+
+    import torch
+    from spfft_tpu_torch.ops import row_gather as k2
+
+    t0 = time.perf_counter()
+    g = torch.Generator(device="cuda").manual_seed(SEED + 3)
+    props = torch.cuda.get_device_properties(0)
+    # threads resident at once, at most: one wave of blocks
+    wave = props.multi_processor_count * props.max_threads_per_multi_processor
+    n_src = 513
+    cases = list(itertools.product((torch.float32, torch.float64), K2_ODD_WIDTHS, (1, 2),
+                                   ("contiguous", "offset", "packed"), (False, True)))
+    for case, (dtype, width, planes, layout, many) in enumerate(cases):
+        item = dtype.itemsize
+        if many:  # more vectors than one wave takes, even at the widest vector
+            n_rows = wave * 16 // (width * item) + 7
+            idx = torch.randint(-3, n_src + 4, (n_rows,), generator=g, device="cuda",
+                                dtype=torch.int32)
+        else:
+            n_rows = 1
+            idx = torch.tensor([(-1, n_src, n_src // 2, -3, n_src + 3)[case % 5]],
+                               dtype=torch.int32, device="cuda")
+        src, out, buf, keep = k2_odd_operands(dtype, width, planes, layout, idx, n_src, g)
+        before = None if buf is None else buf.clone()
+        two = lambda ts: ts[1] if planes == 2 else None
+        got = k2.row_gather(src[0], two(src), idx, out=None if out is None else (out[0], two(out)))
+        got = [o for o in got if o is not None]
+        want = [k2.row_gather_plain(t, idx) for t in src]
+        torch.cuda.synchronize()
+        exact = all(torch.equal(a, b) for a, b in zip(got, want))
+        untouched = all(torch.equal(buf[k], before[k]) for k in keep)
+        vb = k2_vector_bytes(src, got)
+        emit({"phase": "kernel_k2_odd", "dtype": str(dtype).split(".")[1], "width": width,
+              "planes": planes, "layout": layout, "rows": n_rows, "vector_bytes": vb,
+              "bitwise_equal": exact, "other_columns_untouched": untouched})
+        what = f"row_gather {dtype} width {width} x{planes} {layout} {n_rows} rows"
+        check(exact, f"{what} is not bitwise equal to its plain version")
+        check(untouched, f"{what} wrote outside its columns")
+        del src, out, buf, before, got, want, idx
+    run = subprocess.run([sys.executable, "-c", K2_FIRST_CALL_IN_CAPTURE],
+                         capture_output=True, text=True, timeout=300,
+                         cwd=os.path.dirname(os.path.abspath(__file__)))
+    check(run.returncode == 0, f"row_gather's first call under capture: {run.stderr[-3000:]}")
+    emit({"phase": "kernel_k2_odd_done", "cases": len(cases),
+          "seconds": time.perf_counter() - t0,
+          "first_call_in_capture": json.loads(run.stdout.strip().splitlines()[-1])})
+
+
+# A fresh process whose first gather is captured in a CUDA graph: the
+# kernel's first launch happens under the capture.
+K2_FIRST_CALL_IN_CAPTURE = """
+import json, torch
+from spfft_tpu_torch.ops import row_gather as k2
+g = torch.Generator(device="cuda").manual_seed(7)
+src = [torch.randn((300, 64), generator=g, device="cuda") for _ in range(2)]
+idx = torch.randint(-1, 301, (1000,), generator=g, device="cuda", dtype=torch.int32)
+k2._library()  # built and loaded before: the capture holds the first launch
+graph = torch.cuda.CUDAGraph()
+with torch.cuda.graph(graph):
+    out = k2.row_gather(src[0], src[1], idx)
+graph.replay()
+torch.cuda.synchronize()
+ok = all(torch.equal(o, k2.row_gather_plain(s, idx)) for o, s in zip(out, src))
+print(json.dumps({"captured": True, "bitwise_equal": ok}))
+raise SystemExit(0 if ok else 1)
+"""
 
 
 def k2_forms(name, t, gen):
@@ -1728,6 +1922,7 @@ def main() -> int:
     for precision in ("highest", "high", "default"):
         run_k1_odd(f"kernel_f32_odd_{precision}", torch.float32, K1_RTOL, precision)
     run_k1_odd("kernel_f64", torch.float64, K1_F64_RTOL)
+    run_k2_odd()
 
     # ---- the main path, every plan and its twin with the counts set to 0 just before ----
     counts, values = {}, {}

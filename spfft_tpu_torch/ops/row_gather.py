@@ -4,9 +4,13 @@ else a zero row.
 Replaces the TPU row-gather kernels of ``programs/microbench_pallas_dma.py``
 (:140, :193), ``microbench_pallas_dma2.py:112`` and
 ``microbench_pallas_dma3.py:119``: the gather that the accelerator engine's
-expand and pack perform. The CUDA source, with its design and bound, is
-``csrc/row_gather.cu``; :func:`row_gather_plain` beside it is the same
-function in PyTorch. Both planes of a complex pair go through one launch.
+expand and pack, and the slab exchange's pack and unpack, perform. Both
+planes of a complex pair go through one launch. The CUDA kernel
+(``csrc/row_gather.cu``, where its design and bound are) copies bytes: it
+treats the output as a flat list of 16-, 8- or 4-byte vectors (the widest
+that the row width, both row strides and the four plane pointers allow), so
+that every lane of a warp is busy however narrow the rows, one vector a
+thread. :func:`row_gather_plain` beside it is the same function in PyTorch.
 """
 from __future__ import annotations
 
@@ -46,8 +50,9 @@ def row_gather(src_re, src_im, idx, out=None):
     ``src_im`` by the int32 table ``idx`` -> ``(out_re, out_im)`` of shape
     ``(len(idx), W)``. A plane may be row-strided (a column block of a wider
     buffer); ``out``, a pair like the result, receives the rows in place of
-    new tensors and may be row-strided too. CPU tensors take
-    :func:`row_gather_plain`; CUDA tensors launch the kernel or raise."""
+    new tensors and may be row-strided too. The same operands are refused on
+    every device. CPU tensors take :func:`row_gather_plain`; CUDA tensors
+    launch the kernel or raise."""
     planes = [t for t in (src_re, src_im) if t is not None]
     if any(t.dim() != 2 or t.shape != src_re.shape for t in planes) or idx.dim() != 1:
         raise InvalidParameterError("row_gather takes (n_src, W) planes and a 1-D index")
@@ -65,6 +70,12 @@ def row_gather(src_re, src_im, idx, out=None):
             raise InvalidParameterError(
                 "row_gather out= takes one (len(idx), W) plane per source plane, row-strided "
                 "alike, of the source's dtype and device")
+    if src_re.dtype not in _DTYPES or idx.dtype != torch.int32:
+        raise InvalidParameterError("row_gather takes float32/float64 rows and int32 indices")
+    if not (all(_row_strided(t) and t.stride(0) == src_re.stride(0) for t in planes)
+            and idx.is_contiguous()):
+        raise InvalidParameterError(
+            "row_gather takes row-strided planes of one row stride and a contiguous index")
     if src_re.device.type == "cpu":
         got = [None if t is None else row_gather_plain(t, idx) for t in (src_re, src_im)]
         if out is None:
@@ -75,12 +86,6 @@ def row_gather(src_re, src_im, idx, out=None):
         return tuple(out)
     if src_re.device.type != "cuda":
         raise InvalidParameterError(f"row_gather runs on cpu or cuda, not {src_re.device}")
-    if src_re.dtype not in _DTYPES or idx.dtype != torch.int32:
-        raise InvalidParameterError("row_gather kernel takes float32/float64 rows and int32 indices")
-    if not (all(_row_strided(t) and t.stride(0) == src_re.stride(0) for t in planes)
-            and idx.is_contiguous()):
-        raise InvalidParameterError(
-            "row_gather kernel takes row-strided planes of one row stride and a contiguous index")
     if out is None:
         out = [torch.empty((n_rows, width), dtype=src_re.dtype, device=src_re.device)
                for _ in planes]

@@ -1,6 +1,6 @@
 """spfft_tpu_torch DFT-stage operators: the DFT-matrix functions against
 spfft_tpu.ops.fft, K1's plain version against the Pallas kernel (interpret
-mode) and numpy, K2's plain version against numpy fancy indexing."""
+mode) and numpy. K2's tests are in ``test_torch_row_gather.py``."""
 import numpy as np
 import pytest
 import torch
@@ -13,7 +13,6 @@ from spfft_tpu.ops import pallas_fft
 from spfft_tpu.types import ScalingType as JScaling
 from spfft_tpu_torch.ops import complex_matmul as k1
 from spfft_tpu_torch.ops import fft as tfft
-from spfft_tpu_torch.ops import row_gather as k2
 
 MATRIX_ATOL = 1e-13
 
@@ -146,54 +145,3 @@ def test_k1_wrapper_on_cpu_is_plain_and_uncounted():
         k1.complex_matmul(a, ai, b[:, :3], bi[:, :3])
     with pytest.raises(terr.InvalidParameterError):
         k1.complex_matmul(a, ai.float(), b, bi)
-
-
-@pytest.mark.parametrize("width", [1, 3, 8])
-def test_k2_plain_matches_numpy(width):
-    rng = np.random.default_rng(width)
-    src = rng.standard_normal((17, width))
-    idx = rng.integers(-3, 21, size=40).astype(np.int32)
-    idx[:3] = [17, -1, 0]  # sentinels both sides and a real row
-    expected = np.where(((idx >= 0) & (idx < 17))[:, None], src[np.clip(idx, 0, 16)], 0.0)
-    got = k2.row_gather_plain(torch.from_numpy(src), torch.from_numpy(idx)).numpy()
-    np.testing.assert_array_equal(got, expected)
-    # the wrapper takes the plain path for CPU tensors, one or two planes
-    sr, si = torch.from_numpy(src), torch.from_numpy(-src)
-    re, im = k2.row_gather(sr, si, torch.from_numpy(idx))
-    np.testing.assert_array_equal(re.numpy(), expected)
-    np.testing.assert_array_equal(im.numpy(), -expected)
-    re, im = k2.row_gather(sr, None, torch.from_numpy(idx))
-    assert im is None
-    np.testing.assert_array_equal(re.numpy(), expected)
-
-
-def test_k2_wrapper_rejects_bad_shapes():
-    src = torch.zeros(4, 3)
-    with pytest.raises(terr.InvalidParameterError):
-        k2.row_gather(src, None, torch.zeros(2, 2, dtype=torch.int32))
-    with pytest.raises(terr.InvalidParameterError):
-        k2.row_gather(src, torch.zeros(4, 2), torch.zeros(2, dtype=torch.int32))
-
-
-@pytest.mark.parametrize("planes", [1, 2])
-def test_k2_row_strided_planes_and_out(planes):
-    """The exchange's collective route: planes side by side in one buffer,
-    gathered out of it and into another, equal the contiguous gather."""
-    rng = np.random.default_rng(planes)
-    w, n_src = 5, 9
-    src = torch.from_numpy(rng.standard_normal((n_src, planes * w)))
-    idx = torch.from_numpy(rng.integers(-1, n_src + 1, size=12).astype(np.int32))
-    cols = [src[:, q * w:(q + 1) * w] for q in range(planes)]
-    want = [k2.row_gather_plain(c.contiguous(), idx) for c in cols]
-    got = [g for g in k2.row_gather(cols[0], cols[1] if planes > 1 else None, idx)
-           if g is not None]
-    for g, e in zip(got, want):
-        np.testing.assert_array_equal(g.numpy(), e.numpy())
-    dst = torch.full((12, planes * w), 7.0, dtype=src.dtype)
-    out = [dst[:, q * w:(q + 1) * w] for q in range(planes)]
-    res = k2.row_gather(cols[0], cols[1] if planes > 1 else None, idx,
-                        out=(out[0], out[1] if planes > 1 else None))
-    assert res[0] is out[0]
-    np.testing.assert_array_equal(dst.numpy(), torch.cat(want, dim=1).numpy())
-    with pytest.raises(terr.InvalidParameterError):
-        k2.row_gather(cols[0], None, idx, out=(torch.zeros(11, w, dtype=src.dtype), None))

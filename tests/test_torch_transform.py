@@ -161,6 +161,7 @@ def test_grid_capacity():
 
 def test_port_imports_neither_jax_nor_the_jax_package():
     pattern = re.compile(r"^\s*(import|from)\s+(jax|spfft_tpu)(\.|\s|$)", re.M)
-    files = sorted((REPO / "spfft_tpu_torch").rglob("*.py")) + [REPO / "chip_smoke.py"]
+    files = sorted((REPO / "spfft_tpu_torch").rglob("*.py")) + [REPO / "chip_smoke.py",
+                                                                  REPO / "k2_ab.py"]
     offenders = [str(f) for f in files if pattern.search(f.read_text())]
     assert offenders == []
