@@ -32,10 +32,12 @@ Phases, one JSON line each:
    the BF16 ones for "high"/"default", or the FP64 ones for float64, where
    the full complex forms take Gauss's three products; ``fp32_bound_ms``
    without tensor cores, four products), and for K2 the vector width it
-   took; K2's ``ms``, ``plain_ms`` and ``library_ms`` instead on
-   ``graph_ms``'s clock (20 calls in one graph over copies of the operands
-   that together hold twice the L2 cache: no host replay in the time, the
-   operands read from device memory), its ``replay_ms`` on K1's; K1 at
+   took. Every row's ``ms``, ``plain_ms`` and ``library_ms`` are on
+   ``graph_ms``'s clock (20 calls in one graph over copies of the data
+   operands and outputs that together hold twice the L2 cache: no host
+   replay in the time, the operands read from device memory; K1's plan
+   constant is shared), ``replay_ms`` on the older clock (one call in a
+   graph, replayed by the host: ``device_ms``); K1 at
    odd shapes and strides at each float32 precision, and once more in
    float64 (there also K = 0 and a real constant); K2 at odd shapes
    (``run_k2_odd``: widths 1 to 512, float32 and float64, misaligned and
@@ -68,9 +70,23 @@ Phases, one JSON line each:
    local blocked plan of the same triplets, its round trip, its staged twin
    (bitwise), and the NCCL plan against the one without a group (bitwise);
    its K1 and K2 forms against their plain versions, as in phase 3;
+6b. the pencil phase (``PENCIL_PLANS``): ``DistributedTransform`` over
+   ``make_fft_mesh2(2, 2)``, four shards stacked on the card, at 256^3 and
+   radius 0.659, the triplets split column by column: C2C and R2C with
+   ``engine="auto"`` (which must be ``pencil2-mxu``) and DEFAULT,
+   UNBUFFERED, C2C in float64 over a float32 wire (BUFFERED_FLOAT), the
+   ``torch.fft`` engine, and C2C over the one-rank NCCL group (staged).
+   Each is held against the dense oracle, its round trip, its staged twin
+   (bitwise), its slab plan of phase 6 and the local blocked plan (1e-5),
+   the NCCL plan against the plan without a group (bitwise); its K1 forms
+   (z, the dense y over the stacked y-pencil grid, the x stage over the
+   slot columns) and the K2 gathers of exchanges A and B against their
+   plain versions, as in phase 3;
 7. one pair of every plan and twin under ``torch.profiler``: the device's
    busy share and the kernels that take its time; then the pair times, all
-   plans taking turns, for comparisons within the run;
+   plans taking turns, for comparisons within the run; each pencil plan's
+   staged twin under the ``obs.STAGES`` ranges, exchange A's and B's device
+   ms apart (``compare_pencil``);
 8. the ``obs`` phase: the cost of the timing tree, the metrics registry and
    the flight recorder, each alone, all on and all off, on the fused
    ``c2c-blocked`` pair and its staged twin in turns; the one-line figure
@@ -81,7 +97,8 @@ Phases, one JSON line each:
    the 512^3 one in single and double precision), the shards stacked on the
    card, each with the launch counts set to 0 just before it; each report
    held to the port's validators (plan card, timing-tree labels, perf
-   report) and its round-trip residual to the dtype's bar; per configuration
+   report) and its round-trip residual to the dtype's bar; the 512^3 ones
+   also as a 4 x 4 pencil mesh (``--mesh2 4 4``); per configuration
    ms per pair, GFLOP/s, residual, the busy ms of one profiled pair and the
    peak memory; each configuration's K1 and K2 forms against their plain
    versions, as in phase 3; the per-stage device times of each mesh
@@ -185,6 +202,21 @@ DIST_PLANS = [
     ("dist4-c2c-xla", "c2c", "xla", "DEFAULT", np.float32, None, None, False, "c2c-blocked"),
     ("dist4-c2c-nccl1", "c2c", "auto", "DEFAULT", np.float32, None, None, True, "c2c-blocked"),
 ]
+# The pencil phase, a 2 x 2 mesh (make_fft_mesh2) stacked on the card, radius
+# 0.659: (name, transform, engine, exchange, dtype, over a process group, the
+# slab plan and the local plan it is held against)
+PENCIL_PLANS = [
+    ("pencil2x2-c2c", "c2c", "auto", "DEFAULT", np.float32, False, "dist4-c2c", "c2c-blocked"),
+    ("pencil2x2-r2c", "r2c", "auto", "DEFAULT", np.float32, False, "dist4-r2c", "r2c-blocked"),
+    ("pencil2x2-c2c-unbuffered", "c2c", "mxu", "UNBUFFERED", np.float32, False, "dist4-c2c",
+     "c2c-blocked"),
+    ("pencil2x2-c2c-f64-float", "c2c", "mxu", "BUFFERED_FLOAT", np.float64, False,
+     "dist4-c2c-f64-float", "c2c-blocked"),
+    ("pencil2x2-c2c-xla", "c2c", "xla", "DEFAULT", np.float32, False, "dist4-c2c-xla",
+     "c2c-blocked"),
+    ("pencil2x2-c2c-nccl1", "c2c", "auto", "DEFAULT", np.float32, True, "dist4-c2c",
+     "c2c-blocked"),
+]
 # The obs phase: the benchmark program at BASELINE.json's configurations, the
 # shards stacked on the card: (name, arguments besides -p gpu -o). Depth
 # (-r, the timed dependent pairs) is cut to stay inside the time limit.
@@ -201,6 +233,13 @@ BENCH_CONFIGS = [
     ("bench-512-r2c-16-double", ["-d", "512", "512", "512", "-r", "4", "-t", "r2c",
                                  "--model", "spherical", "-s", "0.15", "--shards", "16",
                                  "--precision", "double"]),
+    # the same 16 shards as a 4 x 4 pencil mesh
+    ("bench-512-r2c-mesh2-4x4-single", ["-d", "512", "512", "512", "-r", "4", "-t", "r2c",
+                                        "--model", "spherical", "-s", "0.15", "--mesh2", "4",
+                                        "4", "--precision", "single"]),
+    ("bench-512-r2c-mesh2-4x4-double", ["-d", "512", "512", "512", "-r", "4", "-t", "r2c",
+                                        "--model", "spherical", "-s", "0.15", "--mesh2", "4",
+                                        "4", "--precision", "double"]),
 ]
 # the benchmark's round-trip residual (one backward + forward(FULL) of the
 # inputs against them, not the timed chain's last values, which carry every
@@ -499,6 +538,40 @@ def k1_feed_bytes(ops, w) -> int:
     return tiles * ceil(k, tk) * (128 * tk * 4 * d_parts + bn * v_rows * v_row)
 
 
+def k1_copies(spec, x, w, want_imag, out):
+    """:func:`l2_copies` sets of one K1 form's operands for :func:`graph_ms`:
+    per copy, K1's operands on a copy of the data ``x`` (the plan constant
+    ``w`` shared), K1's outputs (of ``out``'s strides where the form writes
+    into a wider grid), and ``torch.matmul``'s complex operands and output."""
+    import torch
+    from spfft_tpu_torch.ops import fft as offt
+
+    same = lambda t: None if t is None else torch.empty_strided(
+        t.size(), t.stride(), dtype=t.dtype, device=t.device).copy_(t)
+    ops = k1_operands(spec, x, w)
+    ar, ai, br, bi = ops
+    batch, m, n = ar.shape[0], ar.shape[1], br.shape[2]
+    item = ar.element_size()
+    # a copy's bytes: the data and K1's output, about as much again for
+    # torch.matmul's complex operands and output, and the plain version's
+    footprint = item * (sum(t.numel() for t in x if t is not None)
+                        + (1 + want_imag) * batch * m * n) * 3
+    whole = lambda t: t[:1] if t.stride(0) == 0 else t
+    cplx = lambda re, im: torch.complex(re, im if im is not None else torch.zeros_like(re))
+    sets = []
+    for c in range(l2_copies(footprint)):
+        xc = x if c == 0 else tuple(same(t) for t in x)
+        o = k1_operands(spec, xc, w)
+        if out is None:
+            v = tuple(ar.new_empty((batch, m, n)) if keep else None
+                      for keep in (True, want_imag))
+        else:
+            v = tuple(offt.result_view(spec, same(t)) for t in out)
+        a_c, b_c = cplx(whole(o[0]), o[1] if o[1] is None else whole(o[1])), cplx(o[2], o[3])
+        sets.append((o, v, (a_c, b_c, a_c.new_empty((batch, m, n)))))
+    return sets
+
+
 def run_k1(name, spec, x, w, want_imag, precision, out=None):
     import torch
     from spfft_tpu_torch.ops import complex_matmul as k1
@@ -507,14 +580,11 @@ def run_k1(name, spec, x, w, want_imag, precision, out=None):
     ops = k1_operands(spec, x, w)
     outv = None if out is None else tuple(offt.result_view(spec, o) for o in out)
     errs, scales = k1_err(ops, want_imag, w, precision, outv)
+    sets = k1_copies(spec, x, w, want_imag, out)
     err, scale = max(errs), max(scales)
     f64 = ops[0].dtype == torch.float64
     rtol = K1_F64_RTOL if f64 else K1_RTOL
     ar, ai, br, bi = ops
-    whole = lambda t: t[:1] if t.stride(0) == 0 else t
-    a_c = torch.complex(whole(ar), whole(ai) if ai is not None else torch.zeros_like(whole(ar)))
-    b_c = torch.complex(br, bi if bi is not None else torch.zeros_like(br))
-    lib = (lambda: torch.matmul(a_c, b_c)) if want_imag else (lambda: torch.matmul(a_c, b_c).real)
     kernel = lambda: k1.complex_matmul(*ops, want_imag, constant=w, precision=precision, out=outv)
     plain = k1_plain(precision)
     bound, bound_by, fp32_bound = k1_bounds_ms(ops, want_imag, precision, w)
@@ -526,9 +596,14 @@ def run_k1(name, spec, x, w, want_imag, precision, out=None):
         "precision": "float64" if f64 else precision,
         "shape": {"batch": ar.shape[0], "M": ar.shape[1], "K": ar.shape[2], "N": br.shape[2]},
         "max_abs_err": err, "rel_err": err / scale,
-        "ms": device_ms(kernel),
-        "plain_ms": device_ms(lambda: plain(*ops, want_imag)),
-        "library_ms": device_ms(lib),
+        "ms": graph_ms([lambda o=o, v=v: k1.complex_matmul(*o, want_imag, constant=w,
+                                                           precision=precision, out=v)
+                        for o, v, _ in sets]),
+        "replay_ms": device_ms(kernel),
+        "plain_ms": graph_ms([lambda o=o: plain(*o, want_imag) for o, _, _ in sets]),
+        "library_ms": graph_ms([lambda a=a, b=b, c=c: torch.matmul(a, b, out=c)
+                                for _, _, (a, b, c) in sets]),
+        "copies": len(sets),
         "library_math": "cuBLAS complex128" if f64 else "cuBLAS complex64, allow_tf32=False",
         "call_ms": call_ms(kernel),
         "bound_ms": bound, "bound_by": bound_by, "fp32_bound_ms": fp32_bound,
@@ -536,9 +611,11 @@ def run_k1(name, spec, x, w, want_imag, precision, out=None):
     if precision != "highest" and not f64:
         torch.backends.cuda.matmul.allow_tf32 = True
         try:
-            row["library_tf32_ms"] = device_ms(lib)
+            row["library_tf32_ms"] = graph_ms([lambda a=a, b=b, c=c: torch.matmul(a, b, out=c)
+                                               for _, _, (a, b, c) in sets])
         finally:
             torch.backends.cuda.matmul.allow_tf32 = False
+    del sets
     row["bound_share"] = row["bound_ms"] / row["ms"]
     if not f64:
         # what the tiles draw from L2 into shared memory, and at what rate
@@ -1232,33 +1309,32 @@ def dist_k1_forms(name, t, every=False):
     return forms
 
 
-def dist_k2_forms(name, t, gen):
-    """The exchange's K2 gathers of distributed plan ``name``: (row name,
-    source planes, index, packed). Without a group one gather per direction;
-    over the process group a pack gather per direction into the send
-    buffer's column blocks and an unpack gather out of the received one's."""
+def route_k2_forms(form, bx, planes, width, dtype, gen):
+    """The K2 gathers of one exchange direction ``bx`` (a BlockExchange):
+    (row name, source planes, index, packed). Without a group one gather;
+    over the process group a pack into the send buffer's column blocks and
+    an unpack out of the received one's."""
     import torch
 
+    rnd = lambda rows: [torch.randn((rows, width), generator=gen, device="cuda", dtype=dtype)
+                        for _ in range(planes)]
+    if not bx.collective:
+        return [(form, rnd(bx.n_src), bx._index, False)]
+    buf = torch.randn((sum(bx._got), planes * width), generator=gen, device="cuda", dtype=dtype)
+    return [(form + "_pack", rnd(bx.n_src), bx._pack, True),
+            (form + "_unpack", [buf[:, q * width:(q + 1) * width] for q in range(planes)],
+             bx._unpack, False)]
+
+
+def dist_k2_forms(name, t, gen):
+    """The exchange's K2 gathers of distributed plan ``name``, each way."""
     ex = t._exec
     xc = ex._exchange
     planes = 1 if t.engine == "xla" else 2
-    width = xc.L * (2 if t.engine == "xla" else 1)
-    rnd = lambda rows: [torch.randn((rows, width), generator=gen, device="cuda",
-                                    dtype=ex.torch_dtype) for _ in range(planes)]
-    sticks, slots = xc.Pl * xc.S * xc.P, xc.num_fwd_slots * xc.Pl
-    if not xc.collective:
-        return [(f"{name}/exchange_backward", rnd(sticks), xc._bwd_index, False),
-                (f"{name}/exchange_forward", rnd(slots), xc._fwd_index, False)]
-
-    def received(rows):
-        buf = torch.randn((rows, planes * width), generator=gen, device="cuda",
-                          dtype=ex.torch_dtype)
-        return [buf[:, q * width:(q + 1) * width] for q in range(planes)]
-
-    return [(f"{name}/pack_backward", rnd(sticks), xc._bwd[0], True),
-            (f"{name}/unpack_backward", received(sum(xc._bwd[3])), xc._bwd[1], False),
-            (f"{name}/pack_forward", rnd(slots), xc._fwd[0], True),
-            (f"{name}/unpack_forward", received(sum(xc._fwd[3])), xc._fwd[1], False)]
+    width = xc.L * (2 if planes == 1 else 1)
+    return [f for direction in ("backward", "forward")
+            for f in route_k2_forms(f"{name}/exchange_{direction}", getattr(xc, direction),
+                                    planes, width, ex.torch_dtype, gen)]
 
 
 def shard_index(triplets, per):
@@ -1272,19 +1348,24 @@ def shard_index(triplets, per):
 def expected_dist_launches(t) -> tuple[int, int]:
     """(K1, K2) launches of one distributed pair: the local engine's K1
     stages; K2 one exchange gather per direction, or a pack and an unpack
-    per direction over a process group."""
+    per direction over a process group. A pencil pair: 6 K1 (z, y, x each
+    way) and two exchanges a direction, 4 K2 or 8 over a group."""
+    if t.engine.startswith("pencil2"):
+        return (6 if t.engine == "pencil2-mxu" else 0, 8 if t._exec.collective else 4)
     k2 = 4 if t._exec._exchange.collective else 2
     return (0, k2) if t.engine == "xla" else (expected_launches(t._exec)[0], k2)
 
 
-def dist_main_path(sp, name, t, twin, values, want, local_space, local_back, bar, ref=None):
+def dist_main_path(sp, name, t, twin, values, want, local_space, local_back, bar, ref=None,
+                   slab=None):
     """The main path of one distributed plan: the staged twin's pair (the
     launch counts), the fused plan's first pair (twice the twin's launches)
     and second (none), against the dense oracle, the local plan's backward,
     the input values (round trip) and bitwise against the twin; the plan
     over the process group (staged, no twin) bitwise against ``ref``, the
     pair of the same plan without a group. Returns the launch counts, the
-    pair's results and the row."""
+    pair's results and the row. ``slab``: a pencil plan's slab plan's
+    space and values (this plan's shards), held to 1e-5 as the local plan's."""
     import torch
 
     staged = run_pair(sp, twin, values)
@@ -1331,12 +1412,20 @@ def dist_main_path(sp, name, t, twin, values, want, local_space, local_back, bar
     }
     if ref is not None:
         row["bitwise_equal_to_the_plan_without_a_group"] = same(staged, ref)
+    if slab is not None:
+        row["slab_plan_rel_err"] = float(np.abs(space_h - slab[0]).max() / np.abs(slab[0]).max())
+        row["slab_plan_values_rel_err"] = max(float((b.to(sb.dtype) - sb).abs().max())
+                                              for b, sb in zip(back, slab[1])) / scale
     emit(row)
     check(oracle_err <= bar, f"{name} backward vs dense oracle: {oracle_err} (bar {bar})")
     check(rt_err <= bar, f"{name} round trip: {rt_err} (bar {bar})")
     check(local_err <= ORACLE_RTOL["highest"], f"{name} vs the local plan: {local_err}")
     check(local_back_err <= ORACLE_RTOL["highest"],
           f"{name} values vs the local plan: {local_back_err}")
+    if slab is not None:
+        check(max(row["slab_plan_rel_err"], row["slab_plan_values_rel_err"])
+              <= ORACLE_RTOL["highest"], f"{name} vs its slab plan: {row['slab_plan_rel_err']}, "
+              f"{row['slab_plan_values_rel_err']}")
     want_k1, want_k2 = expected_dist_launches(t)
     check(n_k1 == want_k1 and n_k2 == want_k2,
           f"{name} launches: {n_k1} K1, {n_k2} K2 (expected {want_k1} and {want_k2})")
@@ -1354,25 +1443,26 @@ def dist_main_path(sp, name, t, twin, values, want, local_space, local_back, bar
     return counts, staged, row
 
 
-def dist_phase(sp, data, plans, values):
-    """Builds and drives every plan of ``DIST_PLANS`` (see the module
-    docstring), each against its oracle and local plan. Returns the plans
-    {name: (plan, twin or None)}, their launch counts, their kernel rows and
-    their per-shard values."""
-    import torch
-    import torch.distributed as dist
-
-    torch.cuda.set_device(0)
-    with socket.socket() as sock:  # a free port for the group's rendezvous
-        sock.bind(("localhost", 0))
-        port = sock.getsockname()[1]
-    group = sp.init_distributed(f"localhost:{port}", 1, 0, backend="nccl")
-    local_results = {}
-    for local in {d[-1] for d in DIST_PLANS}:
+def local_results_of(sp, plans, values, names) -> dict:
+    """The local plans' backward (host) and forward(FULL) of their values."""
+    out = {}
+    for local in names:
         lt = plans[local][0]
-        local_results[local] = (lt.backward(values[local]).cpu().numpy(),
-                                lt.forward(scaling=sp.ScalingType.FULL))
-    out, counts, rows, dvalues, mains = {}, {}, [], {}, {}
+        out[local] = (lt.backward(values[local]).cpu().numpy(),
+                      lt.forward(scaling=sp.ScalingType.FULL))
+    return out
+
+
+def dist_phase(sp, data, plans, values, group):
+    """Builds and drives every plan of ``DIST_PLANS`` (see the module
+    docstring), each against its oracle and local plan; ``group`` the
+    one-rank NCCL group. Returns the plans {name: (plan, twin or None)},
+    their launch counts, their kernel rows, their per-shard values and
+    their results {name: (space on the host, values in the global order)}."""
+    import torch
+
+    local_results = local_results_of(sp, plans, values, {d[-1] for d in DIST_PLANS})
+    out, counts, rows, dvalues, mains, results = {}, {}, [], {}, {}, {}
     gen = torch.Generator(device="cuda").manual_seed(SEED + 4)
     for name, kind, engine, exchange, dtype, weights, lz, over_group, local in DIST_PLANS:
         triplets, vals_global, want = data[kind, 0.659]
@@ -1410,7 +1500,115 @@ def dist_phase(sp, data, plans, values):
         counts[name], mains[name], _ = dist_main_path(
             sp, name, t, twin, vals, want, local_space, local_back, bar, ref)
         out[name], dvalues[name] = (t, None if over_group else twin), vals
-    return out, counts, rows, dvalues, dist
+        back = mains[name]["back"]
+        flat = back[0].new_empty(sum(int(b.numel()) for b in back))
+        for i, b in zip(where, back):
+            flat[torch.as_tensor(i, device="cuda")] = b
+        results[name] = (mains[name]["space"].cpu().numpy(), flat)
+    return out, counts, rows, dvalues, results
+
+
+# ---- the pencil phase ------------------------------------------------------------
+
+
+def pencil_k1_forms(name, t):
+    """The K1 forms of pencil plan ``name``, each one launch over every
+    stacked shard: z, ``(P_local * S_max, Z) @ (Z, P2 * Lz)`` and back (one
+    shape where ``P2 * Lz = Z``); y, ``(Y, Y)^T @ (Y, P_local * Ax * Lz)``
+    both ways; x, ``P_local * Ly`` times ``(P1 * Ax, X)^T @ (P1 * Ax, Lz)``
+    backward and ``(X, P1 * Ax)^T @ (X, Lz)`` forward (real out and real
+    in for R2C)."""
+    import torch
+    from spfft_tpu_torch import ScalingType
+
+    ex, p = t._exec, t.params
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 5)
+    rnd = lambda *shape: torch.randn(shape, generator=gen, device="cuda", dtype=ex.torch_dtype)
+    pair = lambda *shape: (rnd(*shape), rnd(*shape))
+    rows, zcols = ex.num_local * ex._S, ex.P2 * ex._Lz
+    Y, X, Lz, Ly, Ax, C = p.dim_y, p.dim_x, ex._Lz, ex._Ly, ex._Ax, ex._C
+    if zcols == p.dim_z:
+        forms = [(f"{name}/z_backward+forward", "sz,zk->sk", pair(rows, p.dim_z), ex._wz_b,
+                  True, None)]
+    else:
+        forms = [(f"{name}/z_backward", "sz,zk->sk", pair(rows, p.dim_z), ex._wz_b, True, None),
+                 (f"{name}/z_forward", "sz,zk->sk", pair(rows, zcols),
+                  ex._wz_f[ScalingType.FULL], True, None)]
+    forms.append((f"{name}/y_backward+forward", "yxz,yk->kxz", pair(Y, ex.num_local * Ax, Lz),
+                  ex._wy_b, True, None))
+    slab = ex.num_local * Ly
+    if ex.is_r2c:
+        forms += [(f"{name}/x_backward_real_out", "kxz,xl->klz", pair(slab, C, Lz), ex._wx_b,
+                   False, None),
+                  (f"{name}/x_forward_real_in", "yxz,xk->ykz", (rnd(slab, X, Lz), None),
+                   ex._wx_f, True, None)]
+    else:
+        forms += [(f"{name}/x_backward", "kxz,xl->klz", pair(slab, C, Lz), ex._wx_b, True, None),
+                  (f"{name}/x_forward", "yxz,xk->ykz", pair(slab, X, Lz), ex._wx_f, True, None)]
+    return forms
+
+
+def pencil_k2_forms(name, t, gen):
+    """The K2 gathers of pencil plan ``name``: exchanges A and B, each way."""
+    ex = t._exec
+    planes = 1 if t.engine == "pencil2" else 2
+    width = ex._Lz * (2 if planes == 1 else 1)
+    return [f for tag, direction in (("A", "backward"), ("B", "backward"), ("B", "forward"),
+                                     ("A", "forward"))
+            for f in route_k2_forms(f"{name}/exchange_{tag}_{direction}",
+                                    ex._exchanges[tag, direction], planes, width,
+                                    ex.torch_dtype, gen)]
+
+
+def pencil_phase(sp, data, plans, values, group, slab_results):
+    """Builds and drives every plan of ``PENCIL_PLANS`` on a 2 x 2 pencil
+    mesh, each against the dense oracle, its round trip, its staged twin
+    (bitwise), its slab plan and the local plan of the same triplets (1e-5),
+    and the NCCL plan against the plan without a group (bitwise); its K1 and
+    K2 forms against their plain versions. Returns the plans, their launch
+    counts, their kernel rows and their per-shard values."""
+    import torch
+
+    X, Y = DIMS[0], DIMS[1]
+    local_results = local_results_of(sp, plans, values, {d[-1] for d in PENCIL_PLANS})
+    out, counts, rows, pvalues, mains = {}, {}, [], {}, {}
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 6)
+    for name, kind, engine, exchange, dtype, over_group, slab, local in PENCIL_PLANS:
+        triplets, vals_global, want = data[kind, 0.659]
+        per = sp.distribute_triplets(triplets, 4, Y, layout=(2, 2), dim_x=X)
+        where = shard_index(triplets, per)
+        cdt = np.complex64 if dtype == np.float32 else np.complex128
+        vals = [torch.as_tensor(vals_global[i].astype(cdt), device="cuda") for i in where]
+        mesh = sp.make_fft_mesh2(2, 2, group=group if over_group else None)
+        make = lambda **kw: sp.DistributedTransform(
+            sp.ProcessingUnit.GPU, getattr(sp.TransformType, kind.upper()), *DIMS, per,
+            mesh=mesh, engine=engine, exchange_type=getattr(sp.ExchangeType, exchange),
+            dtype=dtype, **kw)
+        t = make()
+        twin = t if over_group else make(fuse=False)
+        emit({"phase": "pencil_plan", "plan": name, "engine": t.engine, "fused": t.fused,
+              "exchange": t.exchange_type.name, "describe": t.describe(),
+              "plan_card_exchange_policy": t.report().get("exchange_policy")})
+        if engine == "auto":
+            check(t.engine == "pencil2-mxu", f"{name}: auto resolved to {t.engine} on the card")
+        if t.engine == "pencil2-mxu" and not over_group:
+            for form, spec, x, w, want_imag, o in pencil_k1_forms(name, t):
+                row, key = run_k1(form, spec, x, w, want_imag, t.precision, o)
+                rows.append((row, name, "complex_matmul", key))
+        for form, src, idx, packed in pencil_k2_forms(name, t, gen):
+            row, key = run_k2(form, src, idx, packed)
+            rows.append((row, name, "row_gather", key))
+        bar = DIST_F64_RTOL if dtype == np.float64 else ORACLE_RTOL["highest"]
+        local_space, local_back = local_results[local]
+        local_back = [local_back[torch.as_tensor(i, device="cuda")] for i in where]
+        slab_space, slab_flat = slab_results[slab]
+        slab_back = [slab_flat[torch.as_tensor(i, device="cuda")] for i in where]
+        ref = mains["pencil2x2-c2c"] if over_group else None
+        counts[name], mains[name], _ = dist_main_path(
+            sp, name, t, twin, vals, want, local_space, local_back, bar, ref,
+            slab=(slab_space, slab_back))
+        out[name], pvalues[name] = (t, None if over_group else twin), vals
+    return out, counts, rows, pvalues
 
 # ---- the obs phase ---------------------------------------------------------------
 
@@ -1480,19 +1678,25 @@ def random_pair(t, seed):
                                              rnd(t.num_local_elements)))
 
 
-def busy_pair_ms(sp, t, pair) -> float:
+def busy_pair_ms(sp, t, pair, attempts: int = 3) -> tuple:
     """Device busy ms (the union of the kernels' intervals) of one
-    device-side backward + forward(FULL) pair under torch.profiler."""
+    device-side backward + forward(FULL) pair under torch.profiler, and the
+    profiles it took: a profile that records no device kernel at all (seen
+    once, on a fused mesh plan's replay) is taken again, up to
+    ``attempts`` times; None if none recorded any."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t.backward_pair(*pair)
-        t.forward_pair(sp.ScalingType.FULL)
+    for attempt in range(1, attempts + 1):
         torch.cuda.synchronize()
-    return union_us(sorted((e.time_range.start, e.time_range.end)
-                           for e in device_kernels(prof))) / 1e3
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t.backward_pair(*pair)
+            t.forward_pair(sp.ScalingType.FULL)
+            torch.cuda.synchronize()
+        spans = sorted((e.time_range.start, e.time_range.end) for e in device_kernels(prof))
+        if spans:
+            return union_us(spans) / 1e3, attempt
+    return None, attempts
 
 
 def stage_profile(sp, name, t) -> dict:
@@ -1531,10 +1735,18 @@ def stage_profile(sp, name, t) -> dict:
     busy = union_us(kernels) / 1e3
     stages = twin._exec._ir.describe()["stages"]
     want = set(stages["backward"]) | set(stages["forward"])
+    if twin._exec.collective:
+        # NCCL's kernels run on its own stream, outside the range the
+        # collective's node draws on the compute stream: that range holds
+        # no device work, and the collective's time is nccl_ms
+        want = {s for s in want if not s.startswith("exchange")}
     row = {"phase": "obs_stage_profile", "plan": name + STAGED, "busy_ms": busy,
+           "nccl_ms": sum((e.time_range.end - e.time_range.start) / 1e3
+                          for e in device_kernels(prof) if "ncclDevKernel" in e.name),
            "ranges": ranges, "device_ms_by_stage": stage_ms,
            "stages_cover": sum(stage_ms.values()) / busy, "stages": sorted(want),
-           "exchange_share": stage_ms.get("exchange", 0.0) / busy}
+           "exchange_share": sum(v for k, v in stage_ms.items() if k.startswith("exchange"))
+           / busy}
     emit(row)
     check(want <= set(ranges), f"{name}: stage ranges {sorted(ranges)}, want {sorted(want)}")
     check(0.5 < row["stages_cover"] <= 1.0 + 1e-9,
@@ -1686,12 +1898,14 @@ def bench_phase(sp) -> tuple:
         bar = BENCH_RTOL[par["precision"]]
         launched = {k: sum(v.values()) for k, v in counts[name].items()}
         pair = random_pair(t, SEED + 9)
-        busy = busy_pair_ms(sp, t, pair)
+        busy, profiles = busy_pair_ms(sp, t, pair)
         row = {"phase": "obs_bench", "config": name, "argv": argv, "seconds": seconds,
+               "decomposition": card.get("decomposition"),
                "ms_per_pair": 1e3 * res["wall_s_per_transform_pair"],
                "gflops": res["gflops_per_pair"], "roundtrip_residual": res["roundtrip_residual"],
-               "residual_bar": bar, "busy_ms_one_pair": busy,
-               "busy_share": busy / (1e3 * res["wall_s_per_transform_pair"]),
+               "residual_bar": bar, "busy_ms_one_pair": busy, "busy_profiles": profiles,
+               "busy_share": (None if busy is None
+                              else busy / (1e3 * res["wall_s_per_transform_pair"])),
                "peak_mib": peak / 2**20,
                "engine": card["engine"], "y_plan": card["execution"].get("sparse_y"),
                "num_sticks": card["num_sticks"], "num_elements": card["num_elements"],
@@ -1701,7 +1915,8 @@ def bench_phase(sp) -> tuple:
         summary[name] = row
         check(obs.validate_plan_card(card) == [],
               f"{name}: plan card {obs.validate_plan_card(card)}")
-        check(card["platform"] == "gpu" and card["engine"] == "mxu",
+        pencil = card.get("decomposition") == "pencil2"
+        check(card["platform"] == "gpu" and card["engine"] == ("pencil2-mxu" if pencil else "mxu"),
               f"{name}: platform {card['platform']}, engine {card['engine']}")
         check(want <= labels, f"{name}: timing tree lacks {sorted(want - labels)}")
         check(obs.perf.validate_perf_report(perf) == [],
@@ -1710,12 +1925,14 @@ def bench_phase(sp) -> tuple:
               f"{name}: round-trip residual {res['roundtrip_residual']} above {bar}")
         check(all(n > 0 for n in launched.values()), f"{name}: a kernel was not launched")
         # the kernels at this configuration's forms, against their plain versions
-        forms = (dist_k1_forms(name, t, every=True) if card["kind"] == "distributed"
+        forms = (pencil_k1_forms(name, t) if pencil
+                 else dist_k1_forms(name, t, every=True) if card["kind"] == "distributed"
                  else k1_forms(name, t))
         for form, spec, x, w, want_imag, o in forms:
             krow, key = run_k1(form, spec, x, w, want_imag, t.precision, o)
             rows.append((krow, name, "complex_matmul", key))
-        k2 = (dist_k2_forms(name, t, gen) if card["kind"] == "distributed"
+        k2 = (pencil_k2_forms(name, t, gen) if pencil
+              else dist_k2_forms(name, t, gen) if card["kind"] == "distributed"
               else [(f, src, idx, False) for f, src, idx in k2_forms(name, t, gen)])
         for form, src, idx, packed in k2:
             krow, key = run_k2(form, src, idx, packed)
@@ -1937,12 +2154,27 @@ def main() -> int:
 
     # ---- the distributed phase: four shards on the card, and over a process group ----
     t0 = time.perf_counter()
-    dplans, dcounts, drows, dvalues, dist = dist_phase(sp, data, plans, values)
-    del data
+    torch.cuda.set_device(0)
+    with socket.socket() as sock:  # a free port for the group's rendezvous
+        sock.bind(("localhost", 0))
+        port = sock.getsockname()[1]
+    group = sp.init_distributed(f"localhost:{port}", 1, 0, backend="nccl")
+    dplans, dcounts, drows, dvalues, slab_results = dist_phase(sp, data, plans, values, group)
     rows += drows
     counts.update(dcounts)
-    values.update(dvalues)
     emit({"phase": "dist", "seconds": time.perf_counter() - t0})
+
+    # ---- the pencil phase: a 2 x 2 pencil mesh on the card, and over the process group ----
+    t0 = time.perf_counter()
+    pplans, pcounts, prows, pvalues = pencil_phase(sp, data, plans, values, group, slab_results)
+    del data, slab_results
+    rows += prows
+    counts.update(pcounts)
+    values.update(dvalues)
+    values.update(pvalues)
+    dplans.update(pplans)
+    dvalues.update(pvalues)
+    emit({"phase": "pencil", "seconds": time.perf_counter() - t0})
 
     # ---- the profile, and the pair times with every plan and twin taking turns ----
     every = {**{n: v[0] for n, v in plans.items()}, **{n + STAGED: t for n, t in twins.items()},
@@ -1981,6 +2213,31 @@ def main() -> int:
           "plan of the same triplets: median ms per pair (host clock, in the same turns as "
           "the compare line), device busy ms of one profiled pair; exchange_k2_ms is the "
           "exchange's K2 gathers, nccl_ms its collective kernels", **dist_rows})
+    pencil_rows = {}
+    for name, *_, slab, local in PENCIL_PLANS:
+        t, tw = dplans[name]
+        by_stage = stage_profile(sp, name, t)["device_ms_by_stage"]
+        staged = name + STAGED if tw is not None else name
+        pencil_rows[name] = {
+            "pair_ms_in_turns": turns[name] if tw is not None else None,
+            "staged_pair_ms_in_turns": turns[staged],
+            "device_busy_ms": busy[name]["device_busy_ms"] if tw is not None else None,
+            "staged_device_busy_ms": busy[staged]["device_busy_ms"],
+            "k1_ms": busy[name]["k1_ms"], "k2_ms": busy[name]["k2_ms"],
+            "nccl_ms": busy[name]["nccl_ms"], "kernels": busy[name]["kernels"],
+            "exchange_A_ms": sum(v for k, v in by_stage.items() if k.endswith(" A")),
+            "exchange_B_ms": sum(v for k, v in by_stage.items() if k.endswith(" B")),
+            "slab_plan": slab, "slab_pair_ms_in_turns": turns[slab],
+            "slab_device_busy_ms": busy[slab]["device_busy_ms"],
+            "local_plan": local, "local_pair_ms_in_turns": turns[local],
+            "local_device_busy_ms": busy[local]["device_busy_ms"],
+            "busy_vs_slab": busy[name]["device_busy_ms"] / busy[slab]["device_busy_ms"],
+        }
+    emit({"phase": "compare_pencil", "what": "the pencil plans against their slab plan and the "
+          "local blocked plan of the same triplets: median ms per pair (host clock, in the same "
+          "turns as the compare line), device busy ms of one profiled pair; exchange_A_ms and "
+          "exchange_B_ms the device ms of the staged twin's pack, exchange and unpack ranges "
+          "of each exchange (obs_stage_profile)", **pencil_rows})
 
     # ---- the obs phase: the cost of observability, then the benchmark program ----
     t0 = time.perf_counter()
@@ -2003,6 +2260,8 @@ def main() -> int:
             | {"launches": launches}
             | {k: row[k] for k in ("precision", "fp32_bound_ms", "library_math", "library_tf32_ms")
                if k in row})
+    import torch.distributed as dist
+
     dist.destroy_process_group()
     emit({"phase": "done", "seconds": time.perf_counter() - started})
     emit({"kernels": kernels})

@@ -1,9 +1,9 @@
 """spfft_tpu_torch: the sparse 3-D FFT of spfft_tpu, in PyTorch, on an NVIDIA H100.
 
-The port of the JAX package's local transform and its distributed slab
-transform (:class:`DistributedTransform` over the shards of
-:func:`make_fft_mesh`: stacked on one device, or across processes with
-``torch.distributed``). On its accelerator engine
+The port of the JAX package's local transform and its distributed
+transforms (:class:`DistributedTransform` over the shards of
+:func:`make_fft_mesh`, z-slabs, or of :func:`make_fft_mesh2`, 2-D pencils:
+stacked on one device, or across processes with ``torch.distributed``). On its accelerator engine
 (``engine="mxu"``, the default on the card) every DFT stage is a matrix
 product (kernel K1, ``csrc/complex_matmul.cu``) and the stick <-> plane moves
 are row gathers (kernel K2, ``csrc/row_gather.cu``), both CUDA C++ for
@@ -69,7 +69,13 @@ from .indices import (  # noqa: F401
     create_spherical_cutoff_triplets,
     spherical_radius_for_fraction,
 )
-from .parallel.mesh import ShardMesh, init_distributed, make_fft_mesh  # noqa: F401
+from .parallel.mesh import (  # noqa: F401
+    ShardMesh,
+    init_distributed,
+    is_pencil2_mesh,
+    make_fft_mesh,
+    make_fft_mesh2,
+)
 from .parameters import (  # noqa: F401
     DistributedParameters,
     LocalParameters,

@@ -1,18 +1,22 @@
 """The ``DistributedTransform`` public API object: a transform over P shards.
 
-The port of the JAX package's ``spfft_tpu/distributed.py`` for the 1-D slab
-decomposition (the reference's MPI transforms, include/spfft/grid.hpp:89-141,
-include/spfft/transform.hpp:102-131). Per-shard quantities are lists indexed
-by the global shard id. The shards of a process sit stacked on its device
-(:func:`~spfft_tpu_torch.parallel.mesh.make_fft_mesh`):
+The port of the JAX package's ``spfft_tpu/distributed.py`` (the reference's
+MPI transforms, include/spfft/grid.hpp:89-141,
+include/spfft/transform.hpp:102-131): the 1-D slab decomposition over
+:func:`~spfft_tpu_torch.parallel.mesh.make_fft_mesh`, and the 2-D pencil
+decomposition over :func:`~spfft_tpu_torch.parallel.mesh.make_fft_mesh2`
+(engines ``"pencil2"`` and ``"pencil2-mxu"``, :mod:`.parallel.pencil2`),
+where shard ``s`` holds the ``(local_z_length(s), local_y_length(s), X)``
+block of space. Per-shard quantities are lists indexed by the global shard
+id. The shards of a process sit stacked on its device:
 
 * one process, no process group: ``backward`` takes the P value lists and
   returns the global ``(Z, Y, X)`` space tensor; the exchange is a gather on
   the device and each direction runs fused (one CUDA graph on the card);
 * processes joined by a group: each process passes its own shards' values
-  (None for the others') and gets its shards' ``(local_z_length, Y, X)``
-  slabs back; the exchange is ``torch.distributed.all_to_all_single`` and
-  the plan runs staged.
+  (None for the others') and gets its shards' slabs (pencil blocks) back;
+  the exchange is ``torch.distributed.all_to_all_single`` and the plan runs
+  staged.
 
 ``forward`` returns the per-shard packed values (None for another
 process's). Results are tensors on the plan's device.
@@ -33,7 +37,9 @@ from .grid import Grid
 from .ops.fft import resolve_precision
 from .parallel.execution import DistributedExecution
 from .parallel.execution_mxu import MxuDistributedExecution
-from .parallel.mesh import fft_mesh_size
+from .parallel.mesh import fft_mesh_size, is_pencil2_mesh
+from .parallel.pencil2 import Pencil2Execution
+from .parallel.pencil2_mxu import MxuPencil2Execution
 from .parallel.policy import (discipline_volumes, resolve_default_for_plan,
                               resolve_overlap_chunks, resolve_policy)
 from .parameters import (DistributedParameters, distribute_triplets,
@@ -49,10 +55,16 @@ class DistributedTransform(_Observed):
     ``indices``: a list of per-shard triplet arrays (every shard's, on every
     process: the plan needs the global stick tables), or one global triplet
     array, distributed by whole z-sticks with balanced value counts
-    (:func:`~spfft_tpu_torch.parameters.distribute_triplets`).
+    (:func:`~spfft_tpu_torch.parameters.distribute_triplets`; on a pencil
+    mesh column by column, ``layout=(P1, P2)``).
     ``engine``: ``"mxu"`` (K1/K2), ``"xla"`` (``torch.fft``) or ``"auto"``
-    (``"xla"`` on a CPU mesh, ``"mxu"`` on the card). ``exchange_type``
-    DEFAULT resolves through :mod:`~spfft_tpu_torch.parallel.policy`.
+    (``"xla"`` on a CPU mesh, ``"mxu"`` on the card); on a pencil mesh the
+    plan's engine is named ``"pencil2-mxu"`` or ``"pencil2"`` (which it also
+    takes). ``exchange_type``
+    DEFAULT resolves through :mod:`~spfft_tpu_torch.parallel.policy` on a slab
+    mesh, inside the engine on a pencil mesh (the JAX package's cost model).
+    ``local_z_lengths`` cut the slabs of a slab mesh; a pencil mesh splits
+    z and y evenly.
     ``overlap`` and ``policy`` take only their defaults (1, ``"default"``):
     the OVERLAPPED exchange and ``policy="tuned"`` are not ported and raise.
     A process group that fails while the exchange is built raises
@@ -74,6 +86,9 @@ class DistributedTransform(_Observed):
         num_shards = fft_mesh_size(mesh)
         if isinstance(indices, (list, tuple)):
             per_shard = [np.asarray(t).reshape(-1, 3) for t in indices]
+        elif is_pencil2_mesh(mesh):
+            per_shard = distribute_triplets(np.asarray(indices), num_shards, int(dim_y),
+                                            layout=mesh.shape, dim_x=int(dim_x))
         else:
             per_shard = distribute_triplets(np.asarray(indices), num_shards, int(dim_y))
         params = make_distributed_parameters(TransformType(transform_type), dim_x, dim_y, dim_z,
@@ -121,21 +136,26 @@ class DistributedTransform(_Observed):
         self._requested_exchange = exchange_type
         self._precision = resolve_precision(precision)
         self._run_id = obs.trace.new_run_id()
+        pencil = is_pencil2_mesh(mesh)
         with obs.trace.operation("plan", run_id=self._run_id, kind="distributed"):
-            if exchange_type == ExchangeType.DEFAULT:
+            if exchange_type == ExchangeType.DEFAULT and not pencil:
                 exchange_type = resolve_default_for_plan(p)
             if engine == "auto":  # the JAX package's rule (spfft_tpu/distributed.py:208-209)
                 engine = "xla" if mesh.device.type == "cpu" else "mxu"
+            if pencil and engine in ("pencil2", "pencil2-mxu"):  # a plan's own name
+                engine = "mxu" if engine == "pencil2-mxu" else "xla"
             if engine not in ("xla", "mxu"):
                 raise InvalidParameterError(f"unknown engine {engine!r}")
-            self._engine = engine
-            if engine == "mxu":
-                self._exec = MxuDistributedExecution(p, self._real_dtype, mesh, exchange_type,
-                                                     self._precision, fuse=fuse)
-            else:
-                self._exec = DistributedExecution(p, self._real_dtype, mesh, exchange_type,
-                                                  fuse=fuse)
-            obs.trace.event("decision", what="engine", choice=engine, policy=self._policy)
+            # a pencil engine resolves DEFAULT itself, with its x-group strategy
+            self._engine = ("pencil2-mxu" if engine == "mxu" else "pencil2") if pencil else engine
+            engine_class = {("mxu", False): MxuDistributedExecution,
+                            ("xla", False): DistributedExecution,
+                            ("mxu", True): MxuPencil2Execution,
+                            ("xla", True): Pencil2Execution}[engine, pencil]
+            precision = (self._precision,) if engine == "mxu" else ()
+            self._exec = engine_class(p, self._real_dtype, mesh, exchange_type, *precision,
+                                      fuse=fuse)
+            obs.trace.event("decision", what="engine", choice=self._engine, policy=self._policy)
             obs.trace.event("decision", what="exchange", choice=self.exchange_type.name,
                             overlap=self.overlap_chunks)
         self._exec_mode = ExecType.SYNCHRONOUS
@@ -285,10 +305,9 @@ class DistributedTransform(_Observed):
         if processing_unit is not None and _validate_data_location(
                 processing_unit) == ProcessingUnit.GPU:
             return self._space_data
-        p = self._params
+        native = self._parts(self._space_data)
         obs.counter("staged_bytes_total", direction="device_to_host").inc(
-            (1 if self._is_r2c else 2) * self._exec.num_local * max(1, p.max_local_z_length)
-            * p.dim_y * p.dim_x * self._real_dtype.itemsize)
+            sum(t.numel() * t.element_size() for t in native if t is not None))
         out = self._exec.unpad_space(self._space_data)
         if isinstance(out, list):
             return [None if s is None else s.cpu().numpy() for s in out]
@@ -296,21 +315,25 @@ class DistributedTransform(_Observed):
 
     def space_domain_data_local(self, shard: int):
         """Shard ``shard``'s ``(local_z_length, Y, X)`` slab of the most
-        recent result, on the host (the reference's per-rank pointer); the
-        shard must be this process's."""
+        recent result, on a pencil mesh its ``(local_z_length,
+        local_y_length, X)`` block, on the host (the reference's per-rank
+        pointer); the shard must be this process's."""
         if self._space_data is None:
             raise InvalidParameterError("no space domain data available yet")
         local = list(self._mesh.local_shards)
         if shard not in local:
             raise InvalidParameterError(f"shard {shard} is not this process's ({local})")
+        if self._pencil:
+            return self._exec.local_block(self._space_data, shard).cpu().numpy()
         full = self._space_data if self._is_r2c else torch.complex(*self._space_data)
         slab = full[:, :, local.index(shard), :self.local_z_length(shard)].permute(2, 0, 1)
         return slab.cpu().numpy()
 
     @property
     def space_domain_layout(self) -> str:
-        """Axis order of the native space: ``"yxz"``, the stacked
-        ``(Y, X, P_local, L_max)`` slabs, on both engines."""
+        """Axis order of the native space: ``"yxz"``, on both engines: the
+        stacked ``(Y, X, P_local, L_max)`` slabs, on a pencil mesh the
+        stacked ``(P_local, Ly, X, Lz)`` blocks."""
         return self._exec.NATIVE_LAYOUT
 
     def clone(self) -> "DistributedTransform":
@@ -344,7 +367,12 @@ class DistributedTransform(_Observed):
             "wire_bytes": self.exchange_wire_bytes(), "rounds": self.exchange_rounds(),
             "transport": self._exec.exchange_transport(), "overlap_chunks": 1,
         }
-        if self._requested_exchange == ExchangeType.DEFAULT:
+        if self._pencil:
+            tables = self._exec.geometry.policy_tables
+            if tables is not None:  # the cost model ran: what it weighed
+                exchange["policy"] = {a["discipline"]: {"wire_bytes": a["wire_bytes"]}
+                                      for a in tables[True]["alternatives"]}
+        elif self._requested_exchange == ExchangeType.DEFAULT:
             width = 2 * wire_scalar_bytes(ExchangeType.BUFFERED, self._real_dtype)
             exchange["policy"] = {d.name: {"wire_bytes": v * width} for d, v in
                                   discipline_volumes(p.num_sticks_per_shard,
@@ -365,6 +393,10 @@ class DistributedTransform(_Observed):
     @property
     def _is_r2c(self) -> bool:
         return self._params.transform_type == TransformType.R2C
+
+    @property
+    def _pencil(self) -> bool:
+        return self._engine.startswith("pencil2")
 
     @property
     def transform_type(self) -> TransformType:
@@ -390,14 +422,28 @@ class DistributedTransform(_Observed):
     def mesh(self):
         return self._mesh
 
+    # The per-shard space layout: a pencil engine holds its own z x y split
+    # (the params' slab split does not describe it).
+
     def local_z_length(self, shard: int) -> int:
+        if self._pencil:
+            return self._exec.local_z_length(shard)
         return int(self._params.local_z_lengths[shard])
 
     def local_z_offset(self, shard: int) -> int:
+        if self._pencil:
+            return self._exec.local_z_offset(shard)
         return int(self._params.z_offsets[shard])
 
+    def local_y_length(self, shard: int) -> int:
+        """``dim_y`` on a slab mesh; the shard's y-slab length on a pencil mesh."""
+        return self._exec.local_y_length(shard) if self._pencil else self.dim_y
+
+    def local_y_offset(self, shard: int) -> int:
+        return self._exec.local_y_offset(shard) if self._pencil else 0
+
     def local_slice_size(self, shard: int) -> int:
-        return self.dim_x * self.dim_y * self.local_z_length(shard)
+        return self.dim_x * self.local_y_length(shard) * self.local_z_length(shard)
 
     def num_local_elements(self, shard: int) -> int:
         return int(self._params.num_values_per_shard[shard])
@@ -433,9 +479,10 @@ class DistributedTransform(_Observed):
         return self._exec.exchange_wire_bytes()
 
     def exchange_rounds(self) -> int:
-        """Collective rounds per exchange: 1 for every discipline here, where
-        the JAX package's COMPACT chain (and its UNBUFFERED fallback off the
-        TPU) takes P-1: ``all_to_all_single`` takes uneven split sizes."""
+        """Collective rounds per direction: 1 for every discipline here (2 on
+        a pencil mesh, exchanges A and B), where the JAX package's COMPACT
+        chain (and its UNBUFFERED fallback off the TPU) takes P-1:
+        ``all_to_all_single`` takes uneven split sizes."""
         return self._exec.exchange_rounds()
 
     @property

@@ -350,8 +350,7 @@ def init_engine_ir(engine, fuse=None) -> EngineIr:
 
     fused, requested = resolve_fuse(fuse)
     because = None
-    exchange = getattr(engine, "_exchange", None)
-    if exchange is not None and exchange.collective:
+    if getattr(engine, "collective", False):
         if fused and requested == "kwarg":
             raise InvalidParameterError(f"fuse=True: {COLLECTIVE_STAGED} (it runs staged)")
         fused, because = False, COLLECTIVE_STAGED

@@ -25,7 +25,8 @@ from ..errors import InvalidParameterError
 
 # The canonical node vocabulary, the same literal as the JAX package's
 # (spfft_tpu/ir/graph.py NODES); the exchange labels belong to the mesh
-# engines (the "A"/"B" and "overlapped" ones to parts not ported yet).
+# engines ("A"/"B" to the pencil engines; the "overlapped" ones to a part
+# not ported yet).
 NODES = (
     "compression",
     "stick symmetry",

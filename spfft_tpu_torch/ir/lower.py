@@ -4,7 +4,7 @@ One builder per engine class turns the engine's stage bodies (its ``_st_*``
 methods) into a :class:`~spfft_tpu_torch.ir.graph.StageGraph` per direction,
 with the node order and labels of the JAX package's builders
 (``spfft_tpu/ir/lower.py`` ``_lower_local_xla``, ``_lower_local_mxu``,
-``_lower_slab_xla``, ``_lower_slab_mxu``). The graphs are what the engine
+``_lower_slab_xla``, ``_lower_slab_mxu``, ``_lower_pencil``). The graphs are what the engine
 runs (:mod:`spfft_tpu_torch.ir.compile`): a stage missing here is a stage
 the plan does not run.
 
@@ -240,9 +240,79 @@ def _lower_slab(e):
     return {"backward": backward(), "forward": {s: forward(s) for s in SCALINGS}}
 
 
+def _lower_pencil(e):
+    """Both pencil engines: the JAX builders' per-shard pipeline over the
+    stacked shards, two exchanges a direction. Each is one ``exchange A`` /
+    ``exchange B`` node (a gather on the device) without a process group,
+    else ``pack``, ``exchange`` (the collective) and ``unpack`` nodes of its
+    tag. Pair edges on the matrix-product engine, complex ones on the
+    ``torch.fft`` engine."""
+    from functools import partial
+
+    pair = hasattr(e, "y_plan")
+    rt = e.real_dtype
+    V, Pl = e._V, e.num_local
+    edge = (lambda name: (name + "re", name + "im")) if pair else (lambda name: (name,))
+
+    def exchange(g, tag, direction, src, dst):
+        if not e.collective:
+            g.add(f"exchange {tag}", partial(e._st_exchange, tag, direction), src, dst)
+            return
+        send, recv = f"send{tag}", f"recv{tag}"
+        g.add(f"pack {tag}", partial(e._st_pack, tag, direction), src, (send,))
+        g.add(f"exchange {tag}", partial(e._st_collective, tag, direction), (send,), (recv,))
+        g.add(f"unpack {tag}", partial(e._st_unpack, tag, direction), (recv,), dst)
+
+    def backward():
+        g = StageGraph("backward")
+        g.add_input("values_re", dtype=rt, shape=(Pl, V))
+        g.add_input("values_im", dtype=rt, shape=(Pl, V))
+        g.batch_inputs = ("values_re", "values_im")
+        g.add("compression", e._st_decompress, ("values_re", "values_im"), edge("s"))
+        cur = edge("s")
+        if e.is_r2c and e._zero_stick_id is not None:
+            g.add("stick symmetry", e._st_stick_symmetry, cur, edge("sh"))
+            cur = edge("sh")
+        g.add("z transform", e._st_z_backward, cur, edge("z"))
+        exchange(g, "A", "backward", edge("z"), edge("g"))
+        cur = edge("g")
+        if e.is_r2c and e._x0_cols is not None:
+            g.add("plane symmetry", e._st_plane_symmetry, cur, edge("p"))
+            cur = edge("p")
+        y = e._st_y_dense_backward if pair else e._st_y_backward
+        g.add("y transform", y, cur, edge("y"))
+        exchange(g, "B", "backward", edge("y"), edge("b"))
+        outputs = ("space",) if e.is_r2c else ("space_re", "space_im")
+        g.add("x transform", e._st_x_backward, edge("b"), outputs)
+        g.set_outputs(list(outputs))
+        return g
+
+    def forward(s):
+        g = StageGraph("forward")
+        g.add_input("space_re", dtype=rt)
+        g.add_input("space_im", dtype=rt)  # None for R2C
+        g.batch_inputs = ("space_re", "space_im")
+        g.add("x transform", e._st_x_forward, ("space_re", "space_im"), edge("x"))
+        exchange(g, "B", "forward", edge("x"), edge("g"))
+        y = e._st_y_dense_forward if pair else e._st_y_forward
+        g.add("y transform", y, edge("g"), edge("y"))
+        exchange(g, "A", "forward", edge("y"), edge("s"))
+        z = (lambda sre, sim: e._st_z_forward(sre, sim, s)) if pair else e._st_z_forward
+        g.add("z transform", z, edge("s"), edge("z"))
+        compress = e._st_compress if pair else (lambda sticks: e._st_compress(sticks, s))
+        g.add("compression", compress, edge("z"), ("out_re", "out_im"),
+              out_meta={"out_re": EdgeMeta(rt, (Pl, V)), "out_im": EdgeMeta(rt, (Pl, V))})
+        g.set_outputs(["out_re", "out_im"])
+        return g
+
+    return {"backward": backward(), "forward": {s: forward(s) for s in SCALINGS}}
+
+
 _BUILDERS = {
     "LocalExecution": _lower_local_xla,
     "MxuLocalExecution": _lower_local_mxu,
     "DistributedExecution": _lower_slab,
     "MxuDistributedExecution": _lower_slab,
+    "Pencil2Execution": _lower_pencil,
+    "MxuPencil2Execution": _lower_pencil,
 }

@@ -304,7 +304,7 @@ def perf_report(
 
         mesh_card = _mesh_card(transform.mesh)
         device_count = int(transform.num_shards)
-        decomposition = "slab"
+        decomposition = "pencil2" if transform.engine.startswith("pencil2") else "slab"
         discipline = transform.exchange_type.name
         overlap_chunks = int(transform.overlap_chunks)
         wire_bytes = 2 * int(transform.exchange_wire_bytes())  # fwd + bwd

@@ -5,7 +5,9 @@ The port of ``spfft_tpu/obs/plancard.py``, under the same schema
 engine and precision, the engine's decisions (``execution``: active-x
 compaction, the y plan), the stage-graph IR section and the batch section;
 distributed plans add the exchange (discipline, wire dtype and bytes,
-rounds, transport) and the DEFAULT policy's table of alternatives.
+rounds, transport) and the DEFAULT policy's table of alternatives (a pencil
+plan's, ``decomposition: "pencil2"``, only where DEFAULT was resolved: the
+JAX cost model's table that its engine weighed).
 
 Where the port lacks a subsystem of the JAX package, the card carries what
 the JAX card carries for a plan without it: ``degradations`` is empty (no
@@ -102,8 +104,28 @@ def _exchange_policy(transform) -> dict:
     }
 
 
+def _exchange_policy_pencil(transform):
+    """The ``exchange_policy`` section of a pencil plan: the cost table that
+    the engine's DEFAULT resolution weighed with the one-shot exchange
+    supported (``parallel/pencil2.py`` ``resolve_pencil2_default``, which
+    keeps the tables of both flags), the plan's discipline flagged; None
+    for an explicit discipline, where the cost model did not run."""
+    tables = transform._exec.geometry.policy_tables
+    if tables is None:
+        return None
+    costs = dict(tables[True])
+    chosen = transform.exchange_type.name
+    costs["alternatives"] = [dict(alt, chosen=alt["discipline"] == chosen)
+                             for alt in costs["alternatives"]]
+    costs["chosen"] = chosen
+    return costs
+
+
 def _mesh_card(mesh) -> dict:
-    """The mesh as the JAX card names it: its one ``"fft"`` axis."""
+    """The mesh as the JAX card names it: its ``"fft"`` axis, and on a
+    pencil mesh its ``"fft2"`` axis."""
+    if mesh.shape is not None:
+        return {"fft": int(mesh.shape[0]), "fft2": int(mesh.shape[1])}
     return {"fft": int(mesh.num_shards)}
 
 
@@ -158,7 +180,8 @@ def plan_card(transform, *, include_compiled: bool = False) -> dict:
     if distributed:
         card["num_shards"] = int(p.num_shards)
         card["mesh"] = _mesh_card(transform.mesh)
-        card["decomposition"] = "slab"
+        pencil = transform.engine.startswith("pencil2")
+        card["decomposition"] = "pencil2" if pencil else "slab"
         card["num_sticks_per_shard"] = [int(n) for n in p.num_sticks_per_shard]
         card["local_z_lengths"] = [int(n) for n in p.local_z_lengths]
         card["exchange"] = {
@@ -170,7 +193,12 @@ def plan_card(transform, *, include_compiled: bool = False) -> dict:
             "transport": ex.exchange_transport(),
             "overlap_chunks": int(transform.overlap_chunks),
         }
-        card["exchange_policy"] = _exchange_policy(transform)
+        if pencil:
+            costs = _exchange_policy_pencil(transform)
+            if costs is not None:
+                card["exchange_policy"] = costs
+        else:
+            card["exchange_policy"] = _exchange_policy(transform)
     return card
 
 

@@ -92,6 +92,11 @@ class PaddingHelpers(ExecutionBase):
     def num_local(self) -> int:
         return self.mesh.num_local
 
+    @property
+    def collective(self) -> bool:
+        """True where the exchange is a ``torch.distributed`` collective."""
+        return self._exchange.collective
+
     def _decompress_values(self, values):
         """``(P_local, V_max)`` values (one real or complex tensor) -> the
         zeroed ``(P_local * S_max, Z)`` stick table holding them."""
@@ -268,29 +273,29 @@ class PaddingHelpers(ExecutionBase):
     # and back (``_slab_side``, ``_stick_side``).
 
     def _st_exchange_backward(self, *z):
-        return self._slab_side(self._exchange.backward(self._rows(*z)))
+        return self._slab_side(self._exchange.backward.run(self._rows(*z)))
 
     def _st_exchange_forward(self, *y):
-        return self._stick_side(self._exchange.forward(self._rows(*y)))
+        return self._stick_side(self._exchange.forward.run(self._rows(*y)))
 
     # the collective route's nodes (a plan with a process group)
     def _st_pack_backward(self, *z):
-        return self._exchange.pack_backward(self._rows(*z))
+        return self._exchange.backward.pack(self._rows(*z))
 
     def _st_exchange_rows_backward(self, send):
-        return self._exchange.exchange_backward(send)
+        return self._exchange.backward.exchange(send)
 
     def _st_unpack_backward(self, recv):
-        return self._slab_side(self._exchange.unpack_backward(recv))
+        return self._slab_side(self._exchange.backward.unpack(recv))
 
     def _st_pack_forward(self, *y):
-        return self._exchange.pack_forward(self._rows(*y))
+        return self._exchange.forward.pack(self._rows(*y))
 
     def _st_exchange_rows_forward(self, send):
-        return self._exchange.exchange_forward(send)
+        return self._exchange.forward.exchange(send)
 
     def _st_unpack_forward(self, recv):
-        return self._stick_side(self._exchange.unpack_forward(recv))
+        return self._stick_side(self._exchange.forward.unpack(recv))
 
 
 class DistributedExecution(PaddingHelpers):
@@ -307,12 +312,9 @@ class DistributedExecution(PaddingHelpers):
         self.num_x_active = Xf
         self._zs = self.num_local * self._L
         sx, sy = (a.reshape(-1).astype(np.int64) for a in (p.stick_x_all, p.stick_y_all))
-        valid = sx < Xf
-        stick_slot = np.where(valid, sy * Xf + sx, -1)
-        slot_stick = np.full(Y * Xf, -1, dtype=np.int64)
-        slot_stick[stick_slot[valid]] = np.flatnonzero(valid)
-        self._exchange = make_exchange(mesh, p, slot_stick, stick_slot, Y * Xf, exchange_type,
-                                       real_dtype, planes=1)
+        stick_slot = np.where(sx < Xf, sy * Xf + sx, -1)
+        self._exchange = make_exchange(mesh, p, stick_slot, Y * Xf, exchange_type, real_dtype,
+                                       planes=1)
         pack_z = p.pack_z_map().astype(np.int64)  # dim_z: the zero column appended
         self._pack_z = self.put(pack_z, torch.int64)
         self._unpack_z = self.put(p.unpack_z_map(), torch.int64)

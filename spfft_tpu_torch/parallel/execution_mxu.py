@@ -71,22 +71,17 @@ class MxuDistributedExecution(PaddingHelpers, MxuLocalExecution):
             xslot_of[sx[vrows]], ys, ux, vrows.size, has_x0=bool((sx[vrows] == 0).any()),
             blocked=A < Xf)
 
-        # the slab slots the exchange fills (backward) and reads (forward)
+        # the slab slot each stick fills (backward) and is read back from (forward)
         if self.buckets is not None:
-            rows = self._bucket_rows_np.astype(np.int64)
-            num_slots = rows.size
-            slot_stick = np.where(rows < vrows.size, vrows[np.minimum(rows, vrows.size - 1)], -1)
-            slot_of_valid = row_of
+            num_slots, slot_of_valid = self._bucket_rows_np.size, row_of
         else:
             num_slots = A * self.sy if self.sy else Y * A
             slot_of_valid = row_of if self.sy else ys * A + xslot
-            slot_stick = np.full(num_slots, -1, dtype=np.int64)
-            slot_stick[slot_of_valid] = vrows
         stick_slot = np.full(P * S, -1, dtype=np.int64)
         stick_slot[vrows] = slot_of_valid
         self._num_slots = num_slots
-        self._exchange = make_exchange(mesh, p, slot_stick, stick_slot, num_slots,
-                                       exchange_type, real_dtype, planes=2)
+        self._exchange = make_exchange(mesh, p, stick_slot, num_slots, exchange_type,
+                                       real_dtype, planes=2)
 
         # the z stages with the slab split folded in: (Z, P * L) and (P * L, Z)
         pack_z = p.pack_z_map().astype(np.int64)

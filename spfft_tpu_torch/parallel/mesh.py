@@ -1,6 +1,7 @@
 """The shard mesh: where the shards of a distributed transform live.
 
-The port of the JAX package's 1-D ``"fft"`` mesh (``spfft_tpu/parallel/mesh.py``).
+The port of the JAX package's 1-D ``"fft"`` mesh and its 2-D ``("fft",
+"fft2")`` pencil mesh (``spfft_tpu/parallel/mesh.py``).
 A :class:`ShardMesh` is what one process contributes: one ``torch.device``
 that holds this process's shards stacked on axis 0, and optionally a
 ``torch.distributed`` process group joining the processes. The shard ids are
@@ -11,6 +12,10 @@ global: process ``rank`` holds shards ``rank * num_local ... + num_local - 1``.
 * A group (of any size, 1 included): the exchange is
   ``torch.distributed.all_to_all_single`` over it, NCCL on the card and gloo
   on the CPU; each process supplies and receives only its own shards.
+
+A pencil mesh (:func:`make_fft_mesh2`) has a ``shape`` ``(P1, P2)``: shard
+``s`` is ``(a, b) = (s // P2, s % P2)``, ``a`` on the ``"fft"`` axis (x-groups
+and y-slabs), ``b`` on ``"fft2"`` (z-slabs); a 1-D mesh has no shape.
 """
 from __future__ import annotations
 
@@ -19,6 +24,9 @@ import dataclasses
 import torch
 
 from ..errors import GPUNoDeviceError, InvalidParameterError, MPIError
+
+FFT_AXIS = "fft"
+FFT_AXIS2 = "fft2"
 
 
 def _ask_group(query: str, group) -> int:
@@ -40,6 +48,7 @@ class ShardMesh:
     device: torch.device
     num_local: int
     group: object = None
+    shape: tuple | None = None  # (P1, P2) on a pencil mesh
 
     @property
     def world(self) -> int:
@@ -62,6 +71,29 @@ class ShardMesh:
         return range(self.rank * self.num_local, (self.rank + 1) * self.num_local)
 
 
+def _mesh_device(device, what: str) -> torch.device:
+    """``device`` None is the current CUDA device, and raises
+    :class:`GPUNoDeviceError` where there is none."""
+    if device is None:
+        if not torch.cuda.is_available():
+            raise GPUNoDeviceError(f"{what}: no CUDA device is available")
+        device = torch.device("cuda", torch.cuda.current_device())
+    device = torch.device(device)
+    if device.type == "cuda" and device.index is None:
+        device = torch.device("cuda", torch.cuda.current_device())
+    return device
+
+
+def _check_group(group, what: str) -> None:
+    if group is not None:
+        import torch.distributed as dist
+
+        if not dist.is_initialized():
+            raise InvalidParameterError(
+                f"{what}: a process group needs torch.distributed initialised "
+                "(init_distributed)")
+
+
 def make_fft_mesh(num_shards: int, device=None, group=None) -> ShardMesh:
     """A mesh of ``num_shards`` shards on this process's ``device``, joined
     to the other processes of ``group`` (their shards follow this one's in
@@ -74,21 +106,38 @@ def make_fft_mesh(num_shards: int, device=None, group=None) -> ShardMesh:
     num_shards = int(num_shards)
     if num_shards < 1:
         raise InvalidParameterError(f"a mesh holds at least one shard, got {num_shards}")
-    if device is None:
-        if not torch.cuda.is_available():
-            raise GPUNoDeviceError("make_fft_mesh: no CUDA device is available")
-        device = torch.device("cuda", torch.cuda.current_device())
-    device = torch.device(device)
-    if device.type == "cuda" and device.index is None:
-        device = torch.device("cuda", torch.cuda.current_device())
-    if group is not None:
-        import torch.distributed as dist
-
-        if not dist.is_initialized():
-            raise InvalidParameterError(
-                "make_fft_mesh: a process group needs torch.distributed initialised "
-                "(init_distributed)")
+    device = _mesh_device(device, "make_fft_mesh")
+    _check_group(group, "make_fft_mesh")
     return ShardMesh(device, num_shards, group)
+
+
+def make_fft_mesh2(p1: int, p2: int, device=None, group=None) -> ShardMesh:
+    """A 2-D ``(p1, p2)`` pencil mesh (axes ``"fft"`` x ``"fft2"``): space is
+    cut into z-slabs over ``"fft2"`` and y-slabs over ``"fft"``, which lifts
+    the slab decomposition's ``P <= dim_z`` cap to ``p1 * p2 <= dim_z *
+    dim_y`` (:mod:`~spfft_tpu_torch.parallel.pencil2`). The ``p1 * p2``
+    shards are split evenly over the processes of ``group`` in rank order
+    (all of them on this process without one); ``device`` as in
+    :func:`make_fft_mesh`."""
+    try:
+        p1, p2 = int(p1), int(p2)
+    except (TypeError, ValueError):
+        raise InvalidParameterError(f"mesh factors must be integers, got {p1!r}, {p2!r}") from None
+    if p1 < 1 or p2 < 1:
+        raise InvalidParameterError(f"mesh factors must be positive, got ({p1}, {p2})")
+    device = _mesh_device(device, "make_fft_mesh2")
+    _check_group(group, "make_fft_mesh2")
+    world = 1 if group is None else _ask_group("get_world_size", group)
+    if (p1 * p2) % world:
+        raise InvalidParameterError(
+            f"make_fft_mesh2({p1}, {p2}): {p1 * p2} shards do not split evenly over "
+            f"{world} processes")
+    return ShardMesh(device, p1 * p2 // world, group, (p1, p2))
+
+
+def is_pencil2_mesh(mesh) -> bool:
+    """True for a 2-D pencil mesh (:func:`make_fft_mesh2`)."""
+    return isinstance(mesh, ShardMesh) and mesh.shape is not None
 
 
 def fft_mesh_size(mesh: ShardMesh) -> int:

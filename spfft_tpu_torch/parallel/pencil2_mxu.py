@@ -1,0 +1,98 @@
+"""The matrix-product pencil engine: every DFT stage one K1 launch over all
+stacked shards, every exchange direction one K2 gather (or pack and unpack).
+
+The port of ``spfft_tpu/parallel/pencil2_mxu.py`` over the layouts of
+:mod:`.pencil2`:
+
+* z: ``sz,zk->sk`` over the ``(P_local * S_max, Z)`` stick table, with the
+  z-slab split folded into the matrix (a column per padded slab plane, zero
+  on padding planes), so the stick rows of exchange A come out of K1;
+* y: the dense y-DFT over the ``(Y, P_local * Ax, Lz)`` y-pencil grid
+  (``yxz,yk->kxz``; the pencil engine has no sparse-y plans);
+* x: over the ``(P_local * Ly, P1 * Ax, Lz)`` slab side (``kxz,xl->klz``),
+  the (group, slot) -> x map folded into the matrix (zero rows on empty
+  slots, ``ops/fft.x_stage_matrices``), so the slab side needs no column
+  scatter; R2C takes the real-out and real-in forms. The result is each
+  shard's ``(Ly, X, Lz)`` block, the local engine's ``yxz`` layout.
+
+Forward reverses it; the FULL scaling rides the forward-z matrix. (re, im)
+pairs on every edge.
+
+Not ported: the lane-copy value plans and their alignment rotations
+(``_phase_tables``/``apply_alignment_phase``, the TPU's lane alignment of
+decompress and compress); one index copy over the stacked values computes
+the same function (``ops/compression.py``).
+"""
+from __future__ import annotations
+
+import numpy as np
+
+from ..execution_mxu import MxuLocalExecution
+from ..ops import fft as offt
+from ..ops import symmetry
+from ..types import ScalingType
+from .execution_mxu import MxuDistributedExecution
+from .pencil2 import Pencil2Helpers
+
+
+class MxuPencil2Execution(Pencil2Helpers, MxuDistributedExecution):
+    """The matrix-product engine over a pencil mesh: the slab engine's
+    decompress and compress, the local engine's z, dense y and x stage
+    bodies at the pencil's shapes."""
+
+    def __init__(self, params, real_dtype, mesh, exchange_type, precision="highest",
+                 fuse=None):
+        def columns(g):  # the slab side holds the (group, slot) columns
+            return np.arange(g.P1 * g.Ax), g.P1 * g.Ax
+
+        self._setup_pencil(params, real_dtype, mesh, exchange_type, columns, planes=2)
+        self.precision = offt.resolve_precision(precision)
+        p, g, rt = params, self.geometry, self.real_dtype
+        Z, Y = p.dim_z, p.dim_y
+        self.sy, self.buckets = 0, None  # the dense y plan
+        self.num_x_active = g.P1 * g.Ax
+        perm = np.where(self._pack_z2 < Z, self._pack_z2, -1)
+        self._wz_b = self._const(offt.matrix_pair(offt.c2c_matrix(Z, +1, row_perm=perm).T, rt))
+        self._wz_f = {
+            ScalingType.NONE: self._const(offt.matrix_pair(
+                offt.c2c_matrix(Z, -1, row_perm=perm), rt)),
+            ScalingType.FULL: self._const(offt.matrix_pair(
+                offt.c2c_matrix(Z, -1, scale=1.0 / p.total_size, row_perm=perm), rt)),
+        }
+        self._wy_b = self._const(offt.matrix_pair(offt.c2c_matrix(Y, +1), rt))
+        self._wy_f = self._const(offt.matrix_pair(offt.c2c_matrix(Y, -1), rt))
+        slot_to_x = np.where(g.xcol < p.dim_x_freq, g.xcol, -1)
+        wx_b, wx_f = offt.x_stage_matrices(p.dim_x, slot_to_x, slot_to_x.size, self.is_r2c, rt)
+        self._wx_b, self._wx_f = self._const(wx_b), self._const(wx_f)
+        self._init_ir(fuse)
+
+    def describe(self) -> dict:
+        return {"pipeline": "matmul DFT stages + exchange gathers (pencil)",
+                "matmul_precision": self.precision.upper(), **self._geometry()}
+
+    def _rows(self, *parts):
+        return [t.reshape(-1, self._Lz) for t in parts]
+
+    def _shaped(self, rows, shape, tag, direction):
+        return tuple(t.view(shape) for t in rows)
+
+    # ---- stage bodies (the nodes of ir.lower._lower_pencil) ---------------------
+    # decompress, stick symmetry, z, dense y and compress are the slab and
+    # local engines' bodies.
+
+    def _st_plane_symmetry(self, gre, gim):
+        # in place: the exchange A edge is read by this node alone
+        c = self._x0_cols
+        if c is not None:
+            gre[:, c], gim[:, c] = symmetry.hermitian_fill_1d_pair(gre[:, c], gim[:, c], axis=0)
+        return gre, gim
+
+    def _st_x_backward(self, gre, gim):
+        """The slab side -> each shard's ``(Ly, X, Lz)`` block, stacked."""
+        out = MxuLocalExecution._st_x_backward(self, gre, gim)
+        shape = (self.num_local, self._Ly, self.params.dim_x, self._Lz)
+        return out.view(shape) if self.is_r2c else tuple(t.view(shape) for t in out)
+
+    def _st_x_forward(self, space_re, space_im):
+        flat = lambda t: None if t is None else t.reshape(-1, self.params.dim_x, self._Lz)
+        return MxuLocalExecution._st_x_forward(self, flat(space_re), flat(space_im))

@@ -192,19 +192,34 @@ def stick_keys(triplets, dim_y: int) -> np.ndarray:
 
 
 def distribute_triplets(triplets, num_shards: int, dim_y: int,
-                        weights: Sequence[float] | None = None) -> list:
+                        weights: Sequence[float] | None = None, *,
+                        layout: tuple | None = None, dim_x: int | None = None) -> list:
     """Global triplets -> per-shard triplet arrays, z-sticks kept whole
     (reference: docs/source/details.rst:50-53), largest sticks first onto the
     shard with the least value count per weight (the reference tests'
     ``zStickDistribution``, tests/test_util/generate_indices.hpp:39-100); a
-    shard of weight 0 gets nothing. The 1-D form of the JAX package's
-    ``distribute_triplets``; its ``layout=`` (pencil meshes) is not ported."""
+    shard of weight 0 gets nothing.
+
+    ``layout=(P1, P2)`` splits for a 2-D pencil mesh (``dim_x`` required, to
+    fold centred x indices): the x-sorted sticks are cut into P1 contiguous
+    column groups balanced by value count, a group boundary never splitting
+    an x column (an even split over the columns where that would leave a
+    group empty), then each group's sticks go largest first over its
+    column's P2 shards (shard ``a * P2 + b``). Every stick of group ``a``
+    then lies in shard column ``a``, so the pencil engines' ownership-aligned
+    x-groups keep exchange A inside the columns. ``weights`` are refused
+    with ``layout``."""
     t = np.asarray(triplets).reshape(-1, 3)
     if num_shards < 1:
         raise InvalidParameterError("num_shards must be >= 1")
-    _, inverse, counts = np.unique(stick_keys(t, dim_y), return_inverse=True,
-                                   return_counts=True)
+    uniq, inverse, counts = np.unique(stick_keys(t, dim_y), return_inverse=True,
+                                      return_counts=True)
     inverse = inverse.reshape(-1)
+    if layout is not None:
+        stick_shard = _column_local_split(uniq, counts, num_shards, dim_y, layout, weights,
+                                          dim_x)
+        value_shard = stick_shard[inverse]
+        return [t[value_shard == r] for r in range(num_shards)]
     weights = np.ones(num_shards) if weights is None else np.asarray(weights, dtype=np.float64)
     if weights.size != num_shards or (weights < 0).any() or weights.sum() == 0:
         raise InvalidParameterError("invalid shard weights")
@@ -217,6 +232,42 @@ def distribute_triplets(triplets, num_shards: int, dim_y: int,
         load[r] += counts[s]
     value_shard = stick_shard[inverse]
     return [t[value_shard == r] for r in range(num_shards)]
+
+
+def _column_local_split(uniq, counts, num_shards, dim_y, layout, weights, dim_x):
+    """The shard of each unique stick under ``layout=(P1, P2)``
+    (:func:`distribute_triplets`)."""
+    P1, P2 = int(layout[0]), int(layout[1])
+    if P1 * P2 != num_shards:
+        raise InvalidParameterError("layout does not match num_shards")
+    if weights is not None:
+        raise InvalidParameterError("weights are unsupported with layout")
+    if dim_x is None:
+        raise InvalidParameterError("layout requires dim_x")
+    # storage x of each stick; rounding recovers a signed x exactly, since
+    # |y| <= dim_y / 2 < 4 dim_y / 2
+    raw_x = np.rint(uniq / (4 * dim_y)).astype(np.int64)
+    storage_x = np.where(raw_x < 0, raw_x + dim_x, raw_x)
+    xorder = np.argsort(storage_x, kind="stable")
+    csum = np.cumsum(counts[xorder])
+    group_of_sorted = np.minimum((csum - 1) * P1 // max(1, int(csum[-1])), P1 - 1)
+    sx_sorted = storage_x[xorder]
+    first_of_col = np.concatenate([[True], sx_sorted[1:] != sx_sorted[:-1]])
+    col_sizes = np.diff(np.concatenate([np.flatnonzero(first_of_col), [sx_sorted.size]]))
+    col_group = group_of_sorted[np.flatnonzero(first_of_col)]
+    if not np.isin(np.arange(P1), col_group).all():
+        n_cols = col_group.size
+        col_group = np.minimum(np.arange(n_cols) * P1 // max(1, n_cols), P1 - 1)
+    group_of_sorted = np.repeat(col_group, col_sizes)
+    stick_shard = np.zeros(uniq.size, dtype=np.int64)
+    for a in range(P1):
+        members = xorder[group_of_sorted == a]
+        load = np.zeros(P2)
+        for s in members[np.argsort(-counts[members], kind="stable")]:
+            b = int(np.argmin(load))
+            stick_shard[s] = a * P2 + b
+            load[b] += counts[s]
+    return stick_shard
 
 
 def make_local_parameters(

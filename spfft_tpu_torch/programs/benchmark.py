@@ -23,11 +23,16 @@ a fused plan two CUDA-graph replays), so the host's cost per pair is part of
 the figure. ``results`` adds ``roundtrip_residual``: one backward +
 forward(FULL) of the inputs against them, max abs difference over max abs
 value (the pair is the identity; the R2C values are hermitian-consistent).
-``--mesh2`` (the 2-D pencil decomposition) raises: it is not ported yet.
+``--mesh2 P1 P2`` runs the 2-D pencil decomposition over a ``(P1, P2)``
+mesh (``make_fft_mesh2``, P1 * P2 shards stacked on the card) with the
+padded disciplines only, as the JAX program: ``-e`` takes ``buffered``,
+``bufferedFloat`` or ``bufferedBF16``, and ``all`` sweeps those.
 
     python -m spfft_tpu_torch.programs.benchmark -d 32 32 32 -r 10 -p cpu -o out.json
     python -m spfft_tpu_torch.programs.benchmark -d 512 512 512 -r 4 -t r2c \\
         --model spherical -s 0.15 --shards 16 -p gpu --precision double -o out.json
+    python -m spfft_tpu_torch.programs.benchmark -d 512 512 512 -r 4 -t r2c \\
+        --model spherical -s 0.15 --mesh2 4 4 -p gpu -o out.json
 """
 from __future__ import annotations
 
@@ -48,6 +53,8 @@ EXCHANGE_NAMES = {
     "bufferedBF16": "BUFFERED_BF16",
     "compactBF16": "COMPACT_BUFFERED_BF16",
 }
+# the -e names a --mesh2 run takes, as the JAX program's
+PENCIL_EXCHANGES = ("buffered", "bufferedBF16", "bufferedFloat")
 # What the JAX package's report says of wisdom for policy="default": no store,
 # the analytic model decided (spfft_tpu.tuning.wisdom_state).
 WISDOM_DEFAULT = {"path": None, "configured": False, "policy": "default",
@@ -98,7 +105,7 @@ def parse_args(argv=None):
     ap.add_argument("-p", choices=["cpu", "gpu", "gpu-gpu"], required=True)
     ap.add_argument("--shards", type=int, default=1, help="mesh size (1 = local)")
     ap.add_argument("--mesh2", nargs=2, type=int, default=None, metavar=("P1", "P2"),
-                    help="2-D pencil mesh factors (not ported: raises)")
+                    help="2-D pencil mesh factors (P1 * P2 shards; -e buffered variants only)")
     ap.add_argument("--precision", choices=["single", "double"], default=None,
                     help="default: double on cpu, single on the card")
     ap.add_argument("--engine", choices=["auto", "mxu", "xla"], default="auto",
@@ -109,7 +116,16 @@ def parse_args(argv=None):
                     "nonzero fraction ~= s (the plane-wave DFT workload)")
     ap.add_argument("--matmul-precision", choices=["highest", "high"], default="highest",
                     help="accelerator engine matmul precision")
-    return ap.parse_args(argv)
+    args = ap.parse_args(argv)
+    if args.mesh2 is not None:
+        p1, p2 = args.mesh2
+        if p1 < 1 or p2 < 1 or p1 * p2 < 2:
+            ap.error("--mesh2 factors must be >= 1 with product >= 2")
+        args.shards = p1 * p2
+        # the JAX program's pencil sweep: the padded disciplines
+        if args.e not in PENCIL_EXCHANGES + ("all",):
+            ap.error(f"--mesh2 supports only {list(PENCIL_EXCHANGES)} for -e")
+    return args
 
 
 def main(argv=None):
@@ -119,13 +135,9 @@ def main(argv=None):
     args = parse_args(argv)
     import spfft_tpu_torch as sp
     from spfft_tpu_torch import timing
-    from spfft_tpu_torch.errors import InvalidParameterError
     from spfft_tpu_torch.parameters import stick_keys
     from spfft_tpu_torch.sync import fence
 
-    if args.mesh2 is not None:
-        raise InvalidParameterError(
-            "--mesh2: the 2-D pencil decomposition is not ported yet (ROADMAP queue A item 6)")
     if args.precision == "double" or (args.precision is None and args.p == "cpu"):
         dtype = np.float64
     else:
@@ -137,7 +149,9 @@ def main(argv=None):
     dim_x, dim_y, dim_z = args.d
     r2c = args.t == "r2c"
     ttype = sp.TransformType.R2C if r2c else sp.TransformType.C2C
-    if args.shards > 1:
+    if args.mesh2 is not None:
+        exchange_sweep = list(PENCIL_EXCHANGES) if args.e == "all" else [args.e]
+    elif args.shards > 1:
         exchange_sweep = sorted(EXCHANGE_NAMES) if args.e == "all" else [args.e]
     else:
         exchange_sweep = [args.e if args.e != "all" else "buffered"]
@@ -157,7 +171,9 @@ def main(argv=None):
         exchange = sp.ExchangeType[EXCHANGE_NAMES[exchange_name]]
         with timing.scoped("Grid + Transform init"):
             if args.shards > 1:
-                mesh = sp.make_fft_mesh(args.shards, device=None if on_card else "cpu")
+                device = None if on_card else "cpu"
+                mesh = (sp.make_fft_mesh2(*args.mesh2, device=device) if args.mesh2 is not None
+                        else sp.make_fft_mesh(args.shards, device=device))
                 if args.model == "spherical":
                     per_shard = sp.distribute_triplets(triplets, args.shards, dim_y)
                 else:

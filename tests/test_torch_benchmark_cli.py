@@ -4,8 +4,10 @@
 The stick models give the same arrays; ``main()`` at 8^3 on the CPU writes a
 report with the JAX report's keys (the port adds ``roundtrip_residual`` to
 ``results``), whose plan card passes the JAX validator and whose timing tree
-holds the benchmark's scopes. ``-p gpu`` without a card, ``--mesh2`` and an
-unknown flag value raise; nothing falls back.
+holds the benchmark's scopes; ``--mesh2`` runs the pencil decomposition and
+takes the JAX program's ``-e`` values. ``-p gpu`` without a card, a
+``--mesh2`` discipline the JAX program refuses and an unknown flag value
+raise; nothing falls back.
 """
 import importlib.util
 import json
@@ -60,11 +62,14 @@ def labels(node):
 
 
 @pytest.mark.parametrize("argv", [["-t", "c2c"], ["-t", "r2c", "--shards", "4", "--model",
-                                                   "spherical", "-s", "0.5"]])
+                                                   "spherical", "-s", "0.5"],
+                                  ["-t", "r2c", "--mesh2", "2", "2", "--model", "spherical",
+                                   "-s", "0.5"]])
 def test_main_writes_the_jax_report(tmp_path, capsys, argv):
     common = ["-d", "8", "8", "8", "-r", "2", "-p", "cpu", *argv]
     jax_out, port_out = tmp_path / "jax.json", tmp_path / "port.json"
-    if "--shards" not in argv:  # the JAX program meshes over virtual devices itself
+    if "--shards" not in argv and "--mesh2" not in argv:
+        # the JAX program meshes over virtual devices itself
         jax_benchmark().main([*common, "-o", str(jax_out)])
     report, transforms = benchmark.main([*common, "-o", str(port_out)])
     assert json.loads(port_out.read_text()) == json.loads(json.dumps(report))
@@ -94,11 +99,17 @@ def test_main_writes_the_jax_report(tmp_path, capsys, argv):
     else:
         assert res["exchange_wire_bytes"] == transforms[0].exchange_wire_bytes()
         assert report["parameters"]["shards"] == 4
+        if "--mesh2" in argv:
+            assert report["parameters"]["mesh2"] == [2, 2]
+            assert res["plan"]["decomposition"] == "pencil2"
+            assert res["plan"]["mesh"] == {"fft": 2, "fft2": 2}
+            assert transforms[0].engine == "pencil2"
 
 
 def test_gpu_without_a_card_raises(tmp_path, monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
-    for argv in (["-p", "gpu"], ["-p", "gpu", "--shards", "4"]):
+    for argv in (["-p", "gpu"], ["-p", "gpu", "--shards", "4"],
+                 ["-p", "gpu", "--mesh2", "2", "2"]):
         with pytest.raises(tp.GPUNoDeviceError):
             benchmark.main(["-d", "8", "8", "8", "-r", "1", "-o", str(tmp_path / "x.json"),
                             *argv])
@@ -107,10 +118,23 @@ def test_gpu_without_a_card_raises(tmp_path, monkeypatch):
 
 
 def test_mesh2_raises_typed(tmp_path):
-    with pytest.raises(tp.InvalidParameterError, match="item 6"):
-        benchmark.main(["-d", "8", "8", "8", "-r", "1", "-p", "cpu", "--mesh2", "2", "2",
-                        "-o", str(tmp_path / "x.json")])
+    """What the JAX program refuses with ``--mesh2`` (a discipline other
+    than the padded ones, factors whose product is under 2) is a usage
+    error here too, before anything runs; ``-e all`` sweeps the same three."""
+    jb = jax_benchmark()
+    for bad in (["-e", "compact"], ["-e", "unbuffered"], ["--mesh2", "1", "1"],
+                ["--mesh2", "0", "4"]):
+        argv = ["-d", "8", "8", "8", "-r", "1", "-p", "cpu", "--mesh2", "2", "2", *bad,
+                "-o", str(tmp_path / "x.json")]
+        for program in (benchmark.main, jb.main):
+            with pytest.raises(SystemExit) as e:
+                program(argv)
+            assert e.value.code == 2
     assert not (tmp_path / "x.json").exists()
+    args = benchmark.parse_args(["-d", "8", "8", "8", "-r", "1", "-p", "cpu", "--mesh2", "2",
+                                 "3", "-e", "all", "-o", "x"])
+    assert args.shards == 6 and benchmark.PENCIL_EXCHANGES == (
+        "buffered", "bufferedBF16", "bufferedFloat")
 
 
 def test_bench_prints_one_line(capsys):

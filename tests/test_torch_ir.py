@@ -254,13 +254,56 @@ def test_describe_ir_section(fuse, env, requested, monkeypatch):
 
 
 def test_a_distributed_engine_has_no_lowering():
-    """The pencil engines are not ported: an engine of their name has no
-    lowering (the slab engines have theirs, tests/test_torch_distributed_ir.py)."""
-    class Pencil2Execution:
+    """An engine class whose name (and no base class's) has a builder has
+    no lowering: it raises (the slab and pencil engines have theirs)."""
+    class OverlappedPencilExecution:
         pass
 
     with pytest.raises(tp.InvalidParameterError):
-        tir.lower_engine(Pencil2Execution())
+        tir.lower_engine(OverlappedPencilExecution())
+
+
+def _runs(stages):
+    """A stage list with repeats of one stage in a row counted once."""
+    return [s for i, s in enumerate(stages) if i == 0 or stages[i - 1] != s]
+
+
+@pytest.mark.parametrize("r2c", [False, True], ids=["c2c", "r2c"])
+@pytest.mark.parametrize("engine", ["xla", "mxu"])
+def test_pencil_engines_lower_with_jax_stage_names(engine, r2c):
+    """Both pencil engines lower: over a process group (a one-rank gloo
+    group) into the JAX package's pencil stage lists; stacked, each
+    exchange's pack, exchange and unpack are one "exchange A"/"exchange B"
+    gather. (JAX's backward lists "x transform" twice, its x stage and the
+    slab assembly.)"""
+    import socket
+
+    import torch.distributed as dist
+
+    trip = tp.create_spherical_cutoff_triplets(8, 9, 10, 0.8, hermitian_symmetry=r2c)
+    ref = spfft_tpu.DistributedTransform(
+        spfft_tpu.ProcessingUnit.HOST, int(r2c), 8, 9, 10, np.asarray(trip),
+        mesh=spfft_tpu.make_fft_mesh2(2, 2), engine="xla")
+    want = {d: _runs(v) for d, v in ref._exec._ir.describe()["stages"].items()}
+    stacked = tp.DistributedTransform(tp.ProcessingUnit.HOST, int(r2c), 8, 9, 10, trip,
+                                      mesh=tp.make_fft_mesh2(2, 2, device="cpu"), engine=engine)
+    got = stacked.describe()["ir"]["stages"]
+    for d in ("backward", "forward"):
+        assert got[d] == [s for s in want[d] if not s.startswith(("pack ", "unpack "))]
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        port = sock.getsockname()[1]
+    group = tp.init_distributed(f"localhost:{port}", 1, 0, backend="gloo")
+    try:
+        t = tp.DistributedTransform(tp.ProcessingUnit.HOST, int(r2c), 8, 9, 10, trip,
+                                    mesh=tp.make_fft_mesh2(2, 2, device="cpu", group=group),
+                                    engine=engine)
+        assert t.describe()["ir"]["stages"] == want and not t.fused
+        rng = np.random.default_rng(3)
+        vals = [rng.standard_normal(stacked.num_local_elements(r)) + 0j for r in range(4)]
+        assert torch.equal(t.backward(vals), stacked.backward(vals))
+    finally:
+        dist.destroy_process_group()
 
 
 def test_results_stay_put(monkeypatch):

@@ -165,3 +165,7 @@ def test_port_imports_neither_jax_nor_the_jax_package():
                                                                   REPO / "k2_ab.py"]
     offenders = [str(f) for f in files if pattern.search(f.read_text())]
     assert offenders == []
+    # the scan covers every module of the port, the pencil engines' included
+    scanned = {str(f.relative_to(REPO)) for f in files}
+    assert {"spfft_tpu_torch/parallel/pencil2.py", "spfft_tpu_torch/parallel/pencil2_mxu.py",
+            "spfft_tpu_torch/parallel/ragged.py", "spfft_tpu_torch/parallel/mesh.py"} <= scanned
