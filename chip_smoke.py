@@ -106,7 +106,26 @@ Phases, one JSON line each:
    exchange's measured share among them); the 512^3 host staging
    rates; and a fence with a tiny ``SPFFT_TPU_FENCE_BUDGET_S`` that must
    raise ``FenceTimeout`` on a long launch;
-9. the ``kernels`` line; last, the ``{"ok": true, "device": ...}`` line.
+9. faults and verify (``faults_phase``): on ``c2c-blocked``, ``r2c-blocked``,
+   ``dist4-c2c``, ``pencil2x2-c2c`` and the plan of
+   ``bench-512-r2c-16-single``, each with guard and verify off, guard on,
+   verify on and both: the results of both bitwise those of off, the staged
+   twins' K1/K2 launch counts equal, every verdict (printed with ``rel``) a
+   pass, no rung taken; the pair ms of the four taking turns (the least and
+   the median), the device busy ms of a pair off and on, and the checks' and
+   guard's scans' own device ms with the checks' kernels under the profiler.
+   Then each armed fault in its own scope: ``engine.execute=corrupt`` under
+   verify recovers through the ``torch.fft`` reference (cuFFT kernels in its
+   profile) within the oracle's bar, ``engine.execute=nan`` under guard and
+   ``sync.fence=raise`` raise ``GPUFFTError``, strict raises
+   ``VerificationError``, the breaker at K = 2 opens, ``engine.compile=raise``
+   falls back to ``torch.fft``, ``ir.compile=raise`` and a real CUDA-graph
+   capture failure at the first dispatch run the staged path bitwise the
+   fused plan's with K1 and K2 launched, ``exchange.build=raise`` on
+   ``dist4-c2c`` raises ``MPIError``. The main path, the mesh phases and the
+   obs phase must each have taken no rung (``no_rungs``: empty
+   ``degradations``, the rung counters 0);
+10. the ``kernels`` line; last, the ``{"ok": true, "device": ...}`` line.
 
 Exits non-zero, with no result line, when there is no CUDA device or any
 check fails.
@@ -1719,20 +1738,6 @@ def stage_profile(sp, name, t) -> dict:
     twin.backward_pair(*pair)
     twin.forward_pair(sp.ScalingType.FULL)
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        twin.backward_pair(*pair)
-        twin.forward_pair(sp.ScalingType.FULL)
-        torch.cuda.synchronize()
-    events = prof.events()
-    kernels = sorted((e.time_range.start, e.time_range.end) for e in device_kernels(prof))
-    stage_ms, ranges = {}, {}
-    for e in events:
-        if e.name in STAGES and e.device_type == DeviceType.CUDA:
-            lo, hi = e.time_range.start, e.time_range.end
-            inside = [(max(a, lo), min(b, hi)) for a, b in kernels if b > lo and a < hi]
-            stage_ms[e.name] = stage_ms.get(e.name, 0.0) + union_us(sorted(inside)) / 1e3
-            ranges[e.name] = ranges.get(e.name, 0) + 1
-    busy = union_us(kernels) / 1e3
     stages = twin._exec._ir.describe()["stages"]
     want = set(stages["backward"]) | set(stages["forward"])
     if twin._exec.collective:
@@ -1740,7 +1745,27 @@ def stage_profile(sp, name, t) -> dict:
         # collective's node draws on the compute stream: that range holds
         # no device work, and the collective's time is nccl_ms
         want = {s for s in want if not s.startswith("exchange")}
+    # a profile whose device events lost the start of the window (seen
+    # once: the first stage ranges of the backward missing) is taken again,
+    # up to three times; the check below holds the one kept
+    for attempt in range(1, 4):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            twin.backward_pair(*pair)
+            twin.forward_pair(sp.ScalingType.FULL)
+            torch.cuda.synchronize()
+        kernels = sorted((e.time_range.start, e.time_range.end) for e in device_kernels(prof))
+        stage_ms, ranges = {}, {}
+        for e in prof.events():
+            if e.name in STAGES and e.device_type == DeviceType.CUDA:
+                lo, hi = e.time_range.start, e.time_range.end
+                inside = [(max(a, lo), min(b, hi)) for a, b in kernels if b > lo and a < hi]
+                stage_ms[e.name] = stage_ms.get(e.name, 0.0) + union_us(sorted(inside)) / 1e3
+                ranges[e.name] = ranges.get(e.name, 0) + 1
+        if want <= set(ranges):
+            break
+    busy = union_us(kernels) / 1e3
     row = {"phase": "obs_stage_profile", "plan": name + STAGED, "busy_ms": busy,
+           "attempts": attempt,
            "nccl_ms": sum((e.time_range.end - e.time_range.start) / 1e3
                           for e in device_kernels(prof) if "ncclDevKernel" in e.name),
            "ranges": ranges, "device_ms_by_stage": stage_ms,
@@ -1915,6 +1940,7 @@ def bench_phase(sp) -> tuple:
         summary[name] = row
         check(obs.validate_plan_card(card) == [],
               f"{name}: plan card {obs.validate_plan_card(card)}")
+        check(card["degradations"] == [], f"{name}: the plan took a rung: {card['degradations']}")
         pencil = card.get("decomposition") == "pencil2"
         check(card["platform"] == "gpu" and card["engine"] == ("pencil2-mxu" if pencil else "mxu"),
               f"{name}: platform {card['platform']}, engine {card['engine']}")
@@ -1944,6 +1970,432 @@ def bench_phase(sp) -> tuple:
         del transforms, t, pair, forms, k2
     return counts, rows, summary
 
+
+
+# ---- the faults and verify phase -------------------------------------------------
+
+# the rung counters that an unarmed run must leave at 0
+RUNG_COUNTERS = ("engine_fallbacks_total", "degradations_total", "execution_failures_total")
+# the plan variants whose pair times the phase compares, taking turns
+VARIANTS = {"off": {}, "guard": {"guard": True}, "verify": {"verify": "on"},
+            "both": {"guard": True, "verify": "on"}}
+# the phase's 256^3 plans: (name, transform); the local ones as PLANS makes
+# them (fused, "highest", blocked), the mesh ones as DIST_PLANS and PENCIL_PLANS
+FAULT_PLANS = [("c2c-blocked", "c2c"), ("r2c-blocked", "r2c"), ("dist4-c2c", "c2c"),
+               ("pencil2x2-c2c", "c2c")]
+FAULT_BENCH = "bench-512-r2c-16-single"
+
+
+def rung_counters() -> dict:
+    from spfft_tpu_torch import obs
+
+    return {k: v for k, v in obs.snapshot()["counters"].items() if k.startswith(RUNG_COUNTERS)}
+
+
+def no_rungs(where, plans, before=None) -> None:
+    """Fails if a plan of an unarmed phase took a rung of the degradation
+    ladder: its card's ``degradations`` must be empty and the rung counters
+    of the metrics registry 0 (or, given ``before``, unchanged since)."""
+    took = {name: rungs for name, rungs in ((n, t.report()["degradations"])
+                                            for n, t in plans.items()) if rungs}
+    before = before or {}
+    counters = {k: v - before.get(k, 0) for k, v in rung_counters().items()
+                if v != before.get(k, 0)}
+    emit({"phase": "no_rungs", "where": where, "plans": len(plans), "degradations": took,
+          "rung_counters": counters})
+    check(not took and not counters, f"{where}: a plan took a rung: {took} {counters}")
+
+
+def as_list(x):
+    return list(x) if isinstance(x, (list, tuple)) else [x]
+
+
+def same(a, b) -> bool:
+    """Bitwise equal results (a tensor, or a per-shard list of them)."""
+    import torch
+
+    return all(torch.equal(x, y) for x, y in zip(as_list(a), as_list(b)))
+
+
+def busy_ms(fn) -> tuple:
+    """Device busy ms (the union of the kernels' intervals) of ``fn()``
+    under torch.profiler, and its kernels by device ms, the most first
+    (``[name, ms, count]``)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    kernels = device_kernels(prof)
+    by_name = {}
+    for e in kernels:
+        ms, n = by_name.get(e.name[:90], (0.0, 0))
+        by_name[e.name[:90]] = (ms + (e.time_range.end - e.time_range.start) / 1e3, n + 1)
+    return (union_us(sorted((e.time_range.start, e.time_range.end) for e in kernels)) / 1e3,
+            [[k, ms, n] for k, (ms, n) in sorted(by_name.items(), key=lambda kv: -kv[1][0])])
+
+
+def fault_maker(sp, name, kind, triplets, vals):
+    """A maker of the phase's plan ``name`` (keyword arguments: guard=,
+    verify=, fuse=, ...) and its values on the card."""
+    import torch
+
+    ttype = getattr(sp.TransformType, kind.upper())
+    if name.startswith(("dist4", "pencil")):
+        pencil = name.startswith("pencil")
+        per = (sp.distribute_triplets(triplets, 4, DIMS[1], layout=(2, 2), dim_x=DIMS[0])
+               if pencil else sp.distribute_triplets(triplets, 4, DIMS[1]))
+        values = [torch.as_tensor(vals[i].astype(np.complex64), device="cuda")
+                  for i in shard_index(triplets, per)]
+
+        def make(**kw):
+            mesh = sp.make_fft_mesh2(2, 2) if pencil else sp.make_fft_mesh(4)
+            return sp.DistributedTransform(sp.ProcessingUnit.GPU, ttype, *DIMS, per, mesh=mesh,
+                                           dtype=F32, **kw)
+        return make, values, per
+    values = torch.as_tensor(vals.astype(np.complex64), device="cuda")
+
+    def make(**kw):
+        return sp.Transform(sp.ProcessingUnit.GPU, ttype, *DIMS, indices=triplets, dtype=F32,
+                            precision="highest", **kw)
+    return make, values, None
+
+
+def verify_rows(sp, t, values):
+    """One verified pair with the flight recorder on: its results and the
+    ``verify`` events (the verdict rows, with ``rel``)."""
+    import torch
+    from spfft_tpu_torch import obs
+
+    obs.trace.enable()
+    obs.trace.clear()
+    space = t.backward(values)
+    back = t.forward(scaling=sp.ScalingType.FULL)
+    torch.cuda.synchronize()
+    rows = [{k: e["args"].get(k) for k in ("direction", "check", "verdict", "rel")}
+            for e in obs.trace.snapshot()["events"] if e["name"] == "verify"]
+    obs.trace.disable()
+    return space, back, rows
+
+
+def event_ms(fn, runs: int = 3) -> float:
+    """The least of ``runs`` CUDA-event timings of ``fn()`` (the device's
+    clock from the first launch to the end of the last)."""
+    import torch
+
+    times = []
+    for _ in range(runs):
+        torch.cuda.synchronize()
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    return min(times)
+
+
+def checks_alone_ms(sp, t, values, space):
+    """The verify checks of one pair alone (on the pair's results, the
+    plan's geometry) and guard's scans of its output: ms on CUDA events,
+    and the checks' busy ms and kernels under the profiler."""
+    from spfft_tpu_torch import faults, verify
+    from spfft_tpu_torch.verify.supervisor import flat_values
+
+    v = t._verifier
+    flat = flat_values(values)
+    back = t.forward(scaling=sp.ScalingType.FULL)
+    fwd_space = t._device_space(None)
+    kw = dict(triplets=v.geometry(), transform_type=t.transform_type, rtol=v.rtol)
+
+    def run():
+        verify.run_checks(direction="backward", freq=flat, space=space, **kw)
+        verify.run_checks(direction="forward", freq=flat_values(back), space=fwd_space,
+                          scale=1.0 / t.global_size, **kw)
+
+    scans = lambda: (faults.check_array(space, check="x", platform="gpu"),
+                     faults.check_array(back, check="x", platform="gpu"))
+    busy, top = busy_ms(run)
+    # and CUDA events around the calls (the least of three: the device's clock,
+    # host gaps included), as the profiler's device events can miss kernels
+    return event_ms(run), busy, top[:10], event_ms(scans)
+
+
+def costs(sp, name, variants, values, rounds, pairs) -> dict:
+    """The variants' pair ms taking turns (the least and the median of the
+    timed pairs), their device busy ms of one pair, and the checks' and
+    guard's own device ms."""
+    raw = {}
+    interleaved_pair_ms(sp, {f"{name}/{v}": t for v, t in variants.items()},
+                        {f"{name}/{v}": values for v in variants}, rounds=rounds, pairs=pairs,
+                        raw=raw)
+    profiled = {v: busy_ms(lambda t=variants[v]: (
+        t.backward(values), t.forward(scaling=sp.ScalingType.FULL))) for v in ("off", "both")}
+    busy = {v: ms for v, (ms, _) in profiled.items()}
+    # what the verified pair ran beyond the plain one, kernel by kernel
+    off_ms = {k: ms for k, ms, _ in profiled["off"][1]}
+    extra = sorted(([k, ms - off_ms.get(k, 0.0), n] for k, ms, n in profiled["both"][1]),
+                   key=lambda row: -row[1])[:12]
+    both = variants["both"]
+    space = both.backward(values)
+    checks_ms, checks_busy, top, guard_ms = checks_alone_ms(sp, both, values, space)
+    least = {v: min(raw[f"{name}/{v}"]) for v in variants}
+    return {"pair_ms_min": least,
+            "pair_ms_median": {v: statistics.median(raw[f"{name}/{v}"]) for v in variants},
+            "over_off_ms_min": {v: least[v] - least["off"] for v in variants},
+            "pairs_each": rounds * pairs, "device_busy_ms": busy,
+            "both_over_off_kernels": extra,
+            "checks_event_ms": checks_ms, "checks_busy_ms": checks_busy, "checks_kernels": top,
+            "guard_scans_event_ms": guard_ms}
+
+
+def clean_config(sp, name, make, values):
+    """One configuration unarmed: the four variants (and the off and both
+    staged twins), bitwise equal results, equal K1/K2 launch counts of the
+    twins, every verdict a pass, no rung taken. Returns the variants, the
+    off plan's results and the row."""
+    variants = {v: make(**kw) for v, kw in VARIANTS.items()}
+    twins = {v: make(fuse=False, **VARIANTS[v]) for v in ("off", "both")}
+    off = variants["off"]
+    space_off = off.backward(values)
+    back_off = off.forward(scaling=sp.ScalingType.FULL)
+    space_on, back_on, rows = verify_rows(sp, variants["both"], values)
+    launches = {}
+    for v, tw in twins.items():
+        clear_counts()
+        tw.backward(values)
+        tw.forward(scaling=sp.ScalingType.FULL)
+        launches[v] = launch_counts()
+    k1, k2 = (sum(launches["off"][k].values()) for k in ("complex_matmul", "row_gather"))
+    row = {"phase": "faults_clean", "plan": name, "engine": off.engine,
+           "bitwise_equal": same(space_on, space_off) and same(back_on, back_off),
+           "verdicts": rows, "twin_launches": {"complex_matmul": k1, "row_gather": k2},
+           "twin_launches_equal": launches["off"] == launches["both"],
+           "verification": variants["both"].report()["verification"]}
+    emit(row)
+    check(row["bitwise_equal"], f"{name}: guard and verify changed the results")
+    check(row["twin_launches_equal"] and k1 > 0 and k2 > 0,
+          f"{name}: the staged twins' launches differ or miss a kernel: {launches}")
+    check(rows and all(r["verdict"] == "pass" for r in rows), f"{name}: verdicts {rows}")
+    no_rungs(f"faults_clean {name}", {**variants, **{f"{v}{STAGED}": t for v, t in twins.items()}})
+    return variants, (space_off, back_off), row
+
+
+def armed(sp, fn):
+    """Run ``fn`` in its own scope; returns (the typed error's class name or
+    None, ``fn``'s result), the breaker reset after."""
+    from spfft_tpu_torch import verify
+
+    try:
+        return None, fn()
+    except sp.GenericError as e:
+        return type(e).__name__, None
+    finally:
+        verify.breaker.reset()
+
+
+def armed_faults(sp, make, variants, values, want, results, dist_make):
+    """Each armed fault in its own scope, on ``c2c-blocked`` (its variants
+    of the unarmed runs, and plans made here; ``exchange.build`` on
+    ``dist4-c2c``): each must give the JAX package's outcome (module
+    docstring, phase 9)."""
+    import torch
+    from spfft_tpu_torch import faults, obs
+    from spfft_tpu_torch.execution import LocalExecution
+    from spfft_tpu_torch.execution_mxu import MxuLocalExecution
+
+    bar = ORACLE_RTOL["highest"]
+    vals_h = values.cpu().numpy()
+    err_of = lambda space, back: (
+        float(np.abs(space.cpu().numpy() - want).max() / np.abs(want).max()),
+        float(np.abs(back.cpu().numpy() - vals_h).max() / np.abs(vals_h).max()))
+    out = {}
+
+    # engine.execute=corrupt under verify: the reference rung (cuFFT) recovers
+    t = variants["verify"]
+    with faults.inject("engine.execute=corrupt"):
+        holder = {}
+        ms, kernels = busy_ms(lambda: holder.update(
+            space=t.backward(values), back=t.forward(scaling=sp.ScalingType.FULL)))
+    errs = err_of(holder["space"], holder["back"])
+    fft_kernels = sum(n for k, _, n in kernels if "fft" in k.lower())
+    ref = t._reference_exec
+    out["corrupt_verify"] = {"oracle_rel_err": errs[0], "roundtrip_rel_err": errs[1],
+                             "degradations": [d["event"] for d in t.report()["degradations"]],
+                             "reference": type(ref).__name__,
+                             "reference_device": str(ref.device),
+                             "reference_programs_run": len(ref._ir._compiled),
+                             "cufft_kernels": fft_kernels, "busy_ms": ms}
+    # the reference's own programs ran on the card (its engine is torch.fft,
+    # i.e. cuFFT there); the profile's cuFFT kernels are reported beside
+    check(max(errs) <= bar and out["corrupt_verify"]["degradations"] == ["verify_demoted"] * 2
+          and isinstance(ref, LocalExecution) and ref.device.type == "cuda"
+          and len(ref._ir._compiled) == 2,
+          f"engine.execute=corrupt under verify: {out['corrupt_verify']}")
+
+    # engine.execute=nan under guard: a typed error
+    g = variants["guard"]
+    with faults.inject("engine.execute=nan"):
+        out["nan_guard"], _ = armed(sp, lambda: g.backward(values))
+    check(out["nan_guard"] == "GPUFFTError", f"engine.execute=nan under guard: {out['nan_guard']}")
+
+    # strict: VerificationError at the first failed check
+    strict = make(verify="strict")
+    with faults.inject("engine.execute=corrupt"):
+        out["strict"], _ = armed(sp, lambda: strict.backward(values))
+    check(out["strict"] == "VerificationError", f"strict: {out['strict']}")
+
+    # the breaker at K = 2: the third call finds it open and skips the engine
+    def breaker_calls():
+        states = []
+        for _ in range(3):
+            t.backward(values)
+            states.append(t.report()["verification"]["breaker"]["state"])
+        return states
+
+    with knobs({"SPFFT_TPU_VERIFY_BREAKER_K": "2"}), faults.inject("engine.execute=corrupt"):
+        _, states = armed(sp, breaker_calls)
+    events = [d["event"] for d in t.report()["degradations"]]
+    out["breaker"] = {"states": states, "breaker_open": events.count("verify_breaker_open")}
+    check(states == ["closed", "open", "open"] and "verify_breaker_open" in events,
+          f"breaker: {out['breaker']}")
+
+    # engine.compile=raise: the torch.fft engine, recorded
+    with faults.inject("engine.compile=raise"):
+        fb = make()
+    space, back = fb.backward(values), fb.forward(scaling=sp.ScalingType.FULL)
+    out["engine_compile"] = {"engine": fb.engine, "degradations": fb.report()["degradations"],
+                             "oracle_rel_err": err_of(space, back)[0]}
+    check(fb.engine == "xla" and [d["event"] for d in fb.report()["degradations"]] == [
+        "engine_fallback"] and max(err_of(space, back)) <= bar,
+          f"engine.compile=raise: {out['engine_compile']}")
+
+    # ir.compile=raise: the staged path, bitwise the fused plan's, K1 and K2 launched
+    with faults.inject("ir.compile=raise"):
+        st = make()
+    clear_counts()
+    space, back = st.backward(values), st.forward(scaling=sp.ScalingType.FULL)
+    counts = launch_counts()
+    out["ir_compile"] = {"path": st.describe()["ir"]["path"],
+                         "bitwise_fused": same(space, results[0]) and same(back, results[1]),
+                         "launches": {k: sum(v.values()) for k, v in counts.items()}}
+    check(out["ir_compile"]["path"] == "staged" and out["ir_compile"]["bitwise_fused"]
+          and all(n > 0 for n in out["ir_compile"]["launches"].values()),
+          f"ir.compile=raise: {out['ir_compile']}")
+
+    # sync.fence=raise: a typed error
+    with faults.inject("sync.fence=raise"):
+        out["sync_fence"], _ = armed(sp, lambda: st.backward(values))
+    check(out["sync_fence"] == "GPUFFTError", f"sync.fence=raise: {out['sync_fence']}")
+
+    # exchange.build=raise on dist4-c2c: the mxu engine falls back, the
+    # torch.fft engine fails too, MPIError (the JAX package's outcome)
+    before = obs.snapshot()["counters"].get('engine_fallbacks_total{from="mxu",to="xla"}', 0)
+    with faults.inject("exchange.build=raise"):
+        out["exchange_build"], _ = armed(sp, dist_make)
+    fell = obs.snapshot()["counters"].get('engine_fallbacks_total{from="mxu",to="xla"}', 0)
+    check(out["exchange_build"] == "MPIError" and fell == before + 1,
+          f"exchange.build=raise: {out['exchange_build']}, fallbacks {fell - before}")
+
+    # a real capture failure at the first dispatch: a stage that waits for the
+    # device while the stream is captured; the plan takes fuse_compile_failed
+    # and runs staged, bitwise the fused plan's results
+    real = MxuLocalExecution._st_z_backward
+
+    def refuses_capture(self, *args):
+        if torch.cuda.is_current_stream_capturing():
+            torch.cuda.synchronize()  # not permitted while capturing
+        return real(self, *args)
+
+    MxuLocalExecution._st_z_backward = refuses_capture
+    try:
+        cf = make()
+    finally:
+        MxuLocalExecution._st_z_backward = real
+    clear_counts()
+    space, back = cf.backward(values), cf.forward(scaling=sp.ScalingType.FULL)
+    counts = launch_counts()
+    entries = cf.report()["degradations"]
+    out["capture_failure"] = {"path": cf.describe()["ir"]["path"],
+                              "degradations": entries,
+                              "bitwise_fused": same(space, results[0]) and same(back, results[1]),
+                              "launches": {k: sum(v.values()) for k, v in counts.items()}}
+    check(out["capture_failure"]["path"] == "staged"
+          and [d["event"] for d in entries] == ["fuse_compile_failed"]
+          and out["capture_failure"]["bitwise_fused"]
+          and all(n > 0 for n in out["capture_failure"]["launches"].values()),
+          f"a real capture failure: {out['capture_failure']}")
+    return out
+
+
+def faults_phase(sp, data) -> None:
+    """Phase 9 (module docstring): guard and verify on the main path's plans
+    and the 512^3 benchmark plan, unarmed (bitwise, launches, verdicts, no
+    rung, costs), then each armed fault in its own scope."""
+    import torch
+    from spfft_tpu_torch import faults, verify
+    from spfft_tpu_torch.programs import benchmark
+
+    t0 = time.perf_counter()
+    kept = {}
+    for name, kind in FAULT_PLANS:
+        t1 = time.perf_counter()
+        triplets, vals, _ = data[kind, 0.659]
+        make, values, _ = fault_maker(sp, name, kind, triplets, vals)
+        variants, results, row = clean_config(sp, name, make, values)
+        row = {"phase": "faults_costs", "plan": name,
+               **costs(sp, name, variants, values, rounds=5, pairs=4),
+               "seconds": time.perf_counter() - t1}
+        emit(row)
+        kept[name] = (make, variants if name == "c2c-blocked" else None, values, results)
+        del variants
+    make, variants, values, results = kept["c2c-blocked"]
+    t1 = time.perf_counter()
+    out = armed_faults(sp, make, variants, values, data["c2c", 0.659][2], results,
+                       kept["dist4-c2c"][0])
+    out["seconds"] = time.perf_counter() - t1
+    faults.disarm()
+    verify.breaker.reset()
+    emit({"phase": "faults_armed", **out})
+    del kept, make, variants, values, results
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # the 512^3 R2C benchmark configuration, its plan as the benchmark program makes it
+    t1 = time.perf_counter()
+    before = rung_counters()
+    argv = dict(BENCH_CONFIGS)[FAULT_BENCH]
+    args = benchmark.parse_args([*argv, "-p", "gpu", "-o", os.devnull])
+    triplets = sp.create_spherical_cutoff_triplets(
+        *args.d, sp.spherical_radius_for_fraction(args.s), hermitian_symmetry=True)
+    per = [np.asarray(t) for t in sp.distribute_triplets(triplets, args.shards, args.d[1])]
+    exchange = sp.ExchangeType[benchmark.EXCHANGE_NAMES[args.e]]
+    make = lambda **kw: sp.DistributedTransform(
+        sp.ProcessingUnit.GPU, sp.TransformType.R2C, *args.d, per,
+        mesh=sp.make_fft_mesh(args.shards), exchange_type=exchange, dtype=F32, **kw)
+    variants = {v: make(**kw) for v, kw in VARIANTS.items()}
+    field = torch.randn(args.d[::-1], generator=torch.Generator(device="cuda").manual_seed(SEED),
+                        device="cuda")
+    values = variants["off"].forward(field)  # hermitian-consistent values
+    space_off = variants["off"].backward(values)
+    back_off = variants["off"].forward(scaling=sp.ScalingType.FULL)
+    space_on, back_on, rows = verify_rows(sp, variants["both"], values)
+    row = {"phase": "faults_clean", "plan": FAULT_BENCH, "engine": variants["off"].engine,
+           "bitwise_equal": same(space_on, space_off) and same(back_on, back_off),
+           "verdicts": rows}
+    emit(row)
+    check(row["bitwise_equal"], f"{FAULT_BENCH}: guard and verify changed the results")
+    check(rows and all(r["verdict"] == "pass" for r in rows), f"{FAULT_BENCH}: verdicts {rows}")
+    no_rungs(f"faults_clean {FAULT_BENCH}", variants, before)
+    emit({"phase": "faults_costs", "plan": FAULT_BENCH,
+          **costs(sp, FAULT_BENCH, variants, values, rounds=3, pairs=3),
+          "seconds": time.perf_counter() - t1})
+    del variants, values, field, space_off, back_off, space_on, back_on
+    gc.collect()
+    torch.cuda.empty_cache()
+    emit({"phase": "faults", "seconds": time.perf_counter() - t0})
 
 
 # ---- pair times against other trees (--against) ----------------------------------
@@ -2146,6 +2598,8 @@ def main() -> int:
     for name, (t, precision, key) in plans.items():
         _, vals, want = data[key]
         counts[name], values[name] = main_path(sp, name, t, twins[name], precision, vals, want)
+    no_rungs("main path", {**{n: v[0] for n, v in plans.items()},
+                           **{n + STAGED: t for n, t in twins.items()}})
     for name in ("c2c-blocked", "r2c-blocked"):
         results_stay_put(sp, name, plans[name][0], values[name])
     batches = {name: batch_phase(sp, name, plans[name][0], values[name])
@@ -2167,6 +2621,7 @@ def main() -> int:
     # ---- the pencil phase: a 2 x 2 pencil mesh on the card, and over the process group ----
     t0 = time.perf_counter()
     pplans, pcounts, prows, pvalues = pencil_phase(sp, data, plans, values, group, slab_results)
+    fdata = {key: data[key] for key in (("c2c", 0.659), ("r2c", 0.659))}  # for phase 9
     del data, slab_results
     rows += prows
     counts.update(pcounts)
@@ -2174,6 +2629,8 @@ def main() -> int:
     values.update(pvalues)
     dplans.update(pplans)
     dvalues.update(pvalues)
+    no_rungs("mesh phases", {**{n: t for n, (t, _) in dplans.items()},
+                             **{n + STAGED: tw for n, (_, tw) in dplans.items() if tw is not None}})
     emit({"phase": "pencil", "seconds": time.perf_counter() - t0})
 
     # ---- the profile, and the pair times with every plan and twin taking turns ----
@@ -2248,7 +2705,12 @@ def main() -> int:
     counts.update(bcounts)
     rows += brows
     fence_timeout_phase()
+    no_rungs("obs phase", {})  # its plans' cards are checked in bench_phase
     emit({"phase": "obs", "seconds": time.perf_counter() - t0})
+
+    # ---- faults and verify: guard, verify and the ladder on the main path ----
+    faults_phase(sp, fdata)
+    del fdata
 
     kernels = []
     for row, name, kernel, key in rows:

@@ -15,6 +15,9 @@ CUDA-graph replay), or node by node with ``fuse=False``. Plan cards (``t.report(
 (:mod:`spfft_tpu_torch.timing`), run metrics and the flight recorder
 (:mod:`spfft_tpu_torch.obs`) and the completion fence
 (:mod:`spfft_tpu_torch.sync`) are the JAX package's observability layers;
+guard mode, fault injection and the degradation ladder
+(:mod:`spfft_tpu_torch.faults`) and self-verification
+(:mod:`spfft_tpu_torch.verify`, ``verify=``) its robustness layers;
 ``python -m spfft_tpu_torch.programs.benchmark`` is the reference benchmark.
 
     import spfft_tpu_torch as sp
@@ -52,7 +55,7 @@ from .errors import (  # noqa: F401
     ServiceOverloadError,
     VerificationError,
 )
-from . import obs, sync, timing  # noqa: F401
+from . import faults, obs, sync, timing, verify  # noqa: F401
 from .distributed import DistributedTransform  # noqa: F401
 from .grid import Grid, device_for_processing_unit  # noqa: F401
 from .multi_transform import (  # noqa: F401

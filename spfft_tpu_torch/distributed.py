@@ -25,14 +25,18 @@ Observability as the local ``Transform`` and the JAX package's plan: a
 ``plan`` operation with ``decision`` events (engine, exchange), ``execute``
 operations with the timing scopes and the completion fence, and
 ``exchange_wire_bytes_total`` per dispatch; the plan card is :meth:`report`.
+``guard=`` and ``verify=`` as on the local ``Transform``; an ``mxu`` engine
+that fails to build falls back to ``torch.fft`` over the same mesh and
+discipline (``pencil2-mxu`` to ``pencil2``), and an exchange that fails to
+build (fault site ``exchange.build``) raises :class:`MPIError`.
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
 
-from . import obs, timing
-from .errors import InvalidParameterError
+from . import faults, obs, timing
+from .errors import InvalidParameterError, MPIError
 from .grid import Grid
 from .ops.fft import resolve_precision
 from .parallel.execution import DistributedExecution
@@ -44,7 +48,9 @@ from .parallel.policy import (discipline_volumes, resolve_default_for_plan,
                               resolve_overlap_chunks, resolve_policy)
 from .parameters import (DistributedParameters, distribute_triplets,
                          make_distributed_parameters)
-from .transform import _Observed, _resolve_batch_count, _validate_data_location
+from .sync import fence
+from .transform import (_Observed, _resolve_batch_count, _validate_data_location,
+                        reference_parts, storage_triplets_from)
 from .types import (ExchangeType, ExecType, IndexFormat, ProcessingUnit, ScalingType,
                     TransformType, wire_scalar_bytes)
 
@@ -68,7 +74,9 @@ class DistributedTransform(_Observed):
     ``overlap`` and ``policy`` take only their defaults (1, ``"default"``):
     the OVERLAPPED exchange and ``policy="tuned"`` are not ported and raise.
     A process group that fails while the exchange is built raises
-    :class:`MPIError`; no engine takes its place.
+    :class:`MPIError`; no engine takes its place. ``guard`` and ``verify``
+    as on :class:`~spfft_tpu_torch.transform.Transform`; ``verify`` needs
+    every shard in this process (a group of more than one process raises).
     """
 
     def __init__(self, processing_unit, transform_type, dim_x, dim_y, dim_z, indices, *,
@@ -76,7 +84,8 @@ class DistributedTransform(_Observed):
                  exchange_type: ExchangeType = ExchangeType.DEFAULT,
                  index_format: IndexFormat = IndexFormat.TRIPLETS, grid: Grid | None = None,
                  dtype=None, engine: str = "auto", precision: str = "highest",
-                 policy: str | None = None, overlap: int | None = None, fuse=None):
+                 policy: str | None = None, overlap: int | None = None,
+                 guard: bool | None = None, verify=None, fuse=None):
         if IndexFormat(index_format) != IndexFormat.TRIPLETS:
             raise InvalidParameterError("only SPFFT_INDEX_TRIPLETS is supported")
         if mesh is None and grid is not None:
@@ -94,22 +103,23 @@ class DistributedTransform(_Observed):
         params = make_distributed_parameters(TransformType(transform_type), dim_x, dim_y, dim_z,
                                              per_shard, local_z_lengths)
         self._setup(processing_unit, params, mesh, grid, exchange_type, dtype, engine,
-                    precision, policy, overlap, fuse)
+                    precision, policy, overlap, fuse, guard, verify)
 
     @classmethod
     def from_parameters(cls, processing_unit, params: DistributedParameters, *, mesh,
                         exchange_type=ExchangeType.DEFAULT, grid: Grid | None = None,
                         dtype=None, engine: str = "auto", precision: str = "highest",
-                        policy=None, overlap=None, fuse=None) -> "DistributedTransform":
+                        policy=None, overlap=None, fuse=None, guard=None,
+                        verify=None) -> "DistributedTransform":
         """A plan from already built parameters, e.g. carried over from the
         JAX package by :func:`~spfft_tpu_torch.parameters.from_jax_distributed_params`."""
         self = cls.__new__(cls)
         self._setup(processing_unit, params, mesh, grid, exchange_type, dtype, engine,
-                    precision, policy, overlap, fuse)
+                    precision, policy, overlap, fuse, guard, verify)
         return self
 
     def _setup(self, processing_unit, params, mesh, grid, exchange_type, dtype, engine,
-               precision, policy, overlap, fuse):
+               precision, policy, overlap, fuse, guard=None, verify=None):
         self._processing_unit = ProcessingUnit(processing_unit)
         on_card = mesh.device.type == "cuda"
         if (self._processing_unit == ProcessingUnit.GPU) != on_card:
@@ -135,6 +145,8 @@ class DistributedTransform(_Observed):
         resolve_overlap_chunks(overlap)
         self._requested_exchange = exchange_type
         self._precision = resolve_precision(precision)
+        self._guard = faults.guard_enabled(guard)
+        self._degradations: list = []  # the rungs taken (the plan card's degradations)
         self._run_id = obs.trace.new_run_id()
         pencil = is_pencil2_mesh(mesh)
         with obs.trace.operation("plan", run_id=self._run_id, kind="distributed"):
@@ -146,15 +158,39 @@ class DistributedTransform(_Observed):
                 engine = "mxu" if engine == "pencil2-mxu" else "xla"
             if engine not in ("xla", "mxu"):
                 raise InvalidParameterError(f"unknown engine {engine!r}")
-            # a pencil engine resolves DEFAULT itself, with its x-group strategy
-            self._engine = ("pencil2-mxu" if engine == "mxu" else "pencil2") if pencil else engine
-            engine_class = {("mxu", False): MxuDistributedExecution,
-                            ("xla", False): DistributedExecution,
-                            ("mxu", True): MxuPencil2Execution,
-                            ("xla", True): Pencil2Execution}[engine, pencil]
-            precision = (self._precision,) if engine == "mxu" else ()
-            self._exec = engine_class(p, self._real_dtype, mesh, exchange_type, *precision,
-                                      fuse=fuse)
+            name = {("mxu", True): "pencil2-mxu", ("xla", True): "pencil2"}
+
+            def build(which):
+                """The engine ``which`` (a pencil engine resolves DEFAULT
+                itself, with its x-group strategy); fault site
+                ``engine.compile`` guards the mxu engines."""
+                if which == "mxu":
+                    faults.site("engine.compile")
+                engine_class = {("mxu", False): MxuDistributedExecution,
+                                ("xla", False): DistributedExecution,
+                                ("mxu", True): MxuPencil2Execution,
+                                ("xla", True): Pencil2Execution}[which, pencil]
+                args = (self._precision,) if which == "mxu" else ()
+                return engine_class(p, self._real_dtype, mesh, exchange_type, *args, fuse=fuse)
+
+            # Ladder rung 1: an mxu engine that fails to build falls back to
+            # torch.fft over the same mesh and discipline; a failure with no
+            # rung below it (the torch.fft engine, the exchange: fault site
+            # exchange.build) raises MPIError.
+            with faults.collecting(self._degradations):
+                try:
+                    self._exec = build(engine)
+                except faults.ENGINE_BUILD_ERRORS as e:
+                    if engine != "mxu":
+                        raise MPIError(f"distributed engine construction failed: {e}") from e
+                    faults.engine_fallback(name.get(("mxu", pencil), "mxu"),
+                                           name.get(("xla", pencil), "xla"), faults.summarize(e))
+                    engine = "xla"
+                    try:
+                        self._exec = build("xla")
+                    except faults.ENGINE_BUILD_ERRORS as e2:
+                        raise MPIError(f"distributed engine construction failed: {e2}") from e2
+            self._engine = name.get((engine, pencil), engine)
             obs.trace.event("decision", what="engine", choice=self._engine, policy=self._policy)
             obs.trace.event("decision", what="exchange", choice=self.exchange_type.name,
                             overlap=self.overlap_chunks)
@@ -162,6 +198,12 @@ class DistributedTransform(_Observed):
         self._space_data = None  # native: (re, im) for C2C, re for R2C
         # a plan constant, counted on every call: summed here once
         self._wire_bytes = self.exchange_wire_bytes()
+        if mesh.world > 1 and verify not in (None, False, "0", "off", ""):
+            # the checks and the reference rung need every shard's data here
+            raise InvalidParameterError(
+                f"verify={verify!r} needs every shard in this process, but the mesh "
+                f"spans {mesh.world} processes: verify each process's local plans instead")
+        self._init_verify(verify)
 
     # ---- transforms -----------------------------------------------------------------
 
@@ -172,10 +214,10 @@ class DistributedTransform(_Observed):
         if output_location is not None:
             _validate_data_location(output_location)
         with self._execute("backward"):
-            out = self._dispatch_backward(values)
-            self._wait(out, "backward")
-            with timing.scoped("output staging"):
-                return self._exec.unpad_space(out)
+            self._guard_input(values, "backward")
+            if self._verifier is not None:
+                return self._verifier.backward(values)
+            return self._backward_attempt(values)
 
     def forward(self, space=None, scaling: ScalingType = ScalingType.NONE,
                 input_location: ProcessingUnit | None = None):
@@ -184,20 +226,48 @@ class DistributedTransform(_Observed):
         if input_location is not None:
             _validate_data_location(input_location)
         with self._execute("forward"):
-            pair = self._dispatch_forward(space, scaling)
-            self._wait(pair, "forward")
-            with timing.scoped("output staging"):
-                return self._exec.unpad_values(pair)
+            self._guard_input(space, "forward")
+            if self._verifier is not None:
+                return self._verifier.forward(space, scaling)
+            return self._forward_attempt(space, scaling)
+
+    def _backward_attempt(self, values):
+        """One whole backward: the unit the verify supervisor runs again."""
+        out = self._dispatch_backward(values)
+        self._wait(out, "backward")
+        with timing.scoped("output staging"):
+            result = self._exec.unpad_space(out)
+        if self._guard:
+            self._guard_space(result)
+        return result
+
+    def _forward_attempt(self, space, scaling):
+        """One whole forward: the supervisor's unit of :meth:`forward`."""
+        pair = self._dispatch_forward(space, scaling)
+        self._wait(pair, "forward")
+        with timing.scoped("output staging"):
+            result = self._exec.unpad_values(pair)
+        if self._guard:
+            faults.check_array(result, check="forward output", platform=self._platform)
+        return result
+
+    def _guard_space(self, result) -> None:
+        """Guard's check of a backward result: the global slab's values and
+        shape; per-shard slabs (across processes) their values."""
+        faults.check_array(result, check="backward output", platform=self._platform,
+                           shape=None if isinstance(result, (list, tuple))
+                           else (self.dim_z, self.dim_y, self.dim_x))
 
     # split phases (multi_transform)
     def _dispatch_backward(self, values):
         with timing.scoped("input staging"):
             pair = self._exec.pad_values(values)
         self._record_wire_bytes()
-        with timing.scoped("dispatch"), obs.phase_timer("dispatch_seconds",
-                                                        direction="backward"):
-            self._space_data = self._exec.backward_pair(*pair)
-        return self._space_data
+        with self._dispatching("backward"):
+            out = self._exec.backward_pair(*pair)
+            out = faults.site("engine.execute", payload=out)
+        self._space_data = out
+        return out
 
     def _finalize_backward(self, out):
         self._wait(out)
@@ -210,12 +280,12 @@ class DistributedTransform(_Observed):
                     "no space domain data: run backward first or pass an array")
         else:
             with timing.scoped("input staging"):
-                self._space_data = self._native(space)
+                self._retain_space(space)
         self._record_wire_bytes()
-        with timing.scoped("dispatch"), obs.phase_timer("dispatch_seconds",
-                                                        direction="forward"):
-            return self._exec.forward_pair(*self._parts(self._space_data),
+        with self._dispatching("forward"):
+            pair = self._exec.forward_pair(*self._parts(self._space_data),
                                            ScalingType(scaling))
+            return faults.site("engine.execute", payload=pair)
 
     def _finalize_forward(self, pair):
         self._wait(pair)
@@ -226,9 +296,11 @@ class DistributedTransform(_Observed):
         (a no-op with metrics off)."""
         obs.counter("exchange_wire_bytes_total", engine=self._engine).inc(self._wire_bytes)
 
-    def _native(self, space):
+    def _retain_space(self, space) -> None:
+        """Stage a space as the retained native data (also the supervisor's:
+        a verified recovery replaces a failed result)."""
         re, im = self._exec.pad_space(space)
-        return re if self._is_r2c else (re, im)
+        self._space_data = re if self._is_r2c else (re, im)
 
     def _parts(self, data):
         return (data, None) if self._is_r2c else data
@@ -259,19 +331,30 @@ class DistributedTransform(_Observed):
         if not values_batch:
             return []
         count = _resolve_batch_count(count, len(values_batch))
-        if not self._exec._ir.batch_available():
-            return [self.backward(v) for v in values_batch[:count]] if fallback else None
-        with self._execute("backward", count):
-            with timing.scoped("input staging"):
-                pairs = [self._exec.pad_values(v) for v in values_batch]
-                re = torch.stack([p[0] for p in pairs])
-                im = torch.stack([p[1] for p in pairs])
-            with timing.scoped("dispatch"):
-                out = self._exec.backward_pair_batch(re, im)
-            self._wait(out, "backward")
-            with timing.scoped("output staging"):
-                pick = (lambda b: out[b]) if self._is_r2c else (lambda b: (out[0][b], out[1][b]))
-                return [self._exec.unpad_space(pick(b)) for b in range(count)]
+        if self._verifier is None and self._exec._ir.batch_available():
+            with self._execute("backward", count):
+                for v in values_batch[:count]:
+                    self._guard_input(v, "backward")
+                with timing.scoped("input staging"):
+                    pairs = [self._exec.pad_values(v) for v in values_batch]
+                    re = torch.stack([p[0] for p in pairs])
+                    im = torch.stack([p[1] for p in pairs])
+                with self._dispatching("backward"):
+                    out = self._exec.backward_pair_batch(re, im)
+                    if out is not None:
+                        out = faults.site("engine.execute", payload=out)
+                if out is not None:  # None: the batch_fuse_failed rung, so loop
+                    self._wait(out, "backward")
+                    with timing.scoped("output staging"):
+                        pick = ((lambda b: out[b]) if self._is_r2c
+                                else (lambda b: (out[0][b], out[1][b])))
+                        results = [self._exec.unpad_space(pick(b)) for b in range(count)]
+                    if self._guard:
+                        for result in results:
+                            self._guard_space(result)
+                    return results
+        # the loop, each request under its supervisor if verified
+        return [self.backward(v) for v in values_batch[:count]] if fallback else None
 
     def forward_batch(self, spaces, scaling: ScalingType = ScalingType.NONE, *,
                       fallback: bool = True, count: int | None = None):
@@ -280,18 +363,29 @@ class DistributedTransform(_Observed):
         if not spaces:
             return []
         count = _resolve_batch_count(count, len(spaces))
-        if not self._exec._ir.batch_available():
-            return [self.forward(s, scaling) for s in spaces[:count]] if fallback else None
-        with self._execute("forward", count):
-            with timing.scoped("input staging"):
-                natives = [self._exec.pad_space(s) for s in spaces]
-                re = torch.stack([n[0] for n in natives])
-                im = None if self._is_r2c else torch.stack([n[1] for n in natives])
-            with timing.scoped("dispatch"):
-                out = self._exec.forward_pair_batch(re, im, ScalingType(scaling))
-            self._wait(out, "forward")
-            with timing.scoped("output staging"):
-                return [self._exec.unpad_values((out[0][b], out[1][b])) for b in range(count)]
+        if self._verifier is None and self._exec._ir.batch_available():
+            with self._execute("forward", count):
+                for s in spaces[:count]:
+                    self._guard_input(s, "forward")
+                with timing.scoped("input staging"):
+                    natives = [self._exec.pad_space(s) for s in spaces]
+                    re = torch.stack([n[0] for n in natives])
+                    im = None if self._is_r2c else torch.stack([n[1] for n in natives])
+                with self._dispatching("forward"):
+                    out = self._exec.forward_pair_batch(re, im, ScalingType(scaling))
+                    if out is not None:
+                        out = faults.site("engine.execute", payload=out)
+                if out is not None:  # None: the batch_fuse_failed rung, so loop
+                    self._wait(out, "forward")
+                    with timing.scoped("output staging"):
+                        results = [self._exec.unpad_values((out[0][b], out[1][b]))
+                                   for b in range(count)]
+                    if self._guard:
+                        for result in results:
+                            faults.check_array(result, check="forward output",
+                                               platform=self._platform)
+                    return results
+        return [self.forward(s, scaling) for s in spaces[:count]] if fallback else None
 
     # ---- retained data ----------------------------------------------------------------
 
@@ -329,6 +423,64 @@ class DistributedTransform(_Observed):
         slab = full[:, :, local.index(shard), :self.local_z_length(shard)].permute(2, 0, 1)
         return slab.cpu().numpy()
 
+    # ---- verification hooks (spfft_tpu_torch.verify) --------------------------------
+
+    def _verify_triplets(self) -> np.ndarray:
+        """Every shard's storage-order rows, concatenated in shard order:
+        aligned with the per-shard values concatenated."""
+        p = self._params
+        return np.concatenate([
+            storage_triplets_from(p.value_indices[r, :int(p.num_values_per_shard[r])],
+                                  p.stick_x_all[r], p.stick_y_all[r], p.dim_z)
+            for r in range(p.num_shards)], axis=0)
+
+    def _reference_engine(self):
+        """The supervisor's reference rung: a local ``torch.fft`` engine over
+        the global geometry on the plan's device, with no exchange."""
+        if self._reference_exec is None:
+            from .execution import LocalExecution
+            from .parameters import make_local_parameters
+
+            p = self._params
+            params = make_local_parameters(p.transform_type, p.dim_x, p.dim_y, p.dim_z,
+                                           self._verify_triplets())
+            self._reference_exec = LocalExecution(params, self._real_dtype, self.device)
+        return self._reference_exec
+
+    def _reference_backward(self, values):
+        """Per-shard values, concatenated -> the global ``(Z, Y, X)`` space."""
+        from .execution import from_pair
+        from .verify.supervisor import flat_values
+
+        ref = self._reference_engine()
+        out = fence(ref.backward_pair(*ref.values_pair(flat_values(values))))
+        return out if self._is_r2c else from_pair(out)
+
+    def _reference_forward(self, space, scaling):
+        """A global ``(Z, Y, X)`` space on the device -> the per-shard values."""
+        from .execution import from_pair
+
+        ref = self._reference_engine()
+        flat = from_pair(fence(ref.forward_pair(*reference_parts(space, self._is_r2c),
+                                                ScalingType(scaling))))
+        return list(torch.split(flat, [int(n) for n in self._params.num_values_per_shard]))
+
+    def _device_space(self, space):
+        """The global ``(Z, Y, X)`` space on the plan's device: the caller's
+        (a tensor there is not copied) or, for None, the retained one."""
+        p = self._params
+        if space is None:
+            if self._space_data is None:
+                raise InvalidParameterError(
+                    "no space domain data: run backward first or pass an array")
+            return self._exec.unpad_space(self._space_data)
+        t = space.to(self.device) if torch.is_tensor(space) else torch.as_tensor(
+            np.asarray(space), device=self.device)
+        if t.numel() != p.total_size:
+            raise InvalidParameterError(
+                f"expected {p.total_size} space-domain elements, got {t.numel()}")
+        return t.reshape(p.dim_z, p.dim_y, p.dim_x)
+
     @property
     def space_domain_layout(self) -> str:
         """Axis order of the native space: ``"yxz"``, on both engines: the
@@ -343,7 +495,7 @@ class DistributedTransform(_Observed):
             self._processing_unit, self._params, mesh=self._mesh,
             exchange_type=self.exchange_type, grid=self._grid, dtype=self._real_dtype,
             engine=self._engine, precision=self._precision, policy=self._policy,
-            fuse=self.fused)
+            fuse=self.fused, guard=self._guard, verify=self._verify_mode)
         c._exec._ir.requested = self._exec._ir.requested
         c._requested_exchange = self._requested_exchange
         return c

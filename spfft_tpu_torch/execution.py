@@ -217,3 +217,18 @@ class LocalExecution(ExecutionBase):
         if ScalingType(scaling) == ScalingType.FULL:
             values = values * (1.0 / self.params.total_size)
         return values.real, values.imag
+
+    # ---- the legacy path (ir_lower_failed): the stage bodies in order, no graph ----
+
+    def _legacy_backward(self, values_re, values_im):
+        sticks = self._st_decompress(values_re, values_im)
+        if self.is_r2c:
+            sticks = self._st_stick_symmetry(sticks)
+        grid = self._st_expand(self._st_z_backward(sticks))
+        if self.is_r2c:
+            grid = self._st_plane_symmetry(grid)
+        return self._st_x_backward(self._st_y_backward(grid))
+
+    def _legacy_forward(self, scaling, space_re, space_im):
+        sticks = self._st_pack(self._st_y_forward(self._st_x_forward(space_re, space_im)))
+        return self._st_compress(self._st_z_forward(sticks), scaling)

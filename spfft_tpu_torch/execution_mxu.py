@@ -308,3 +308,31 @@ class MxuLocalExecution(ExecutionBase):
 
     def _compress(self, sre, sim):
         return compression.compress(sre, self._vi), compression.compress(sim, self._vi)
+
+    # ---- the legacy path (ir_lower_failed): the stage bodies in order, no graph ----
+
+    def _legacy_backward(self, values_re, values_im):
+        cur = self._st_decompress(values_re, values_im)
+        if self.is_r2c and self._zero_stick_id is not None:
+            cur = self._st_stick_symmetry(*cur)
+        cur = self._st_z_backward(*cur)
+        if self.y_plan == "per-slot":
+            cur = self._st_y_sparse_backward(*cur)
+        elif self.y_plan == "blocked":
+            cur = self._st_y_blocked_backward(*cur)
+        else:
+            cur = self._expand(*cur)
+            if self.is_r2c and self._x0_slot is not None:
+                cur = self._st_plane_symmetry(*cur)
+            cur = self._st_y_dense_backward(*cur)
+        return self._st_x_backward(*cur)
+
+    def _legacy_forward(self, scaling, space_re, space_im):
+        cur = self._st_x_forward(space_re, space_im)
+        if self.y_plan == "per-slot":
+            cur = self._st_y_sparse_forward(*cur)
+        elif self.y_plan == "blocked":
+            cur = self._st_y_blocked_forward(*cur)
+        else:
+            cur = self._pack(*self._st_y_dense_forward(*cur))
+        return self._compress(*self._st_z_forward(*cur, scaling))

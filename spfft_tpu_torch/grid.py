@@ -160,6 +160,8 @@ class Grid:
         precision: str = "highest",
         device=None,
         policy: str | None = None,
+        guard: bool | None = None,
+        verify=None,
         overlap: int | None = None,
         fuse=None,
     ):
@@ -177,7 +179,8 @@ class Grid:
                 processing_unit, transform_type, dim_x, dim_y, dim_z, indices,
                 mesh=self._mesh, local_z_lengths=local_z_length,
                 exchange_type=self._exchange_type, grid=self, dtype=dtype, engine=engine,
-                precision=precision, policy=policy, overlap=overlap, fuse=fuse,
+                precision=precision, policy=policy, guard=guard, verify=verify,
+                overlap=overlap, fuse=fuse,
             )
         if overlap is not None:
             raise InvalidParameterError(
@@ -189,5 +192,5 @@ class Grid:
             processing_unit, transform_type, dim_x, dim_y, dim_z,
             num_local_elements, indices, local_z_length=local_z_length, grid=self,
             dtype=dtype, engine=engine, precision=precision, device=device, policy=policy,
-            fuse=fuse,
+            guard=guard, verify=verify, fuse=fuse,
         )

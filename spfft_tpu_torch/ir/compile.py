@@ -17,12 +17,27 @@
   ``(direction, scaling, B)`` that holds the B per-request compositions over
   slices of stacked static inputs, so that a batch costs one replay.
 
-Nothing degrades quietly: a capture or replay that fails raises
-:class:`~spfft_tpu_torch.errors.GPUError` naming the stage, and the staged
-path runs only when it is asked for, or where the plan cannot be captured:
-a mesh plan whose exchange is a ``torch.distributed`` collective (NCCL
-under graph capture is later work) runs staged, says so in ``describe()``
-(``"staged_because"``), and raises on ``fuse=True``.
+The degradation rungs of the JAX package (``spfft_tpu/ir/compile.py``),
+each recorded on the plan card's ``degradations`` and in
+``degradations_total`` (:mod:`spfft_tpu_torch.faults`):
+
+* ``ir_lower_failed`` (fault site ``ir.lower``, or a lowering or validation
+  that fails): a local engine runs its **legacy** path, its stage bodies
+  called in order with no graph; a mesh engine has none and raises
+  :class:`~spfft_tpu_torch.errors.MPIError`;
+* ``fuse_compile_failed`` (fault site ``ir.compile`` when the plan is built,
+  or a fused program whose first call fails with a runtime error, such as a
+  CUDA-graph capture that the CUDA runtime refuses): the staged path, from
+  then on, for every direction;
+* ``batch_fuse_failed`` (fault site ``ir.batch``, or a batched program's
+  first call failing): the plan's batch axis is off and its callers loop.
+
+The kernels' own typed failures (``GPUSupportError``, ``GPULaunchError``)
+take no rung: they raise. A replay that fails raises
+:class:`~spfft_tpu_torch.errors.GPUError`. A mesh plan whose exchange is a
+``torch.distributed`` collective (NCCL under graph capture is later work)
+runs staged, says so in ``describe()`` (``"staged_because"``), and raises
+on ``fuse=True``.
 
 :data:`dispatches` counts program calls by ``(mode, direction)``: staged adds
 one per node (added once per call), fused one per direction, batched one per
@@ -40,8 +55,8 @@ import collections
 
 import torch
 
-from .. import knobs, obs, timing
-from ..errors import GPUError, InvalidParameterError
+from .. import faults, knobs, obs, timing
+from ..errors import GPUError, InvalidParameterError, MPIError
 from ..types import ScalingType
 
 FUSE_ENV = "SPFFT_TPU_FUSE"
@@ -190,10 +205,12 @@ class _Program:
                 graph = torch.cuda.CUDAGraph()
                 with torch.cuda.graph(graph, pool=self.pool):
                     static_out = self.body(*static_in)
-            except Exception as e:
-                raise GPUError(
-                    f"{self.what}: CUDA graph capture failed at stage {self.stage()!r}: {e}"
-                ) from e
+            except Exception as e:  # the class is kept: EngineIr decides the rung
+                # a capture that fails inside torch.cuda.graph leaves its
+                # stream current: the caller's comes back
+                torch.cuda.set_stream(current)
+                e.add_note(f"{self.what}: CUDA graph capture failed at stage {self.stage()!r}")
+                raise
         self._captured = (graph, static_in, static_out)
 
 
@@ -206,26 +223,51 @@ class EngineIr:
     ``backward_pair``/``forward_pair`` and batched entries. Built by
     :func:`init_engine_ir`."""
 
-    def __init__(self, graphs, *, path, requested, device, staged_because=None):
-        self.graphs = graphs  # {"backward": g, "forward": {ScalingType: g}}
-        self.path = path  # "fused" | "staged"
+    def __init__(self, graphs, *, path, requested, device, staged_because=None, sink=None,
+                 engine=None):
+        self.graphs = graphs  # {"backward": g, "forward": {ScalingType: g}}; None: legacy
+        self.path = path  # "fused" | "staged" | "legacy"
         self.requested = requested
         self.staged_because = staged_because
         self.device = torch.device(device)
+        # the plan's live degradations list, kept from the scope the engine
+        # was built in, so that a rung taken at a first dispatch lands on it
+        self._sink = sink
+        self._engine = engine  # the legacy path's stage bodies
         # the memory pool of this plan's CUDA graphs: every result is copied
         # out of it right after its replay, on the same stream, so a graph
         # may reuse what another one freed
         self._pool = torch.cuda.graph_pool_handle() if self.device.type == "cuda" else None
         self._programs = {}  # (direction, scaling or None, B or None) -> program
+        self._compiled = set()  # keys of the programs whose first call succeeded
+        self._batch_keys = set()  # (direction, scaling) whose batched build passed ir.batch
+        self._batch_failed = False
         self._batch_sizes = set()  # distinct batch sizes dispatched (the card)
         if path == "staged":
-            self._programs["backward", None, None] = StagedProgram(graphs["backward"])
-            for s, g in graphs["forward"].items():
-                self._programs["forward", s, None] = StagedProgram(g)
+            self._install_staged()
+
+    def _install_staged(self) -> None:
+        self._programs = {("backward", None, None): StagedProgram(self.graphs["backward"])}
+        for s, g in self.graphs["forward"].items():
+            self._programs["forward", s, None] = StagedProgram(g)
 
     @property
     def fused(self) -> bool:
         return self.path == "fused"
+
+    def _record(self, event: str, exc) -> None:
+        """A rung taken after construction: recorded, and placed on the
+        plan's own list (the sink kept at construction)."""
+        entry = faults.record_degradation(event, faults.summarize(exc))
+        if self._sink is not None and (not self._sink or self._sink[-1] is not entry):
+            self._sink.append(entry)
+
+    def _degrade_to_staged(self, exc) -> None:
+        """``fuse_compile_failed`` at a first dispatch: the staged path from
+        now on, for every direction (the plan card re-reads the live list)."""
+        self._record("fuse_compile_failed", exc)
+        self.path = "staged"
+        self._install_staged()
 
     def _graph(self, direction, scaling):
         return self.graphs["backward"] if direction == "backward" else self.graphs["forward"][scaling]
@@ -247,11 +289,26 @@ class EngineIr:
         return prog
 
     def _run(self, direction, scaling, args):
-        prog = self._program(direction, scaling)
-        out = prog(*args)
-        if self.path == "fused":  # staged counts per node itself
-            dispatches["fused", direction] += 1
-            obs.counter("ir_dispatches_total", mode="fused", direction=direction).inc()
+        if self.path == "legacy":
+            e = self._engine
+            out = (e._legacy_backward(*args) if direction == "backward"
+                   else e._legacy_forward(scaling, *args))
+        else:
+            key = (direction, scaling, None)
+            prog = self._program(direction, scaling)
+            if self.path != "fused" or key in self._compiled:
+                out = prog(*args)
+            else:
+                try:
+                    out = prog(*args)
+                except faults.ENGINE_BUILD_ERRORS as e:
+                    self._degrade_to_staged(e)
+                    return self._run(direction, scaling, args)
+                self._compiled.add(key)
+            if self.path == "staged":  # staged counts per node itself
+                return out
+        dispatches[self.path, direction] += 1
+        obs.counter("ir_dispatches_total", mode=self.path, direction=direction).inc()
         return out
 
     def run_backward(self, *args):
@@ -263,18 +320,46 @@ class EngineIr:
     # ---- batched programs (SPFFT_TPU_BATCH_FUSE) ----------------------------------
 
     def batch_available(self) -> bool:
-        """The knob is on and the plan runs fused (the staged path has no
-        batch axis, so its callers loop)."""
+        """The knob is on, the plan runs fused (the staged and legacy paths
+        have no batch axis, so their callers loop) and no batched program
+        has taken the ``batch_fuse_failed`` rung."""
         enabled, _ = resolve_batch_fuse()
-        return enabled and self.path == "fused" and bool(self.graphs["backward"].batch_inputs)
+        return (enabled and self.path == "fused" and not self._batch_failed
+                and bool(self.graphs["backward"].batch_inputs))
+
+    def _batch_degrade(self, exc) -> None:
+        """``batch_fuse_failed``: the batch axis is off for this plan; its
+        callers loop, and the plan stays healthy."""
+        self._record("batch_fuse_failed", exc)
+        self._batch_failed = True
+        for key in [k for k in self._programs if k[2] is not None]:
+            del self._programs[key]
 
     def _run_batch(self, direction, scaling, args):
         """Stacked ``(B, ...)`` per-request inputs in, stacked results out, as
-        one program; None when batching is unavailable (the caller loops)."""
+        one program; None when batching is unavailable or its rung was taken
+        here (the caller loops)."""
         if not self.batch_available():
             return None
         batch = int(args[0].shape[0])
-        out = self._program(direction, scaling, batch)(*args)
+        key = (direction, scaling, batch)
+        if (direction, scaling) not in self._batch_keys:
+            try:  # the fault site of this layer refusing to build
+                faults.site("ir.batch")
+            except faults.ENGINE_BUILD_ERRORS as e:
+                self._batch_degrade(e)
+                return None
+            self._batch_keys.add((direction, scaling))
+        prog = self._program(direction, scaling, batch)
+        if key in self._compiled:
+            out = prog(*args)
+        else:
+            try:
+                out = prog(*args)
+            except faults.ENGINE_BUILD_ERRORS as e:
+                self._batch_degrade(e)
+                return None
+            self._compiled.add(key)
         self._batch_sizes.add(batch)
         dispatches["batched", direction] += 1
         obs.counter("ir_dispatches_total", mode="batched", direction=direction).inc()
@@ -291,20 +376,20 @@ class EngineIr:
     def describe_batch(self) -> dict:
         """The plan card's ``batch`` section: whether the batched path is
         live, where the knob came from, the distinct batch sizes dispatched
-        so far, and ``failed`` (always False: a batched program that fails
-        raises here; there is no ``batch_fuse_failed`` rung)."""
+        so far, and whether the axis took the ``batch_fuse_failed`` rung."""
         _, requested = resolve_batch_fuse()
         return {"enabled": self.batch_available(), "requested": requested,
-                "sizes": sorted(self._batch_sizes), "failed": False}
+                "sizes": sorted(self._batch_sizes), "failed": self._batch_failed}
 
     def describe(self) -> dict:
         """The ``ir`` section (:data:`IR_KEYS`): path, where the choice came
-        from, the stage lists per direction and the donation map."""
+        from, the stage lists per direction (None on the legacy path) and the
+        donation map."""
         card = {
             "fused": self.fused,
             "path": self.path,
             "requested": self.requested,
-            "stages": {
+            "stages": None if self.graphs is None else {
                 "backward": self.graphs["backward"].stage_list(),
                 "forward": self.graphs["forward"][ScalingType.NONE].stage_list(),
             },
@@ -341,11 +426,16 @@ COLLECTIVE_STAGED = ("the exchange is a torch.distributed collective, which this
                      "does not capture into a CUDA graph")
 
 
+# the ROADMAP item of a legacy path for the mesh engines
+MESH_LEGACY = "ROADMAP queue A, item 9: the mesh engines' legacy path"
+
+
 def init_engine_ir(engine, fuse=None) -> EngineIr:
     """Lower ``engine``, validate its graphs and choose its path: fused
     unless ``fuse=False`` or ``SPFFT_TPU_FUSE=0``, and staged for a mesh
-    engine whose exchange is a collective (``fuse=True`` there raises). A
-    graph that fails validation raises."""
+    engine whose exchange is a collective (``fuse=True`` there raises). The
+    rungs (module docstring) record on the plan being built, through the
+    ambient :func:`spfft_tpu_torch.faults.collecting` sink."""
     from .lower import lower_engine
 
     fused, requested = resolve_fuse(fuse)
@@ -354,11 +444,31 @@ def init_engine_ir(engine, fuse=None) -> EngineIr:
         if fused and requested == "kwarg":
             raise InvalidParameterError(f"fuse=True: {COLLECTIVE_STAGED} (it runs staged)")
         fused, because = False, COLLECTIVE_STAGED
-    graphs = lower_engine(engine)
-    graphs["backward"].validate()
-    for g in graphs["forward"].values():
-        g.validate()
-    ir = EngineIr(graphs, path="fused" if fused else "staged", requested=requested,
-                  device=engine.device, staged_because=because)
+    sink = faults.current_sink()
+    # the IR's own refusals (validation, no lowering) are rungs too
+    rung_errors = faults.ENGINE_BUILD_ERRORS + (InvalidParameterError,)
+    try:
+        faults.site("ir.lower")
+        graphs = lower_engine(engine)
+        graphs["backward"].validate()
+        for g in graphs["forward"].values():
+            g.validate()
+    except rung_errors as e:
+        if engine._legacy_backward is None:
+            raise MPIError(
+                f"ir: lowering failed ({faults.summarize(e)}) and a mesh engine has no "
+                f"legacy path ({MESH_LEGACY})") from e
+        faults.record_degradation("ir_lower_failed", faults.summarize(e))
+        return EngineIr(None, path="legacy", requested=requested, device=engine.device,
+                        engine=engine)
+    path = "staged"
+    if fused:
+        try:
+            faults.site("ir.compile")
+            path = "fused"
+        except rung_errors as e:
+            faults.record_degradation("fuse_compile_failed", faults.summarize(e))
+    ir = EngineIr(graphs, path=path, requested=requested, device=engine.device,
+                  staged_because=because, sink=sink)
     obs.trace.event("decision", what="fuse", choice=ir.path)
     return ir

@@ -67,6 +67,43 @@ REGISTRY = {k.name: k for k in (
     Knob("SPFFT_TPU_FENCE_BUDGET_S", "float", 0.0,
          "wall-clock deadline of one completion fence: past it the fence raises "
          "`FenceTimeout`; 0 or unset = an unbudgeted wait"),
+    # ---- fault injection and guard (spfft_tpu_torch.faults) ----
+    Knob("SPFFT_TPU_FAULTS", "str", None,
+         "arms fault-injection sites: `\"site=kind[:rate],...\"` over the "
+         "`spfft_tpu_torch.faults.SITES` vocabulary with kinds "
+         "`raise`/`nan`/`corrupt`/`delay`; unset = every site is a no-op check"),
+    Knob("SPFFT_TPU_FAULTS_SEED", "int", 0,
+         "seed of the sub-1.0-rate fault draw stream (`faults.reseed`)"),
+    Knob("SPFFT_TPU_FAULTS_DELAY_S", "float", 0.005,
+         "sleep injected by the `delay` fault kind"),
+    Knob("SPFFT_TPU_GUARD", "bool", False,
+         "`1` turns on guard mode on every plan (a plan's `guard=` wins): "
+         "non-finite scans on the device plus shape/dtype/device checks around "
+         "host-facing transforms, raising typed errors"),
+    # ---- verification and the breaker (spfft_tpu_torch.verify) ----
+    Knob("SPFFT_TPU_VERIFY", "str", "0",
+         "`1` arms ABFT self-verification on every plan (a plan's `verify=` wins): "
+         "algebraic checks and the retry, demote and break supervisor; `strict` "
+         "raises `VerificationError` on the first failed check",
+         choices=("0", "1", "on", "off", "strict")),
+    Knob("SPFFT_TPU_VERIFY_RTOL", "float", None,
+         "relative tolerance of the verification checks (unset: 1e-4 for float32 "
+         "plans, 1e-9 for float64)"),
+    Knob("SPFFT_TPU_VERIFY_SEED", "int", 0,
+         "seed of the deterministic probe-site stream"),
+    Knob("SPFFT_TPU_VERIFY_RETRIES", "int", 2,
+         "re-executions after a failed check or typed execution error, before the "
+         "`torch.fft` reference rung", floor=0),
+    Knob("SPFFT_TPU_VERIFY_BACKOFF_S", "float", 0.01,
+         "base of the exponential retry backoff, jittered x[0.5, 1.5)", floor=0.0),
+    Knob("SPFFT_TPU_VERIFY_JITTER_SEED", "int", None,
+         "seeds the retry-backoff jitter stream; unset, each supervisor draws "
+         "from system entropy"),
+    Knob("SPFFT_TPU_VERIFY_BREAKER_K", "int", 3,
+         "consecutive verified-failure episodes that trip an engine's "
+         "process-global circuit breaker", floor=1),
+    Knob("SPFFT_TPU_VERIFY_BREAKER_COOLDOWN_S", "float", 30.0,
+         "open -> half-open probe delay of the engine circuit breaker", floor=0.0),
 )}
 
 _TRUE_WORDS = ("1", "true", "on")
@@ -113,8 +150,11 @@ def get_str(name: str):
 
 
 def _get_number(name: str, cast, what: str):
+    """The value cast; None for an unset knob without a default."""
     knob = _knob(name)
     value = _ambient(name)
+    if value is None and knob.default is None:
+        return None
     try:
         value = cast(knob.default if value is None else value)
     except (TypeError, ValueError):

@@ -2,9 +2,9 @@
 
 The JAX package's ``spfft_tpu/obs/metrics.py``, limited to the metrics that
 the ported paths record, with the same names, kinds, label keys and docs.
-The JAX package's other rows (guard and fault injection, tuning and wisdom,
-verification and the breaker, serving, multi-host and the scheduler, the
-engine fallback ladder) wait for those subsystems (ROADMAP queue A).
+The JAX package's other rows (tuning and wisdom, serving, multi-host and
+the scheduler, and ``sync_probe_failures_total`` of the TPU-only fence
+probes) wait for those subsystems (ROADMAP queue A).
 
 Rows are ``(name, kind, label_keys, doc)``. Label values are free-form; only
 the key set is pinned.
@@ -24,9 +24,36 @@ METRICS = (
      "host time to enqueue one compiled program (async dispatch)"),
     ("wait_seconds", "histogram", ("direction",),
      "host time blocked on completion (fence / block_until_ready)"),
+    ("execution_failures_total", "counter", ("op",),
+     "dispatch/fence failures converted to typed execution errors"),
+    ("engine_fallbacks_total", "counter", ("from", "to"),
+     "degradation-ladder engine substitutions (e.g. MXU compile failure "
+     "-> jnp.fft)"),
+    ("degradations_total", "counter", ("event",),
+     "degradation-ladder rungs taken, by recorded event name"),
     ("ir_dispatches_total", "counter", ("mode", "direction"),
      "stage-graph IR program dispatches (fused=1/direction, staged=1/node, "
      "batched=1/batch)"),
+    # ---- guard / faults -----------------------------------------------------
+    ("guard_checks_total", "counter", ("check",),
+     "guard-mode validations performed (NaN/Inf scans, contracts)"),
+    ("guard_failures_total", "counter", ("check",),
+     "guard-mode validations that raised typed"),
+    ("faults_injected_total", "counter", ("site", "kind"),
+     "chaos injections that actually fired, per site and kind"),
+    # ---- verification / breaker ---------------------------------------------
+    ("verify_checks_total", "counter", ("check", "verdict"),
+     "ABFT check evaluations, per check and pass/fail verdict"),
+    ("verify_retries_total", "counter", ("direction",),
+     "supervisor re-executions after a failed check or typed error"),
+    ("verify_recoveries_total", "counter", ("direction",),
+     "supervised transforms that recovered (retry or demote rung)"),
+    ("verify_failures_total", "counter", ("direction",),
+     "supervised attempts that failed a check or raised typed"),
+    ("verify_breaker_state", "gauge", ("engine",),
+     "per-engine circuit-breaker state (0 closed / 1 half-open / 2 open)"),
+    ("verify_breaker_trips_total", "counter", ("engine",),
+     "circuit-breaker open transitions"),
     # ---- performance observatory --------------------------------------------
     ("perf_pair_seconds", "histogram", ("engine", "decomposition"),
      "fenced seconds per backward+forward pair (perf reports)"),

@@ -9,10 +9,13 @@ rounds, transport) and the DEFAULT policy's table of alternatives (a pencil
 plan's, ``decomposition: "pencil2"``, only where DEFAULT was resolved: the
 JAX cost model's table that its engine weighed).
 
-Where the port lacks a subsystem of the JAX package, the card carries what
-the JAX card carries for a plan without it: ``degradations`` is empty (no
-degradation ladder), ``verification`` is the ``"off"`` record with a closed
-breaker, and the ``tuning`` and ``placement`` sections are absent.
+``degradations`` lists the rungs of the degradation ladder the plan took
+(:mod:`spfft_tpu_torch.faults`), live: a rung taken at a first dispatch
+appears in a later card. ``verification`` is the supervisor's own record
+(:mod:`spfft_tpu_torch.verify`) when verification is armed, else the
+``"off"`` record with the engine's breaker. Where the port lacks a subsystem
+of the JAX package, the card carries what the JAX card carries for a plan
+without it: the ``tuning`` and ``placement`` sections are absent.
 ``include_compiled=True`` (HLO statistics, ``obs/hlo.py``) has no
 counterpart without HLO and raises.
 """
@@ -59,10 +62,6 @@ ALTERNATIVE_KEYS = ("discipline", "wire_bytes", "rounds", "cost_bytes", "chosen"
 # the IR section (spfft_tpu_torch/ir/compile.py IR_KEYS) and the batch section
 IR_SECTION_KEYS = ("fused", "path", "requested", "stages", "donation")
 BATCH_SECTION_KEYS = ("enabled", "requested", "sizes", "failed")
-# The JAX package's breaker threshold for an engine never verified
-# (SPFFT_TPU_VERIFY_BREAKER_K's default): the closed breaker of the "off"
-# verification record.
-BREAKER_THRESHOLD = 3
 
 
 def base_discipline(exchange_type):
@@ -167,13 +166,9 @@ def plan_card(transform, *, include_compiled: bool = False) -> dict:
         "policy": "default",
         "platform": _platform(transform.device),
         "execution": ex.describe(),
-        "degradations": [],
-        "verification": {
-            "mode": "off", "checks": [], "rtol": None, "retries": 0,
-            "breaker": {"engine": transform.engine, "state": "closed",
-                        "consecutive_failures": 0, "trips": 0,
-                        "threshold": BREAKER_THRESHOLD},
-        },
+        # the fallbacks this plan took (spfft_tpu_torch.faults.ladder)
+        "degradations": [dict(d) for d in transform._degradations],
+        "verification": _verification_section(transform),
         "ir": ex._ir.describe(),
         "batch": ex._ir.describe_batch(),
     }
@@ -200,6 +195,18 @@ def plan_card(transform, *, include_compiled: bool = False) -> dict:
         else:
             card["exchange_policy"] = _exchange_policy(transform)
     return card
+
+
+def _verification_section(transform) -> dict:
+    """The supervisor's record when verification is armed, else the "off"
+    record with the engine's breaker (a broken engine matters to unverified
+    plans too)."""
+    if transform._verifier is not None:
+        return transform._verifier.describe()
+    from ..verify import breaker
+
+    return {"mode": transform._verify_mode, "checks": [], "rtol": None, "retries": 0,
+            "breaker": breaker.describe(transform.engine)}
 
 
 def validate_plan_card(card: dict) -> list:

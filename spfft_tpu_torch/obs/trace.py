@@ -44,9 +44,8 @@ DEFAULT_CAPACITY = knobs.default(TRACE_CAP_ENV)
 
 # Canonical trace event-name vocabulary: the JAX package's names that the
 # ported paths emit. Every ``trace.event/span/operation`` call in the package
-# names one of these. The JAX package's other names (tuning trials,
-# degradations, guard, fault injection, wisdom, verify, serving, scheduler,
-# hosts, RPC) wait for those subsystems.
+# names one of these. The JAX package's other names (tuning trials, wisdom,
+# serving, scheduler, hosts, RPC) wait for those subsystems.
 EVENTS = (
     # operation spans (each pushes/propagates the active run ID)
     "plan",            # Transform / DistributedTransform construction
@@ -57,6 +56,11 @@ EVENTS = (
     "fence",
     # instants
     "decision",        # engine / exchange discipline resolution
+    "degradation",     # ladder rung fired (faults.record_degradation)
+    "guard",           # guard verdict, pass or fail (faults.guard)
+    "fault.injected",  # armed fault site fired (faults.plane)
+    "verify",          # ABFT check verdict / retry / demotion / breaker
+    #                    transition (spfft_tpu_torch.verify)
     "perf",            # performance report built (obs.perf)
     "error",           # typed spfft_tpu_torch.errors exception constructed
 )

@@ -23,7 +23,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from .. import obs
+from .. import faults, obs
 from ..errors import InvalidParameterError, MPIParameterMismatchError
 from ..execution import ExecutionBase
 from ..ops import symmetry
@@ -53,6 +53,8 @@ class PaddingHelpers(ExecutionBase):
     space ``(Y, X, P_local, L_max)``."""
 
     NATIVE_LAYOUT = "yxz"
+    # no legacy path: a lowering that fails raises MPIError (ir.compile)
+    _legacy_backward = _legacy_forward = None
 
     def _setup(self, params, real_dtype, mesh, exchange_type) -> None:
         if not isinstance(mesh, ShardMesh):
@@ -61,6 +63,7 @@ class PaddingHelpers(ExecutionBase):
         if fft_mesh_size(mesh) != params.num_shards:
             raise MPIParameterMismatchError(
                 f"plan has {params.num_shards} shards but the mesh holds {fft_mesh_size(mesh)}")
+        faults.site("exchange.build")
         self.params, self.mesh = params, mesh
         self.real_dtype = np.dtype(real_dtype)
         self.torch_dtype = torch.float32 if self.real_dtype == np.float32 else torch.float64

@@ -29,7 +29,7 @@ import time
 
 import torch
 
-from . import knobs
+from . import faults, knobs
 from .obs import trace
 
 FENCE_BUDGET_ENV = "SPFFT_TPU_FENCE_BUDGET_S"
@@ -59,8 +59,10 @@ def _devices(tree, out: set) -> set:
 
 def fence(tree, device=None):
     """Block until every tensor in ``tree`` has been computed; returns ``tree``.
-    A ``fence`` span of the flight recorder around :func:`wait`."""
+    A ``fence`` span of the flight recorder around the fault site
+    ``sync.fence`` and :func:`wait`."""
     with trace.span("fence"):
+        faults.site("sync.fence")
         return wait(tree, device)
 
 

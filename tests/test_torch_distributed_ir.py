@@ -148,8 +148,10 @@ def test_init_distributed_validates_its_arguments():
 
 def test_an_exchange_that_cannot_be_built_raises_mpi_error(monkeypatch):
     """A process group that fails while the exchange is built fails the plan
-    with MPIError, and no engine takes its place; a failure of another layer
-    keeps its own class."""
+    with MPIError, and no engine takes its place. A runtime failure of
+    another layer takes the JAX package's ladder: the mxu engine falls back
+    to torch.fft, and a failure with no rung below raises MPIError with the
+    failure as its cause; a typed error keeps its own class."""
     import torch.distributed as dist
 
     from spfft_tpu_torch.parallel import execution, execution_mxu
@@ -173,6 +175,15 @@ def test_an_exchange_that_cannot_be_built_raises_mpi_error(monkeypatch):
     monkeypatch.setattr(execution, "make_exchange", broken)
     monkeypatch.setattr(execution_mxu, "make_exchange", broken)
     for engine in ENGINES:
-        with pytest.raises(RuntimeError, match="kernel") as info:
+        with pytest.raises(tp.MPIError, match="kernel") as info:
             port_plan(False, 4, per, np.float64, dims=DIMS, engine=engine)
-        assert not isinstance(info.value, tp.MPIError)
+        assert isinstance(info.value.__cause__, RuntimeError)
+
+    def typed(*args, **kwargs):
+        raise tp.GPUSupportError("a kernel failed to build")
+
+    monkeypatch.setattr(execution, "make_exchange", typed)
+    monkeypatch.setattr(execution_mxu, "make_exchange", typed)
+    for engine in ENGINES:
+        with pytest.raises(tp.GPUSupportError, match="kernel"):
+            port_plan(False, 4, per, np.float64, dims=DIMS, engine=engine)
