@@ -8,7 +8,8 @@ Run from the root of a checkout, on a machine with an H100 and the CUDA toolkit:
 Phases, one JSON line each:
 
 1. the card (``nvidia-smi`` name and power limit), the kernel build (K1 at
-   its three float32 precisions and in float64, and K2, one ``nvcc`` each, in
+   its three float32 precisions, in its bfloat16-constant form
+   ``complex_matmul_tf32x2`` and in float64, and K2, one ``nvcc`` each, in
    parallel), and what ptxas reports for each kernel (registers, spills) and
    how many tensor-core instructions (``HGMMA``, ``HMMA``, the float64
    library's ``DMMA``) ``cuobjdump -sass`` finds;
@@ -125,7 +126,26 @@ Phases, one JSON line each:
    ``dist4-c2c`` raises ``MPIError``. The main path, the mesh phases and the
    obs phase must each have taken no rung (``no_rungs``: empty
    ``degradations``, the rung counters 0);
-10. the ``kernels`` line; last, the ``{"ok": true, "device": ...}`` line.
+10. tuning and scheduling (``tuning_phase``): with a fresh
+   ``SPFFT_TPU_WISDOM`` file, ``c2c-blocked`` and ``r2c-blocked`` (256^3,
+   "highest") with ``policy="tuned"``: each trial table (the ``mxu``,
+   ``mxu/dense-y``, ``mxu/staged``, ``mxu/bf16-twiddle`` (K1's
+   "highest-bf16" form: bfloat16 DFT matrices, half the constant's bytes),
+   ``xla`` and ``xla/staged`` candidates, each built and timed on the card),
+   the chosen plan against the dense oracle (a bfloat16-matrix plan at the
+   "default" bar), and a second construction a wisdom hit with no trial; the same
+   for the exchange of ``dist4-c2c`` and ``pencil2x2-c2c`` (BUFFERED,
+   COMPACT_BUFFERED and UNBUFFERED timed in one call); the gbench graph
+   (``spfft_tpu_torch.programs.gbench``, ``GBENCH_ARGS``: two geometries,
+   independent backwards and backward -> forward chains) run serially and
+   scheduled, each task's result bitwise its solo plan's, both rates
+   printed; an empty plan on cuFFT (the zero grid and no values); and
+   ``ir.lower=raise`` on the plans of ``dist4-c2c`` and ``pencil2x2-c2c``:
+   the legacy path, ``ir_lower_failed`` on the card, K1 and K2 launched,
+   within 1e-6 of (in fact bitwise) the staged twin. Each plan's K1 and K2
+   forms get kernel rows, their launches counted from 0 before its tuning
+   (the trials included) and read after its pair; no tuned plan takes a rung;
+11. the ``kernels`` line; last, the ``{"ok": true, "device": ...}`` line.
 
 Exits non-zero, with no result line, when there is no CUDA device or any
 check fails.
@@ -173,12 +193,14 @@ GRAPH_CALLS = 20  # calls captured in one graph by graph_ms
 # the tensor cores, dense TF32, BF16 and FP64 on them, and HBM3 bandwidth.
 PEAK_FLOPS = {"float32": 67e12, "float64": 34e12}
 PEAK_F64_TC = 67e12  # FP64 on the tensor cores (the data sheet's FP64 Tensor Core rate)
-PEAK_TC = {"highest": 495e12, "high": 989e12, "default": 989e12}  # TF32, BF16, BF16
-TC_PASSES = {"highest": 3, "high": 3, "default": 1}  # tensor-core products per real product
+# TF32, BF16, BF16, and TF32 for "highest" with a bfloat16 constant (SPFFT_TPU_TWIDDLE_BF16)
+PEAK_TC = {"highest": 495e12, "high": 989e12, "default": 989e12, "highest-bf16": 495e12}
+# tensor-core products per real product
+TC_PASSES = {"highest": 3, "high": 3, "default": 1, "highest-bf16": 2}
 OTHER = {"highest": "high", "high": "highest"}  # the precision a K1 row must not pass as
 PEAK_BYTES = 3.35e12
 LIBRARIES = ["complex_matmul", "complex_matmul_bf16x3", "complex_matmul_bf16x1",
-             "complex_matmul_f64", "row_gather"]
+             "complex_matmul_f64", "row_gather", "complex_matmul_tf32x2"]
 BLOCKS_OFF = {"SPFFT_TPU_SPARSE_Y_BLOCKS": "0"}
 F32, F64 = np.float32, np.float64
 # (name, transform, radius, precision, knobs while the plan is made, y plan, dtype)
@@ -298,6 +320,15 @@ def call_ms(fn, reps: int = 10, warmup: int = 3) -> float:
     return statistics.median(times)
 
 
+def no_collection():
+    """Python's garbage collector held off for a capture (a dropped plan's
+    graph, destroyed by a collection mid-capture, invalidates the capture):
+    the port's own guard, ``spfft_tpu_torch.ir.compile.no_collection``."""
+    from spfft_tpu_torch.ir.compile import no_collection as held_off
+
+    return held_off()
+
+
 def device_ms(fn, replays: int = REPLAYS) -> float:
     """Device time of one call: warmed up (build, argtypes, allocator), then
     captured in a CUDA graph and replayed ``replays`` times between two events."""
@@ -310,7 +341,7 @@ def device_ms(fn, replays: int = REPLAYS) -> float:
         fn()
     torch.cuda.current_stream().wait_stream(side)
     graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
+    with no_collection(), torch.cuda.graph(graph):
         fn()
     graph.replay()
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
@@ -348,7 +379,7 @@ def graph_ms(fns) -> float:
         fns[0]()
     torch.cuda.current_stream().wait_stream(side)
     graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
+    with no_collection(), torch.cuda.graph(graph):
         for i in range(GRAPH_CALLS):
             fns[i % len(fns)]()
     graph.replay()
@@ -425,8 +456,8 @@ def k1_forms(name, t):
     """Every K1 form plan ``name`` launches that gets a row: (row name, spec,
     data pair, constant, want_imag, out pair or None). Dense plans: all four
     of their forms; the blocked and per-slot plans at float32 "highest": their
-    y forms; at "high"/"default" and in float64: all (the non-y three and the
-    y forms)."""
+    y forms; at "high"/"default", in the bfloat16-constant form and in
+    float64: all (the non-y three and the y forms)."""
     import torch
 
     gen = torch.Generator(device="cuda").manual_seed(SEED)
@@ -437,7 +468,7 @@ def k1_forms(name, t):
     pair = lambda *shape: (rnd(*shape), rnd(*shape))
     r2c = ex.is_r2c
     forms = []
-    if ex.y_plan == "dense" or ex.precision != "highest" or f64:
+    if ex.y_plan == "dense" or ex.k1_precision != "highest" or f64:
         forms.append((f"{name}/z", "sz,zk->sk", pair(S, Z), ex._wz_b, True, None))
         if ex.y_plan == "dense":
             forms.append((f"{name}/y", "yxz,yk->kxz", pair(Y, A, Z), ex._wy_b, True, None))
@@ -479,13 +510,13 @@ def k1_bounds_ms(ops, want_imag, precision, w) -> tuple[float, str, float]:
     """(tensor-core bound, what bounds it, FP32 or FP64 bound without tensor
     cores): max(operations over the peak, bytes over the memory rate); the
     operations are the precision's tensor-core products per real product on
-    the TF32 ("highest") or BF16 peak, the real products the float64 kernel
+    the TF32 ("highest", "highest-bf16") or BF16 peak, the real products the float64 kernel
     issues on the FP64 tensor-core peak (three per complex product where all
     four parts exist: Gauss's form), or the four-product form's on the FP32
     or FP64 peak. The bytes count the data and the result in their dtype and
     the plan constant ``w`` as the precision needs it: one bf16 plane per
-    part at "default" (its tiles are made once per plan), the dtype's size
-    else."""
+    part at "default" and "highest-bf16" (its tiles are made once per plan),
+    the dtype's size else."""
     import torch
     from spfft_tpu_torch.ops import complex_matmul as k1
 
@@ -496,7 +527,7 @@ def k1_bounds_ms(ops, want_imag, precision, w) -> tuple[float, str, float]:
     products = 4 if full else 2
     flops = 2 * products * batch * m * n * k
     item = ar.element_size()
-    v_item = 2 if precision == "default" else item
+    v_item = 2 if precision in ("default", "highest-bf16") else item
     a_item, b_item = (item, v_item) if k1._views(br, w.re) else (v_item, item)
     a_mats = batch if ar.stride(0) else 1
     b_mats = batch if br.stride(0) else 1
@@ -517,10 +548,12 @@ def k1_bounds_ms(ops, want_imag, precision, w) -> tuple[float, str, float]:
 
 def k1_plain(precision):
     """K1's plain version at ``precision``: the exact float32 products for
-    "highest" (FP32 accuracy is its contract), the bf16 arithmetic else."""
+    "highest" and "highest-bf16" (FP32 accuracy is their contract; the
+    latter's constant holds bfloat16 values), the bf16 arithmetic else."""
     from spfft_tpu_torch.ops import complex_matmul as k1
 
-    return k1.complex_matmul_plain if precision == "highest" else k1.ARITHMETIC[precision]
+    return (k1.complex_matmul_plain if precision in ("highest", k1.BF16_CONSTANT)
+            else k1.ARITHMETIC[precision])
 
 
 def k1_err(ops, want_imag, constant=None, precision="highest", out=None):
@@ -2398,6 +2431,282 @@ def faults_phase(sp, data) -> None:
     emit({"phase": "faults", "seconds": time.perf_counter() - t0})
 
 
+# ---- the tuning and scheduling phase ---------------------------------------------
+
+# the tuned local plans: (name, transform); the tuned and legacy mesh plans:
+# (name, mesh shape); the gbench workload (mixed geometries on the card)
+TUNE_PLANS = [("c2c-blocked", "c2c"), ("r2c-blocked", "r2c")]
+TUNE_MESHES = [("dist4-c2c", (4,)), ("pencil2x2-c2c", (2, 2))]
+GBENCH_ARGS = ["--dims", "128", "192", "--sparsity", "0.659", "0.5", "--tasks", "6",
+               "--chain", "1", "--repeats", "3", "--dtype", "float32"]
+# a legacy plan against its staged twin: the same kernels in the same order,
+# so the difference is zero or rounding
+LEGACY_RTOL = 1e-6
+# the candidates of a local tuned plan that run K1, and the knobs they set
+MXU_CANDIDATES = {"mxu": {}, "mxu/dense-y": {"SPFFT_TPU_SPARSE_Y": "0",
+                                              "SPFFT_TPU_SPARSE_Y_BLOCKS": "0"},
+                  "mxu/bf16-twiddle": {"SPFFT_TPU_TWIDDLE_BF16": "1"}}
+
+
+def trials_run(sp) -> int:
+    return sum(v for k, v in sp.obs.snapshot()["counters"].items()
+               if k.startswith("tuning_trials_total"))
+
+
+def add_counts(a, b) -> dict:
+    return {k: {key: a[k].get(key, 0) + b[k].get(key, 0) for key in {*a[k], *b[k]}}
+            for k in a}
+
+
+def trial_table(rec) -> list:
+    return [{k: row[k] for k in ("label", "ms", "error", "model_cost_bytes") if k in row}
+            for row in rec["trials"]]
+
+
+def local_form_rows(sp, name, t, gen) -> list:
+    """(row, kernel, key) of every K1 and K2 form ``t`` launches."""
+    out = []
+    for form, spec, x, w, want_imag, o in k1_forms(name, t):
+        row, key = run_k1(form, spec, x, w, want_imag, t._exec.k1_precision, o)
+        out.append((row, "complex_matmul", key))
+    for form, src, idx in k2_forms(name, t, gen):
+        row, key = run_k2(form, src, idx)
+        out.append((row, "row_gather", key))
+    return out
+
+
+def mesh_form_rows(name, t, gen) -> list:
+    pencil = t.engine.startswith("pencil2")
+    out = []
+    if t.engine in ("mxu", "pencil2-mxu"):
+        for form, spec, x, w, want_imag, o in (pencil_k1_forms if pencil else dist_k1_forms)(
+                name, t):
+            row, key = run_k1(form, spec, x, w, want_imag, t._exec.k1_precision, o)
+            out.append((row, "complex_matmul", key))
+    for form, src, idx, packed in (pencil_k2_forms if pencil else dist_k2_forms)(name, t, gen):
+        row, key = run_k2(form, src, idx, packed)
+        out.append((row, "row_gather", key))
+    return out
+
+
+def mesh_maker(sp, name, shape, triplets, vals_global):
+    """The make function of a 4-shard C2C mesh plan (slab or 2 x 2 pencil) and
+    its per-shard values on the card."""
+    import torch
+
+    X, Y = DIMS[0], DIMS[1]
+    if len(shape) == 1:
+        per, mesh = sp.distribute_triplets(triplets, 4, Y), sp.make_fft_mesh(4)
+    else:
+        per = sp.distribute_triplets(triplets, 4, Y, layout=shape, dim_x=X)
+        mesh = sp.make_fft_mesh2(*shape)
+    vals = [torch.as_tensor(vals_global[i].astype(np.complex64), device="cuda")
+            for i in shard_index(triplets, per)]
+    make = lambda **kw: sp.DistributedTransform(sp.ProcessingUnit.GPU, sp.TransformType.C2C,
+                                                *DIMS, per, mesh=mesh, dtype=F32, **kw)
+    return make, vals
+
+
+def oracle_errs(space, back, values, want) -> tuple:
+    """(backward against the dense oracle, round trip), relative."""
+    import torch
+
+    space_h = space.cpu().numpy()
+    check(space_h.shape == want.shape and np.isfinite(space_h).all(), "space shape/finite")
+    oracle_err = float(np.abs(space_h - want).max() / np.abs(want).max())
+    pairs = list(zip(back, values)) if isinstance(back, list) else [(back, values)]
+    check(all(bool(torch.isfinite(b).all()) for b, _ in pairs), "values finite")
+    scale = max(float(v.abs().max()) for _, v in pairs)
+    return oracle_err, max(float((b - v).abs().max()) for b, v in pairs) / scale
+
+
+def tuning_phase(sp, data) -> tuple:
+    """Phase 10 (module docstring): the tuned policy on the main path's local
+    and mesh plans with a fresh wisdom file (each trial table; the chosen
+    plan against the oracle; a second construction a wisdom hit with no
+    trial), the scheduler's gbench graph, the empty plan on cuFFT and the
+    mesh plans' legacy path. Returns its kernel rows (row, plan, kernel,
+    key) and the launch counts of each plan's run, counted from 0 before
+    its tuning (trials included) and read after its pair."""
+    import torch
+    from spfft_tpu_torch import faults
+    from spfft_tpu_torch.programs import gbench
+
+    t0 = time.perf_counter()
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 7)
+    rows, counts = [], {}
+    os.makedirs(REPORTS, exist_ok=True)
+    wisdom = os.path.abspath(os.path.join(REPORTS, f"wisdom-{os.getpid()}.json"))
+    if os.path.exists(wisdom):
+        os.remove(wisdom)
+    bar = ORACLE_RTOL["highest"]
+    before = rung_counters()
+    tuned = {}
+    with knobs({"SPFFT_TPU_WISDOM": wisdom}):
+        # local plans: the engine axis
+        for name, kind in TUNE_PLANS:
+            t1 = time.perf_counter()
+            triplets, vals, want = data[kind, 0.659]
+            make = lambda: sp.Transform(sp.ProcessingUnit.GPU, getattr(sp.TransformType,
+                                                                       kind.upper()),
+                                        *DIMS, indices=triplets, dtype=F32, policy="tuned")
+            values_dev = torch.as_tensor(vals.astype(np.complex64), device="cuda")
+            clear_counts()
+            t = make()
+            tuned_counts = launch_counts()
+            pair = run_pair(sp, t, values_dev)
+            label = f"tuned:{name}"
+            counts[label] = add_counts(tuned_counts, pair["counts"])
+            oracle_err, rt_err = oracle_errs(pair["space"], pair["back"], values_dev, want)
+            ran = trials_run(sp)
+            again = make()
+            rec = t.report()["tuning"]
+            # a plan with bfloat16 DFT matrices (its record and card name the
+            # K1 form) is held to the one-bf16-pass bar, and says so in its row
+            k1_form = t.report()["execution"].get("k1_form")
+            check(rec.get("k1_form") == k1_form, f"{label}: record {rec.get('k1_form')} "
+                  f"against card {k1_form}")
+            bar = ORACLE_RTOL["default" if k1_form == "highest-bf16" else "highest"]
+            row = {"phase": "tune", "plan": name, "engine": t.engine, "fused": t.fused,
+                   "choice": rec["choice"], "k1_form": k1_form,
+                   "provenance": rec["provenance"], "hit": rec["hit"],
+                   "trials": trial_table(rec), "oracle_rel_err": oracle_err,
+                   "roundtrip_rel_err": rt_err, "bar": bar,
+                   "second": {"hit": again._tuning["hit"], "engine": again.engine,
+                              "trials_run": trials_run(sp) - ran},
+                   "seconds": time.perf_counter() - t1}
+            emit(row)
+            check(rec["provenance"] == "wisdom" and not rec["hit"]
+                  and all("ms" in r for r in rec["trials"]), f"{label}: trials {rec}")
+            check(oracle_err <= bar and rt_err <= bar, f"{label}: {oracle_err}, {rt_err}")
+            check(row["second"] == {"hit": True, "engine": t.engine, "trials_run": 0},
+                  f"{label}: second construction {row['second']}")
+            # the forms the mxu candidates ran in their trials
+            for cand, env in MXU_CANDIDATES.items():
+                with knobs(env):
+                    ref = sp.Transform(sp.ProcessingUnit.GPU, getattr(sp.TransformType,
+                                                                      kind.upper()),
+                                       *DIMS, indices=triplets, dtype=F32, engine="mxu")
+                rows += [(r, label, k, key) for r, k, key in
+                         local_form_rows(sp, f"{label}/{cand}", ref, gen)]
+            tuned[label], tuned[label + "/again"] = t, again
+            del pair, ref
+        # mesh plans: the exchange discipline
+        bar = ORACLE_RTOL["highest"]
+        triplets, vals_global, want = data["c2c", 0.659]
+        for name, shape in TUNE_MESHES:
+            t1 = time.perf_counter()
+            make, vals = mesh_maker(sp, name, shape, triplets, vals_global)
+            clear_counts()
+            t = make(policy="tuned")
+            tuned_counts = launch_counts()
+            pair = run_pair(sp, t, vals)
+            label = f"tuned:{name}"
+            counts[label] = add_counts(tuned_counts, pair["counts"])
+            oracle_err, rt_err = oracle_errs(pair["space"], pair["back"], vals, want)
+            ran = trials_run(sp)
+            again = make(policy="tuned")
+            rec = t.report()["tuning"]
+            row = {"phase": "tune", "plan": name, "engine": t.engine,
+                   "exchange": t.exchange_type.name, "choice": rec["choice"],
+                   "provenance": rec["provenance"], "hit": rec["hit"],
+                   "trials": trial_table(rec), "oracle_rel_err": oracle_err,
+                   "roundtrip_rel_err": rt_err, "bar": bar,
+                   "second": {"hit": again._tuning["hit"],
+                              "exchange": again.exchange_type.name,
+                              "trials_run": trials_run(sp) - ran},
+                   "seconds": time.perf_counter() - t1}
+            emit(row)
+            check(rec["provenance"] == "wisdom" and len(rec["trials"]) == 3
+                  and all("ms" in r for r in rec["trials"]), f"{label}: trials {rec}")
+            check(oracle_err <= bar and rt_err <= bar, f"{label}: {oracle_err}, {rt_err}")
+            check(row["second"] == {"hit": True, "exchange": t.exchange_type.name,
+                                    "trials_run": 0}, f"{label}: second {row['second']}")
+            rows += [(r, label, k, key) for r, k, key in mesh_form_rows(label, t, gen)]
+            tuned[label], tuned[label + "/again"] = t, again
+            del pair
+        no_rungs("tuned plans", tuned, before)
+        del tuned
+    os.remove(wisdom)
+
+    # the scheduler: the gbench graph, each task bitwise its solo plan's
+    t1 = time.perf_counter()
+    clear_counts()
+    doc, serial_results, graph = gbench.main(GBENCH_ARGS)
+    gcounts = launch_counts()
+    equal_tasks = {tid: same(graph.task(tid).result, res) for tid, res in serial_results.items()}
+    serial_row, sched_row = doc["rows"]
+    emit({"phase": "gbench", "args": GBENCH_ARGS, "rows": doc["rows"],
+          "placement": doc["placement"], "metrics": doc["metrics"],
+          "tasks_bitwise_solo": sum(equal_tasks.values()), "tasks": len(equal_tasks),
+          "serial_transforms_per_sec": serial_row["transforms_per_sec"],
+          "sched_transforms_per_sec": sched_row["transforms_per_sec"],
+          "sched_vs_serial": sched_row["overlap_vs_serial"],
+          "seconds": time.perf_counter() - t1})
+    check(all(equal_tasks.values()), f"gbench: tasks differ from their solo plans: "
+          f"{[k for k, v in equal_tasks.items() if not v]}")
+    seen = set()
+    for task in graph:
+        if id(task.plan) in seen:
+            continue
+        seen.add(id(task.plan))
+        label = f"gbench:{task.plan.dim_x}"
+        counts[label] = gcounts
+        rows += [(r, label, k, key) for r, k, key in local_form_rows(sp, label, task.plan, gen)]
+    del graph, serial_results
+
+    # the empty plan on the torch.fft engine (cuFFT): JAX's zero grid and (0,) values
+    for kind in ("c2c", "r2c"):
+        e = sp.Transform(sp.ProcessingUnit.GPU, getattr(sp.TransformType, kind.upper()),
+                         64, 64, 64, num_local_elements=0, indices=np.zeros((0, 3), np.int32),
+                         engine="xla", dtype=F32)
+        space = e.backward(np.zeros(0, np.complex64))
+        back = e.forward(space, sp.ScalingType.FULL)
+        again = e.backward(np.zeros(0, np.complex64))  # the fused plan's replay
+        ok = (tuple(space.shape) == (64, 64, 64) and not bool(space.abs().any())
+              and tuple(back.shape) == (0,) and torch.equal(again, space))
+        emit({"phase": "empty_plan", "transform": kind, "engine": e.engine, "fused": e.fused,
+              "space_shape": list(space.shape), "space_dtype": str(space.dtype),
+              "values_shape": list(back.shape), "ok": ok})
+        check(ok, f"the empty {kind} plan on cuFFT")
+
+    # the mesh plans' legacy path (ir_lower_failed), against the staged twin
+    for name, shape in TUNE_MESHES:
+        make, vals = mesh_maker(sp, name, shape, triplets, vals_global)
+        with faults.inject("ir.lower=raise"):
+            leg = make()
+        twin = make(fuse=False)
+        staged = run_pair(sp, twin, vals)
+        got = run_pair(sp, leg, vals)
+        scale = float(staged["space"].abs().max())
+        err = max(float((got["space"] - staged["space"]).abs().max()) / scale,
+                  max(float((a - b).abs().max()) for a, b in zip(got["back"], staged["back"]))
+                  / max(float(v.abs().max()) for v in vals))
+        card = leg.report()
+        n_k1, n_k2 = (sum(got["counts"][k].values()) for k in ("complex_matmul", "row_gather"))
+        label = f"legacy:{name}"
+        counts[label] = got["counts"]
+        row = {"phase": "legacy", "plan": name, "engine": leg.engine,
+               "exchange": leg.exchange_type.name, "path": card["ir"]["path"],
+               "degradations": [d["event"] for d in card["degradations"]],
+               "rel_err_vs_staged_twin": err, "bitwise": same(got["space"], staged["space"])
+               and same(got["back"], staged["back"]),
+               "launches": {"complex_matmul": n_k1, "row_gather": n_k2},
+               "twin_launches": {k: sum(v.values()) for k, v in staged["counts"].items()},
+               "dispatches": got["dispatches"]}
+        emit(row)
+        check(row["path"] == "legacy" and row["degradations"] == ["ir_lower_failed"],
+              f"{label}: {row['path']}, {row['degradations']}")
+        check(n_k1 > 0 and n_k2 > 0, f"{label}: K1 {n_k1}, K2 {n_k2} launches")
+        check(err <= LEGACY_RTOL, f"{label}: {err} against its staged twin")
+        rows += [(r, label, k, key) for r, k, key in mesh_form_rows(label, leg, gen)]
+        del leg, twin, staged, got
+    gc.collect()
+    torch.cuda.empty_cache()
+    emit({"phase": "tuning", "seconds": time.perf_counter() - t0})
+    return rows, counts
+
+
 # ---- pair times against other trees (--against) ----------------------------------
 
 # the 256^3 plans that --against times, fused and staged: local names of
@@ -2537,8 +2846,11 @@ def main() -> int:
         check(report[name]["sass_hgmma"] > 0, f"{name} has no HGMMA instruction")
     # the float64 body runs on the FP64 tensor cores
     check(report["complex_matmul_f64"]["sass_dmma"] > 0, "complex_matmul_f64 has no DMMA instruction")
-    # each library runs its precision's arithmetic: TF32 for "highest", BF16 below
-    check(report["complex_matmul"]["sass_hgmma_bf16"] == 0, "complex_matmul has BF16 HGMMA")
+    # each library runs its precision's arithmetic: TF32 for "highest" (and its
+    # bfloat16-constant form), BF16 below
+    for name in ("complex_matmul", "complex_matmul_tf32x2"):
+        check(report[name]["sass_hgmma"] > 0, f"{name} has no HGMMA instruction")
+        check(report[name]["sass_hgmma_bf16"] == 0, f"{name} has BF16 HGMMA")
     for name in LIBRARIES[1:3]:
         check(report[name]["sass_hgmma_bf16"] > 0, f"{name} has no BF16 HGMMA instruction")
 
@@ -2710,6 +3022,11 @@ def main() -> int:
 
     # ---- faults and verify: guard, verify and the ladder on the main path ----
     faults_phase(sp, fdata)
+
+    # ---- tuning and scheduling: the tuned policy, wisdom, gbench, the legacy path ----
+    trows, tcounts = tuning_phase(sp, fdata)
+    rows += trows
+    counts.update(tcounts)
     del fdata
 
     kernels = []

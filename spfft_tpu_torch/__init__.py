@@ -18,7 +18,10 @@ CUDA-graph replay), or node by node with ``fuse=False``. Plan cards (``t.report(
 guard mode, fault injection and the degradation ladder
 (:mod:`spfft_tpu_torch.faults`) and self-verification
 (:mod:`spfft_tpu_torch.verify`, ``verify=``) its robustness layers;
-``python -m spfft_tpu_torch.programs.benchmark`` is the reference benchmark.
+``policy="tuned"`` measures the plan's choices and keeps them in wisdom
+(:mod:`spfft_tpu_torch.tuning`), and :mod:`spfft_tpu_torch.sched` runs task
+graphs of transforms; ``python -m spfft_tpu_torch.programs.benchmark`` is
+the reference benchmark.
 
     import spfft_tpu_torch as sp
     trip = sp.create_spherical_cutoff_triplets(64, 64, 64, 0.659)
@@ -55,7 +58,7 @@ from .errors import (  # noqa: F401
     ServiceOverloadError,
     VerificationError,
 )
-from . import faults, obs, sync, timing, verify  # noqa: F401
+from . import faults, obs, sched, sync, timing, tuning, verify  # noqa: F401
 from .distributed import DistributedTransform  # noqa: F401
 from .grid import Grid, device_for_processing_unit  # noqa: F401
 from .multi_transform import (  # noqa: F401

@@ -102,6 +102,9 @@ def library(name: str) -> ctypes.CDLL:
     lib = _libraries.get(name)
     if lib is None:
         build_all([name])
-        lib = ctypes.CDLL(str(_target(name)))
+        try:
+            lib = ctypes.CDLL(str(_target(name)))
+        except OSError as e:
+            raise GPUSupportError(f"cannot load the library of csrc/{name}.cu: {e}") from e
         _libraries[name] = lib
     return lib

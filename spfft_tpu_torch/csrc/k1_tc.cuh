@@ -11,6 +11,10 @@
 //     the same three products, wgmma m64nNk16 BF16 (twice the TF32 rate);
 //     the dropped terms are about 2^-16 of the product.
 //   Bf16x1 ("default"): hi.hi alone, no lo parts made or loaded.
+//   Tf32x2 ("highest" with a bfloat16 constant, SPFFT_TPU_TWIDDLE_BF16): V
+//     is exact in BF16, so in TF32 too, and its lo part is zero: V's hi
+//     plane alone is loaded (half Tf32x3's V bytes) and lo.hi + hi.hi
+//     issued, the same sums as Tf32x3 on that V.
 // a - hi is exact in FP32, and a product of two TF32 or two BF16 values is
 // exact in FP32, so the only roundings are the sums. A K tile is 128 bytes
 // of V's K axis: 32 tf32 or 64 bf16, four wgmma k-steps either way.
@@ -25,9 +29,11 @@
 namespace {
 namespace tc {
 
-struct Tf32x3 { static constexpr bool BF16 = false, LO = true; };
-struct Bf16x3 { static constexpr bool BF16 = true, LO = true; };
-struct Bf16x1 { static constexpr bool BF16 = true, LO = false; };
+// LO: D's lo part is made and multiplied; V_LO: V has a lo plane.
+struct Tf32x3 { static constexpr bool BF16 = false, LO = true, V_LO = true; };
+struct Tf32x2 { static constexpr bool BF16 = false, LO = true, V_LO = false; };
+struct Bf16x3 { static constexpr bool BF16 = true, LO = true, V_LO = true; };
+struct Bf16x1 { static constexpr bool BF16 = true, LO = false, V_LO = false; };
 
 // K per stage: one 128-byte row of V
 template <class M> __host__ __device__ constexpr int bk() { return M::BF16 ? 64 : 32; }
@@ -40,7 +46,7 @@ constexpr int HALF = BP / 2;      // rows of D per warpgroup
 constexpr int KSTEPS = 4;         // wgmma k-steps per K tile
 
 // V planes per part (re, im): hi, and lo unless the mode has none.
-template <class M> __host__ __device__ constexpr int planes() { return M::LO ? 2 : 1; }
+template <class M> __host__ __device__ constexpr int planes() { return M::V_LO ? 2 : 1; }
 template <class M, int BN, bool V_IM>
 __host__ __device__ constexpr int v_stage_bytes() {
   return (V_IM ? 2 : 1) * planes<M>() * BN * 128;
@@ -293,10 +299,10 @@ __global__ void __launch_bounds__(THREADS, 1) tc_kernel(
       // Re = Dr Vr - Di Vi, the small products first
       if constexpr (M::LO) {
         MMA::template mma<1>(tmp_r, r_lo, vr_hi, zr);
-        MMA::template mma<1>(tmp_r, r_hi, vr_lo, 1);
+        if constexpr (M::V_LO) MMA::template mma<1>(tmp_r, r_hi, vr_lo, 1);
         if constexpr (D_IM && V_IM) {
           MMA::template mma<-1>(tmp_r, i_lo, vi_hi, 1);
-          MMA::template mma<-1>(tmp_r, i_hi, vi_lo, 1);
+          if constexpr (M::V_LO) MMA::template mma<-1>(tmp_r, i_hi, vi_lo, 1);
         }
         zr = 1;
       }
@@ -305,12 +311,12 @@ __global__ void __launch_bounds__(THREADS, 1) tc_kernel(
       // Im = Dr Vi + Di Vr
       if constexpr (C_IM && V_IM && M::LO) {
         MMA::template mma<1>(tmp_i, r_lo, vi_hi, zi);
-        MMA::template mma<1>(tmp_i, r_hi, vi_lo, 1);
+        if constexpr (M::V_LO) MMA::template mma<1>(tmp_i, r_hi, vi_lo, 1);
         zi = 1;
       }
       if constexpr (C_IM && D_IM && M::LO) {
         MMA::template mma<1>(tmp_i, i_lo, vr_hi, zi);
-        MMA::template mma<1>(tmp_i, i_hi, vr_lo, 1);
+        if constexpr (M::V_LO) MMA::template mma<1>(tmp_i, i_hi, vr_lo, 1);
         zi = 1;
       }
       if constexpr (C_IM && V_IM) {

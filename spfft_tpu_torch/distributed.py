@@ -35,7 +35,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from . import faults, obs, timing
+from . import faults, knobs, obs, timing, tuning
 from .errors import InvalidParameterError, MPIError
 from .grid import Grid
 from .ops.fft import resolve_precision
@@ -51,6 +51,7 @@ from .parameters import (DistributedParameters, distribute_triplets,
 from .sync import fence
 from .transform import (_Observed, _resolve_batch_count, _validate_data_location,
                         reference_parts, storage_triplets_from)
+from .verify import VERIFY_ENV, resolve_mode
 from .types import (ExchangeType, ExecType, IndexFormat, ProcessingUnit, ScalingType,
                     TransformType, wire_scalar_bytes)
 
@@ -71,8 +72,11 @@ class DistributedTransform(_Observed):
     mesh, inside the engine on a pencil mesh (the JAX package's cost model).
     ``local_z_lengths`` cut the slabs of a slab mesh; a pencil mesh splits
     z and y evenly.
-    ``overlap`` and ``policy`` take only their defaults (1, ``"default"``):
-    the OVERLAPPED exchange and ``policy="tuned"`` are not ported and raise.
+    ``overlap`` takes only 1: the OVERLAPPED exchange is not ported and
+    raises. ``policy="tuned"`` (None reads ``SPFFT_TPU_POLICY``) resolves a
+    DEFAULT exchange by measurement on a slab or pencil mesh
+    (:mod:`spfft_tpu_torch.tuning`; the model over more than one process),
+    its record in ``report()["tuning"]``.
     A process group that fails while the exchange is built raises
     :class:`MPIError`; no engine takes its place. ``guard`` and ``verify``
     as on :class:`~spfft_tpu_torch.transform.Transform`; ``verify`` needs
@@ -142,6 +146,7 @@ class DistributedTransform(_Observed):
         if self._real_dtype not in (np.dtype(np.float32), np.dtype(np.float64)):
             raise InvalidParameterError("dtype must be float32 or float64")
         self._policy = resolve_policy(policy)
+        self._tuning = None  # the tuned decision's record (tuning._record)
         resolve_overlap_chunks(overlap)
         self._requested_exchange = exchange_type
         self._precision = resolve_precision(precision)
@@ -150,6 +155,19 @@ class DistributedTransform(_Observed):
         self._run_id = obs.trace.new_run_id()
         pencil = is_pencil2_mesh(mesh)
         with obs.trace.operation("plan", run_id=self._run_id, kind="distributed"):
+            if exchange_type == ExchangeType.DEFAULT and self._policy == "tuned":
+                # trial plans name their discipline and take the model
+                # policy, so tuning cannot recurse
+                def trial(cand):
+                    return DistributedTransform.from_parameters(
+                        self._processing_unit, p, mesh=mesh,
+                        exchange_type=ExchangeType[cand["exchange_type"]],
+                        dtype=self._real_dtype, engine=engine, precision=self._precision,
+                        policy="default", fuse=fuse, guard=False, verify=False)
+
+                with faults.collecting(self._degradations):
+                    exchange_type, self._tuning = tuning.tuned_exchange(
+                        p, mesh, self._real_dtype, engine, self._precision, pencil, trial)
             if exchange_type == ExchangeType.DEFAULT and not pencil:
                 exchange_type = resolve_default_for_plan(p)
             if engine == "auto":  # the JAX package's rule (spfft_tpu/distributed.py:208-209)
@@ -191,6 +209,8 @@ class DistributedTransform(_Observed):
                     except faults.ENGINE_BUILD_ERRORS as e2:
                         raise MPIError(f"distributed engine construction failed: {e2}") from e2
             self._engine = name.get((engine, pencil), engine)
+            if self._tuning is not None:
+                self._tuning = tuning.with_k1_form(self._tuning, self._exec)
             obs.trace.event("decision", what="engine", choice=self._engine, policy=self._policy)
             obs.trace.event("decision", what="exchange", choice=self.exchange_type.name,
                             overlap=self.overlap_chunks)
@@ -198,10 +218,13 @@ class DistributedTransform(_Observed):
         self._space_data = None  # native: (re, im) for C2C, re for R2C
         # a plan constant, counted on every call: summed here once
         self._wire_bytes = self.exchange_wire_bytes()
-        if mesh.world > 1 and verify not in (None, False, "0", "off", ""):
-            # the checks and the reference rung need every shard's data here
+        if mesh.world > 1 and resolve_mode(verify) != "off":
+            # the checks and the reference rung need every shard's data here;
+            # the mode is the resolved one, so SPFFT_TPU_VERIFY is refused too
+            source = f"verify={verify!r}" if verify is not None else \
+                f"{VERIFY_ENV}={knobs.raw(VERIFY_ENV)!r}"
             raise InvalidParameterError(
-                f"verify={verify!r} needs every shard in this process, but the mesh "
+                f"{source} needs every shard in this process, but the mesh "
                 f"spans {mesh.world} processes: verify each process's local plans instead")
         self._init_verify(verify)
 

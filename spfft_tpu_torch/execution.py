@@ -173,6 +173,8 @@ class LocalExecution(ExecutionBase):
         return sticks
 
     def _st_z_backward(self, sticks):
+        if sticks.shape[0] == 0:  # an empty plan: no batch to transform
+            return sticks
         return torch.fft.ifft(sticks, dim=1, norm="forward")
 
     def _st_expand(self, sticks):
@@ -210,6 +212,8 @@ class LocalExecution(ExecutionBase):
         return grid.permute(1, 2, 0)[self._stick_y, self._stick_x]
 
     def _st_z_forward(self, sticks):
+        if sticks.shape[0] == 0:  # an empty plan: no batch to transform
+            return sticks
         return torch.fft.fft(sticks, dim=1)
 
     def _st_compress(self, sticks, scaling):

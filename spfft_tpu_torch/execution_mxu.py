@@ -65,6 +65,8 @@ class MxuLocalExecution(ExecutionBase):
         p = params
         S, Z = p.num_sticks, p.dim_z
         self.precision = offt.resolve_precision(precision)
+        self.k1_precision = offt.k1_form(self.precision, self.real_dtype)
+        self.twiddle_dtype = offt.twiddle_dtype(self.real_dtype)
         self._zs = Z  # the z extent of the (Y, A, Z) grid
 
         if S:
@@ -117,6 +119,8 @@ class MxuLocalExecution(ExecutionBase):
         gives those the port has."""
         return {
             "matmul_precision": self.precision.upper(),
+            "k1_form": self.k1_precision,
+            "twiddle_dtype": self.twiddle_dtype,
             "num_x_active": int(self.num_x_active),
             "dim_x_freq": int(self.params.dim_x_freq),
             "sparse_y": offt.describe_sparse_y(bool(self.sy), self.buckets, self.sy),
@@ -127,11 +131,11 @@ class MxuLocalExecution(ExecutionBase):
     def _const(self, w):
         """A stage's DFT matrix V (K x Q), prepared once for K1 (on a float32
         CUDA plan: split and laid out in the kernel's tiles)."""
-        return Constant(*self.put_pair(w), self.precision)
+        return Constant(*self.put_pair(w), self.k1_precision)
 
     def _const_t(self, w):
         """The same for a stage whose matrix is the product's left factor: V = W^T."""
-        return Constant(*(t.mT for t in self.put_pair(w)), self.precision)
+        return Constant(*(t.mT for t in self.put_pair(w)), self.k1_precision)
 
     def _plan_y(self, xslot, ys, ux, num_sticks, has_x0, blocked=True):
         """Choose the y plan as the JAX engine does (C2C tries per-slot
@@ -190,7 +194,7 @@ class MxuLocalExecution(ExecutionBase):
     def _mm(self, xr, xi, w, spec, out=None):
         """One K1 stage with the plan constant ``w``."""
         return offt.complex_matmul(xr, xi, *offt.constant_operands(spec, w), spec, constant=w,
-                                   precision=self.precision, out=out)
+                                   precision=self.k1_precision, out=out)
 
     def _st_decompress(self, values_re, values_im):
         """Packed values -> the (table rows, Z) stick table."""
@@ -258,7 +262,7 @@ class MxuLocalExecution(ExecutionBase):
         w = self._wx_b
         if self.is_r2c:
             return offt.real_out_matmul(gre, gim, *w.pair, "kxz,xl->klz", constant=w,
-                                        precision=self.precision)
+                                        precision=self.k1_precision)
         return self._mm(gre, gim, w, "kxz,xl->klz")
 
     def _st_x_forward(self, space_re, space_im):
@@ -266,7 +270,7 @@ class MxuLocalExecution(ExecutionBase):
         w = self._wx_f
         if self.is_r2c:
             return offt.real_in_matmul(space_re, *w.pair, "yxz,xk->ykz", constant=w,
-                                       precision=self.precision)
+                                       precision=self.k1_precision)
         return self._mm(space_re, space_im, w, "yxz,xk->ykz")
 
     def _st_y_dense_forward(self, gre, gim):

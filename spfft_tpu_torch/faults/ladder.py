@@ -14,9 +14,14 @@ The port of ``spfft_tpu/faults/ladder.py``. The rungs the port takes:
    :class:`~spfft_tpu_torch.errors.HostExecutionError` or
    :class:`~spfft_tpu_torch.errors.GPUFFTError` (:func:`typed_execution`).
 
-The JAX package's wisdom, trial and ``hlo.stats`` rungs wait for their
-subsystems. Every rung lands in the plan's ``degradations`` list (the plan
-card) and counts ``degradations_total{event}``.
+4. **Tuning and scheduling**: ``wisdom_load_failed``,
+   ``wisdom_save_failed``, ``wisdom_quarantined``
+   (:mod:`spfft_tpu_torch.tuning.wisdom`), ``sched_place_failed`` and
+   ``host_lost`` (:mod:`spfft_tpu_torch.sched`).
+
+The JAX package's ``hlo.stats`` rung waits for its subsystem. Every rung
+lands in the plan's ``degradations`` list (the plan card) and counts
+``degradations_total{event}``.
 """
 from __future__ import annotations
 

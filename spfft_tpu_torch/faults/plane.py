@@ -9,10 +9,11 @@ ladder's response.
 **Sites** (:data:`SITES`): the JAX package's whole vocabulary, so that one
 ``SPFFT_TPU_FAULTS`` spec parses the same in both packages. The port threads
 ``engine.compile``, ``engine.execute``, ``exchange.build``, ``ir.lower``,
-``ir.compile``, ``ir.batch``, ``sync.fence`` and ``verify.check``; the
-others name subsystems that are not ported yet (tuning and wisdom,
-``hlo.stats``, serving, the scheduler, hosts and RPC) and are registered
-but reached by no call.
+``ir.compile``, ``ir.batch``, ``sync.fence``, ``verify.check``,
+``tuning.trial``, ``wisdom.load``, ``wisdom.save``, ``sched.place`` and
+``sched.run``; the others name subsystems that are not ported yet
+(``hlo.stats``, serving, hosts and RPC) and are registered but reached by
+no call.
 
 **Kinds** (:data:`KINDS`): ``raise`` raises :class:`InjectedFault`;
 ``nan`` / ``corrupt`` poison the site's payload (tensors multiplied by NaN /

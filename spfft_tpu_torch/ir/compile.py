@@ -22,9 +22,9 @@ each recorded on the plan card's ``degradations`` and in
 ``degradations_total`` (:mod:`spfft_tpu_torch.faults`):
 
 * ``ir_lower_failed`` (fault site ``ir.lower``, or a lowering or validation
-  that fails): a local engine runs its **legacy** path, its stage bodies
-  called in order with no graph; a mesh engine has none and raises
-  :class:`~spfft_tpu_torch.errors.MPIError`;
+  that fails): the engine runs its **legacy** path, its stage bodies called
+  in its builder's node order with no graph (a mesh engine's exchanges on
+  the same route as its nodes: a gather, or pack, collective and unpack);
 * ``fuse_compile_failed`` (fault site ``ir.compile`` when the plan is built,
   or a fused program whose first call fails with a runtime error, such as a
   CUDA-graph capture that the CUDA runtime refuses): the staged path, from
@@ -52,11 +52,13 @@ and never at a replay.
 from __future__ import annotations
 
 import collections
+import contextlib
+import gc
 
 import torch
 
 from .. import faults, knobs, obs, timing
-from ..errors import GPUError, InvalidParameterError, MPIError
+from ..errors import GPUError, InvalidParameterError
 from ..types import ScalingType
 
 FUSE_ENV = "SPFFT_TPU_FUSE"
@@ -203,7 +205,7 @@ class _Program:
                     self.body(*static_in)
                 current.wait_stream(side)
                 graph = torch.cuda.CUDAGraph()
-                with torch.cuda.graph(graph, pool=self.pool):
+                with no_collection(), torch.cuda.graph(graph, pool=self.pool):
                     static_out = self.body(*static_in)
             except Exception as e:  # the class is kept: EngineIr decides the rung
                 # a capture that fails inside torch.cuda.graph leaves its
@@ -212,6 +214,22 @@ class _Program:
                 e.add_note(f"{self.what}: CUDA graph capture failed at stage {self.stage()!r}")
                 raise
         self._captured = (graph, static_in, static_out)
+
+
+@contextlib.contextmanager
+def no_collection():
+    """Python's cyclic garbage collector held off for a CUDA-graph capture. A
+    plan that was dropped is cyclic garbage (its engine and its programs refer
+    to each other); a collection during a capture would destroy its graphs,
+    which the CUDA runtime refuses while a stream captures, and the refusal
+    invalidates the capture."""
+    enabled = gc.isenabled()
+    gc.disable()
+    try:
+        yield
+    finally:
+        if enabled:
+            gc.enable()
 
 
 def _clone(out):
@@ -426,10 +444,6 @@ COLLECTIVE_STAGED = ("the exchange is a torch.distributed collective, which this
                      "does not capture into a CUDA graph")
 
 
-# the ROADMAP item of a legacy path for the mesh engines
-MESH_LEGACY = "ROADMAP queue A, item 9: the mesh engines' legacy path"
-
-
 def init_engine_ir(engine, fuse=None) -> EngineIr:
     """Lower ``engine``, validate its graphs and choose its path: fused
     unless ``fuse=False`` or ``SPFFT_TPU_FUSE=0``, and staged for a mesh
@@ -454,10 +468,6 @@ def init_engine_ir(engine, fuse=None) -> EngineIr:
         for g in graphs["forward"].values():
             g.validate()
     except rung_errors as e:
-        if engine._legacy_backward is None:
-            raise MPIError(
-                f"ir: lowering failed ({faults.summarize(e)}) and a mesh engine has no "
-                f"legacy path ({MESH_LEGACY})") from e
         faults.record_degradation("ir_lower_failed", faults.summarize(e))
         return EngineIr(None, path="legacy", requested=requested, device=engine.device,
                         engine=engine)

@@ -47,6 +47,31 @@ REGISTRY = {k.name: k for k in (
          "batch fusion: `1` lets a same-plan batch of B transforms run as one program "
          "per direction; `0` keeps the per-request loop. Read at call time",
          choices=("0", "1")),
+    Knob("SPFFT_TPU_TWIDDLE_BF16", "bool", False,
+         "`1` rounds the matrix-product engines' DFT stage matrices to bfloat16 "
+         "(float32 plans only; float64 plans ignore it). At `highest` K1 runs its "
+         "`highest-bf16` form, which reads them as bfloat16; the plan is then about "
+         "1e-3 from the exact transform. The `mxu/bf16-twiddle` tuning candidate "
+         "sets it"),
+    # ---- plan decisions, tuning and scheduling (spfft_tpu_torch.tuning, .sched) ----
+    Knob("SPFFT_TPU_POLICY", "str", "default",
+         "plan-decision policy: `tuned` resolves `ExchangeType.DEFAULT` and "
+         "`engine=\"auto\"` by measurement through `spfft_tpu_torch.tuning` (a "
+         "plan's `policy=` argument wins)", choices=("default", "tuned")),
+    Knob("SPFFT_TPU_WISDOM", "str", None,
+         "path of the wisdom JSON file that the tuned policy reads and writes; "
+         "unset = a store in process memory"),
+    Knob("SPFFT_TPU_TUNE_REPEATS", "int", 5,
+         "timed round trips per tuning trial candidate (the best counts)", floor=1),
+    Knob("SPFFT_TPU_TUNE_WARMUP", "int", 1,
+         "untimed round trips per trial candidate before the timed ones (CUDA-graph "
+         "capture and kernel builds land there)", floor=0),
+    Knob("SPFFT_TPU_TUNE_CPU", "bool", False,
+         "`1` lets tuning trials run on CPU plans (tests); by default a CPU plan "
+         "takes the model policy, so CPU timings never enter wisdom"),
+    Knob("SPFFT_TPU_SCHED_INFLIGHT", "int", 8,
+         "task-graph executor window: transform executions dispatched at once "
+         "before one must be finalized (`sched.run_graph(max_inflight=)` wins)", floor=1),
     # ---- observability (spfft_tpu_torch.obs, .timing, .sync) ----
     Knob("SPFFT_TPU_METRICS", "bool", True,
          "`0` disables the `spfft_tpu_torch.obs` run-metrics registry at import: "

@@ -2,9 +2,9 @@
 
 The JAX package's ``spfft_tpu/obs/metrics.py``, limited to the metrics that
 the ported paths record, with the same names, kinds, label keys and docs.
-The JAX package's other rows (tuning and wisdom, serving, multi-host and
-the scheduler, and ``sync_probe_failures_total`` of the TPU-only fence
-probes) wait for those subsystems (ROADMAP queue A).
+The JAX package's other rows (serving, multi-host and the fleet, and
+``sync_probe_failures_total`` of the TPU-only fence probes) wait for those
+subsystems (ROADMAP queue A).
 
 Rows are ``(name, kind, label_keys, doc)``. Label values are free-form; only
 the key set is pinned.
@@ -41,6 +41,19 @@ METRICS = (
      "guard-mode validations that raised typed"),
     ("faults_injected_total", "counter", ("site", "kind"),
      "chaos injections that actually fired, per site and kind"),
+    # ---- tuning / wisdom ----------------------------------------------------
+    ("tuning_trials_total", "counter", ("candidate",),
+     "autotuner trial candidates measured"),
+    ("tuning_trial_failures_total", "counter", ("candidate",),
+     "trial candidates that errored into an error row"),
+    ("tuning_trial_seconds", "histogram", (),
+     "wall time of one trial measurement (warmup + repeats)"),
+    ("wisdom_quarantined_total", "counter", (),
+     "corrupt wisdom stores/bundles moved aside to *.corrupt"),
+    ("wisdom_retries_total", "counter", (),
+     "wisdom write retries (transient filesystem failures)"),
+    ("wisdom_save_failures_total", "counter", (),
+     "wisdom writes abandoned after the retry budget (recorded loss)"),
     # ---- verification / breaker ---------------------------------------------
     ("verify_checks_total", "counter", ("check", "verdict"),
      "ABFT check evaluations, per check and pass/fail verdict"),
@@ -54,6 +67,19 @@ METRICS = (
      "per-engine circuit-breaker state (0 closed / 1 half-open / 2 open)"),
     ("verify_breaker_trips_total", "counter", ("engine",),
      "circuit-breaker open transitions"),
+    # ---- scheduler ----------------------------------------------------------
+    ("sched_tasks_total", "counter", ("outcome",),
+     "task-graph tasks resolved, per outcome"),
+    ("sched_place_total", "counter", ("provenance",),
+     "placement decisions, per provenance (model / wisdom / pinned)"),
+    ("sched_retries_total", "counter", (),
+     "task re-dispatches inside the executor ladder"),
+    ("sched_inflight", "gauge", (),
+     "transform executions currently dispatched and unfinalized"),
+    ("sched_graph_depth", "gauge", (),
+     "critical-path depth of the last scheduled graph"),
+    ("host_requeues_total", "counter", (),
+     "in-flight tasks requeued onto a surviving host after host loss"),
     # ---- performance observatory --------------------------------------------
     ("perf_pair_seconds", "histogram", ("engine", "decomposition"),
      "fenced seconds per backward+forward pair (perf reports)"),

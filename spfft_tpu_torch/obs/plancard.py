@@ -13,9 +13,10 @@ JAX cost model's table that its engine weighed).
 (:mod:`spfft_tpu_torch.faults`), live: a rung taken at a first dispatch
 appears in a later card. ``verification`` is the supervisor's own record
 (:mod:`spfft_tpu_torch.verify`) when verification is armed, else the
-``"off"`` record with the engine's breaker. Where the port lacks a subsystem
-of the JAX package, the card carries what the JAX card carries for a plan
-without it: the ``tuning`` and ``placement`` sections are absent.
+``"off"`` record with the engine's breaker. ``tuning`` is a tuned plan's
+decision record (:mod:`spfft_tpu_torch.tuning`), ``placement`` the record of
+a plan that the scheduler's placement pass built (:mod:`spfft_tpu_torch.sched`);
+each is absent otherwise, as in the JAX card.
 ``include_compiled=True`` (HLO statistics, ``obs/hlo.py``) has no
 counterpart without HLO and raises.
 """
@@ -59,6 +60,14 @@ EXCHANGE_KEYS = (
 )
 POLICY_KEYS = ("round_cost_bytes", "one_shot_supported", "chosen", "alternatives")
 ALTERNATIVE_KEYS = ("discipline", "wire_bytes", "rounds", "cost_bytes", "chosen")
+# the tuned policy's record (spfft_tpu_torch.tuning._record); a trial row is
+# measured ("ms") or failed ("error")
+TUNING_KEYS = ("policy", "provenance", "hit", "wisdom_path", "key_digest", "reason", "choice",
+               "trials")
+TRIAL_KEYS = ("label",)
+TRIAL_RESULT_KEYS = ("ms", "error")
+# the scheduler's placement record (spfft_tpu_torch.sched.placement)
+PLACEMENT_KEYS = ("provenance", "hit", "reason", "choice", "device", "device_index")
 # the IR section (spfft_tpu_torch/ir/compile.py IR_KEYS) and the batch section
 IR_SECTION_KEYS = ("fused", "path", "requested", "stages", "donation")
 BATCH_SECTION_KEYS = ("enabled", "requested", "sizes", "failed")
@@ -163,7 +172,7 @@ def plan_card(transform, *, include_compiled: bool = False) -> dict:
         "nnz_fraction": num_elements / float(transform.global_size),
         "dtype": str(transform.dtype),
         "precision": str(transform.precision),
-        "policy": "default",
+        "policy": getattr(transform, "_policy", "default"),
         "platform": _platform(transform.device),
         "execution": ex.describe(),
         # the fallbacks this plan took (spfft_tpu_torch.faults.ladder)
@@ -194,6 +203,10 @@ def plan_card(transform, *, include_compiled: bool = False) -> dict:
                 card["exchange_policy"] = costs
         else:
             card["exchange_policy"] = _exchange_policy(transform)
+    if getattr(transform, "_tuning", None) is not None:
+        card["tuning"] = transform._tuning
+    if getattr(transform, "_placement", None) is not None:
+        card["placement"] = transform._placement
     return card
 
 
@@ -246,4 +259,18 @@ def validate_plan_card(card: dict) -> list:
         missing.extend(f"batch.{k}" for k in BATCH_SECTION_KEYS if k not in rec)
         if rec.get("requested") not in ("env", "default"):
             missing.append(f"batch.requested (unknown: {rec.get('requested')!r})")
+    if "placement" in card:
+        rec = card["placement"]
+        missing.extend(f"placement.{k}" for k in PLACEMENT_KEYS if k not in rec)
+        if rec.get("provenance") not in ("wisdom", "model", "pinned"):
+            missing.append(f"placement.provenance (unknown: {rec.get('provenance')!r})")
+    if "tuning" in card:
+        rec = card["tuning"]
+        missing.extend(f"tuning.{k}" for k in TUNING_KEYS if k not in rec)
+        if rec.get("provenance") not in ("wisdom", "model"):
+            missing.append(f"tuning.provenance (unknown: {rec.get('provenance')!r})")
+        for i, trial in enumerate(rec.get("trials", ())):
+            missing.extend(f"tuning.trials[{i}].{k}" for k in TRIAL_KEYS if k not in trial)
+            if not any(k in trial for k in TRIAL_RESULT_KEYS):
+                missing.append(f"tuning.trials[{i}].ms|error")
     return missing

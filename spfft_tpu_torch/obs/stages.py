@@ -6,9 +6,10 @@ is the pipeline part of it); on the staged path each node runs under
 ``timing.trace_annotation(<its stage>)``, so a ``torch.profiler`` trace
 names per-stage device time as a ``jax.profiler`` trace of the JAX package
 does; and the perf report (:mod:`.perf`) attributes pair time to them. The
-"A"/"B" labels are the pencil engines' two exchanges; the "overlapped"
-exchange labels and the tuning phases belong to parts of the JAX package
-not ported yet.
+"A"/"B" labels are the pencil engines' two exchanges; the tuning phases
+range a trial's round trips (:mod:`spfft_tpu_torch.tuning.runner`); the
+"overlapped" exchange labels belong to a part of the JAX package not
+ported yet.
 """
 from __future__ import annotations
 

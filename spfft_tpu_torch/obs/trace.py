@@ -44,12 +44,13 @@ DEFAULT_CAPACITY = knobs.default(TRACE_CAP_ENV)
 
 # Canonical trace event-name vocabulary: the JAX package's names that the
 # ported paths emit. Every ``trace.event/span/operation`` call in the package
-# names one of these. The JAX package's other names (tuning trials, wisdom,
-# serving, scheduler, hosts, RPC) wait for those subsystems.
+# names one of these. The JAX package's other names (serving, hosts, RPC)
+# wait for those subsystems.
 EVENTS = (
     # operation spans (each pushes/propagates the active run ID)
     "plan",            # Transform / DistributedTransform construction
     "execute",         # one host-facing backward/forward call
+    "tune.trial",      # one autotuner candidate trial (child run of its plan)
     # nested host-phase spans (labels = the timing-tree phase vocabulary)
     "phase",
     # completion-fence span (sync.fence)
@@ -62,6 +63,10 @@ EVENTS = (
     "verify",          # ABFT check verdict / retry / demotion / breaker
     #                    transition (spfft_tpu_torch.verify)
     "perf",            # performance report built (obs.perf)
+    "wisdom.load",     # wisdom store consulted (tuning.wisdom)
+    "wisdom.save",     # wisdom store write attempt (tuning.wisdom)
+    "sched",           # task-graph scheduler transition (spfft_tpu_torch.sched):
+    #                    graph, place, dispatch, finalize, demote, fail
     "error",           # typed spfft_tpu_torch.errors exception constructed
 )
 
@@ -424,10 +429,25 @@ DUMP_KEEP = 64
 _dump_warned = False
 
 
+@contextlib.contextmanager
+def suppressed_dumps():
+    """A scope in which :func:`dump` is a no-op (events still record): for
+    code that expects and recovers from typed errors, such as a tuning
+    trial's isolation, so that ``SPFFT_TPU_TRACE_DUMP`` is not flooded with
+    dumps of errors that were handled."""
+    prev = getattr(_tls, "no_dump", 0)
+    _tls.no_dump = prev + 1
+    try:
+        yield
+    finally:
+        _tls.no_dump = prev
+
+
 def dump(reason: str = "error") -> str | None:
     """Flush the flight recorder to a JSON file in the
     ``SPFFT_TPU_TRACE_DUMP`` directory; returns the path (None when the knob
-    is unset, tracing is disarmed, or the write failed — a dump must never
+    is unset, tracing is disarmed, a :func:`suppressed_dumps` scope is
+    active, or the write failed — a dump must never
     add a second failure to the one being dumped). At most :data:`DUMP_KEEP` files per process, the
     oldest rotated over. Warns once per process on the first dump so crash
     logs point at the artifact.
@@ -437,7 +457,7 @@ def dump(reason: str = "error") -> str | None:
     sessions."""
     global _dump_warned
     directory = knobs.get_str(TRACE_DUMP_ENV)
-    if not directory or not _recorder:
+    if not directory or not _recorder or getattr(_tls, "no_dump", 0):
         return None
     doc = dict(snapshot(), reason=str(reason))
     path = os.path.join(

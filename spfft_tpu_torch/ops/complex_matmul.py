@@ -18,6 +18,10 @@ two TF32 parts (:func:`split_tf32`) and each real product
 (:func:`complex_matmul_3xtf32` is that arithmetic in PyTorch); ``"high"`` is
 the same with BF16 parts (:func:`split_bf16`, :func:`complex_matmul_bf16x3`);
 ``"default"`` is one BF16 product ``hi.hi`` (:func:`complex_matmul_bf16x1`).
+The plans' fourth form, ``"highest-bf16"`` (``SPFFT_TPU_TWIDDLE_BF16``), is
+``"highest"`` with a plan constant exact in BF16: its TF32 lo part is zero,
+so the kernel loads the constant's hi planes alone and issues
+``lo.hi + hi.hi``, the sums of 3xTF32 on that constant.
 Float64 ignores the precision: its kernel (``csrc/complex_matmul_f64.cu``) runs
 on the FP64 tensor cores, in Gauss's three-product form where all four parts
 exist (:func:`complex_matmul_gauss` is that arithmetic in PyTorch). One
@@ -43,9 +47,14 @@ launches: collections.Counter = collections.Counter()
 
 _DTYPES = (torch.float32, torch.float64)
 PRECISIONS = ("highest", "high", "default")
-# Per float32 precision: the library (csrc/<name>.cu) and its C entry point.
+# The float32 kernel forms: the precisions, and "highest" with a bfloat16
+# plan constant (a plan's K1 form, never a caller's precision).
+BF16_CONSTANT = "highest-bf16"
+FORMS = PRECISIONS + (BF16_CONSTANT,)
+# Per float32 form: the library (csrc/<name>.cu) and its C entry point.
 LIBRARIES = {
     "highest": ("complex_matmul", "spfft_complex_matmul_tf32x3"),
+    BF16_CONSTANT: ("complex_matmul_tf32x2", "spfft_complex_matmul_tf32x2"),
     "high": ("complex_matmul_bf16x3", "spfft_complex_matmul_bf16x3"),
     "default": ("complex_matmul_bf16x1", "spfft_complex_matmul_bf16x1"),
 }
@@ -180,9 +189,10 @@ def complex_matmul_bf16x1(ar, ai, br, bi, want_imag: bool = True):
     return _split_products(split_bf16, 1, ar, ai, br, bi, want_imag)
 
 
-# The float32 kernel's arithmetic at each precision.
+# The float32 kernel's arithmetic at each form ("highest-bf16": 3xTF32's,
+# whose hi.lo products of a BF16-exact constant are exact zeros).
 ARITHMETIC = {"highest": complex_matmul_3xtf32, "high": complex_matmul_bf16x3,
-              "default": complex_matmul_bf16x1}
+              "default": complex_matmul_bf16x1, BF16_CONSTANT: complex_matmul_3xtf32}
 
 
 def tile_q(q: int) -> int:
@@ -199,6 +209,8 @@ def tile_constant(vr, vi=None, precision: str = "highest"):
     TF32 parts from :func:`split_tf32`, tk = 32, planes re_hi, re_lo[, im_hi,
     im_lo]. ``"high"``: bfloat16 parts from :func:`split_bf16`, tk = 64, the
     same planes. ``"default"``: bfloat16, tk = 64, planes re[, im] rounded.
+    ``"highest-bf16"``: float32, tk = 32, planes re[, im] rounded to BF16
+    (their TF32 lo parts are zero).
     The 16-byte chunk c of row r sits at chunk ``c ^ (r % 8)`` (wgmma's
     128-byte swizzle). One (Q tile, K tile) is one contiguous block, so that a
     linear copy puts it in shared memory as the kernel reads it."""
@@ -208,6 +220,8 @@ def tile_constant(vr, vi=None, precision: str = "highest"):
     v = v.float()
     if precision == "highest":
         tk, dtype, split = TILE_K, torch.float32, split_tf32
+    elif precision == BF16_CONSTANT:
+        tk, dtype, split = TILE_K, torch.float32, lambda t: (round_bf16(t),)
     elif precision in ("high", "default"):
         tk, dtype = TILE_K_BF16, torch.bfloat16
         split = split_bf16 if precision == "high" else (lambda t: (round_bf16(t),))
@@ -259,6 +273,10 @@ class Constant:
     (:func:`tile_constant_f64`)."""
 
     def __init__(self, re, im=None, precision: str = "highest"):
+        if precision == BF16_CONSTANT and not all(
+                torch.equal(round_bf16(t.float()), t) for t in (re, im) if t is not None):
+            raise InvalidParameterError(
+                f"a {BF16_CONSTANT!r} constant must hold bfloat16 values (SPFFT_TPU_TWIDDLE_BF16)")
         self.re, self.im, self.precision = re, im, precision
         self.tiles = None
         if re.device.type == "cuda":
@@ -309,16 +327,19 @@ def complex_matmul(ar, ai, br, bi, want_imag: bool = True, constant: Constant | 
 
     ``ci`` is ``None`` when ``want_imag`` is False. CPU tensors take
     :func:`complex_matmul_plain`; CUDA tensors launch the kernel or raise.
-    ``precision`` picks the float32 kernel (float64 ignores it: one DMMA kernel).
-    ``constant`` is the :class:`Constant` that ``B`` or ``A^T`` views (every
-    batch the same matrix, or one per batch), prepared at ``precision``.
+    ``precision`` picks the float32 kernel form (:data:`FORMS`; float64
+    ignores it: one DMMA kernel). ``constant`` is the :class:`Constant` that
+    ``B`` or ``A^T`` views (every batch the same matrix, or one per batch),
+    prepared at ``precision``; the ``"highest-bf16"`` form needs one.
     Without it, the float32 kernel prepares the shared operand, or ``B``,
     on each call. ``out`` is a ``(cr, ci)`` pair of ``(batch, M, N)`` tensors
     of any strides (the same for both) that receives the result.
     """
     batch, m, k, n = _check(ar, ai, br, bi)
-    if precision not in PRECISIONS:
+    if precision not in FORMS:
         raise InvalidParameterError(f"unknown matmul precision {precision!r}")
+    if precision == BF16_CONSTANT and constant is None:
+        raise InvalidParameterError(f"the {BF16_CONSTANT!r} form needs its prepared constant")
     if out is not None:
         _check_out(out, batch, m, n, want_imag, ar)
     if ar.device.type == "cpu":

@@ -22,7 +22,7 @@ import numpy as np
 from .. import knobs
 from ..errors import InvalidParameterError
 from ..types import ScalingType
-from .complex_matmul import PRECISIONS
+from .complex_matmul import BF16_CONSTANT, PRECISIONS
 from .complex_matmul import complex_matmul as _k1
 
 
@@ -82,9 +82,60 @@ def c2r_matrices(n: int, scale: float = 1.0):
     return scale * (c[:, None] * np.cos(theta)), scale * (c[:, None] * np.sin(theta))
 
 
+TWIDDLE_BF16_ENV = "SPFFT_TPU_TWIDDLE_BF16"
+
+
+def twiddle_bf16_enabled() -> bool:
+    """``SPFFT_TPU_TWIDDLE_BF16``: the matrix-product engines' DFT stage
+    matrices rounded to bfloat16 (float32 plans only; a float64 plan keeps
+    the precision it asked for). The JAX package stores them in bfloat16 and
+    its contractions widen them to float32; here they are rounded and kept in
+    float32, so both give the same numbers. At ``"highest"`` K1 then runs its
+    ``"highest-bf16"`` form (:func:`k1_form`), which reads the constant as
+    bfloat16, half its bytes; at ``"high"`` and ``"default"`` the knob only
+    rounds. Such a plan is about 1e-3 from the exact transform, not within
+    ``"highest"``'s bar: its card says so (``execution.k1_form``,
+    ``execution.twiddle_dtype``)."""
+    return knobs.get_bool(TWIDDLE_BF16_ENV)
+
+
+def twiddle_dtype(real_dtype) -> str:
+    """The dtype a plan's DFT matrices are exact in: ``"bfloat16"`` for a
+    float32 plan under :func:`twiddle_bf16_enabled`, else ``real_dtype``'s
+    name (the plan card's ``execution.twiddle_dtype``)."""
+    if np.dtype(real_dtype) == np.dtype(np.float32) and twiddle_bf16_enabled():
+        return "bfloat16"
+    return np.dtype(real_dtype).name
+
+
+def k1_form(precision: str, real_dtype) -> str:
+    """K1's form for a plan at ``precision``: ``"highest-bf16"`` (half the
+    constant's bytes, two tensor-core products for three) for a float32
+    ``"highest"`` plan under :func:`twiddle_bf16_enabled`, whose matrices
+    :func:`twiddle` makes exact in bfloat16; else the precision itself (at
+    ``"high"`` and ``"default"`` the knob only rounds)."""
+    if (precision == "highest" and np.dtype(real_dtype) == np.dtype(np.float32)
+            and twiddle_bf16_enabled()):
+        return BF16_CONSTANT
+    return precision
+
+
+def twiddle(m, real_dtype):
+    """A real DFT stage matrix in ``real_dtype``, rounded to bfloat16 (to
+    nearest, ties to even) under :func:`twiddle_bf16_enabled`."""
+    m = np.asarray(m)
+    if np.dtype(real_dtype) == np.dtype(np.float32) and twiddle_bf16_enabled():
+        # bfloat16 keeps 8 significant bits: round the mantissa once, from
+        # the float64 matrix, as a direct cast to bfloat16 does
+        frac, exp = np.frexp(m.astype(np.float64))
+        m = np.ldexp(np.rint(frac * 256.0), exp - 8)
+    return m.astype(real_dtype)
+
+
 def matrix_pair(w, real_dtype):
-    """Complex matrix -> (re, im) real numpy pair in ``real_dtype``."""
-    return w.real.astype(real_dtype), w.imag.astype(real_dtype)
+    """Complex matrix -> (re, im) real numpy pair in ``real_dtype`` (rounded
+    to bfloat16 under ``SPFFT_TPU_TWIDDLE_BF16``)."""
+    return twiddle(w.real, real_dtype), twiddle(w.imag, real_dtype)
 
 
 def zy_stage_matrices(dim_z: int, dim_y: int, total_size: int, real_dtype):
@@ -132,9 +183,9 @@ def x_stage_matrices(dim_x: int, ux, num_rows: int, r2c: bool, real_dtype):
 
     if r2c:
         a, b = c2r_matrices(dim_x)  # (Xf, X)
-        wx_b = (pad_rows(a).astype(rt), pad_rows(b).astype(rt))  # (A, X)
+        wx_b = (twiddle(pad_rows(a), rt), twiddle(pad_rows(b), rt))  # (A, X)
         a, b = r2c_matrices(dim_x)  # (X, Xf)
-        wx_f = (pad_rows(a.T).T.astype(rt), pad_rows(b.T).T.astype(rt))  # (X, A)
+        wx_f = (twiddle(pad_rows(a.T).T, rt), twiddle(pad_rows(b.T).T, rt))  # (X, A)
         return wx_b, wx_f
 
     wx_b = matrix_pair(c2c_matrix(dim_x, +1, row_perm=ux, num_rows=num_rows), rt)

@@ -53,8 +53,6 @@ class PaddingHelpers(ExecutionBase):
     space ``(Y, X, P_local, L_max)``."""
 
     NATIVE_LAYOUT = "yxz"
-    # no legacy path: a lowering that fails raises MPIError (ir.compile)
-    _legacy_backward = _legacy_forward = None
 
     def _setup(self, params, real_dtype, mesh, exchange_type) -> None:
         if not isinstance(mesh, ShardMesh):
@@ -300,6 +298,16 @@ class PaddingHelpers(ExecutionBase):
     def _st_unpack_forward(self, recv):
         return self._stick_side(self._exchange.forward.unpack(recv))
 
+    def _legacy_exchange(self, direction, *parts):
+        """The legacy path's exchange: ``_lower_slab``'s exchange nodes of
+        ``direction`` called in order (one gather, or pack, the collective
+        and unpack over a process group)."""
+        if not self.collective:
+            return getattr(self, f"_st_exchange_{direction}")(*parts)
+        send = getattr(self, f"_st_pack_{direction}")(*parts)
+        return getattr(self, f"_st_unpack_{direction}")(
+            getattr(self, f"_st_exchange_rows_{direction}")(send))
+
 
 class DistributedExecution(PaddingHelpers):
     """The ``torch.fft`` mesh engine: decompress, z-DFT over the stick
@@ -392,3 +400,19 @@ class DistributedExecution(PaddingHelpers):
         if ScalingType(scaling) == ScalingType.FULL:
             values = values * (1.0 / self.params.total_size)
         return values.real.contiguous(), values.imag.contiguous()
+
+    # ---- the legacy path (ir_lower_failed): _lower_slab's nodes in order, no graph ----
+
+    def _legacy_backward(self, values_re, values_im):
+        sticks = self._st_decompress(values_re, values_im)
+        if self.is_r2c and self._zero_stick_id is not None:
+            sticks = self._st_stick_symmetry(sticks)
+        grid = self._legacy_exchange("backward", self._st_z_backward(sticks))
+        if self.is_r2c:
+            grid = self._st_plane_symmetry(grid)
+        return self._st_x_backward(self._st_y_backward(grid))
+
+    def _legacy_forward(self, scaling, space_re, space_im):
+        grid = self._st_y_forward(self._st_x_forward(space_re, space_im))
+        sticks = self._legacy_exchange("forward", grid)
+        return self._st_compress(self._st_z_forward(sticks), scaling)

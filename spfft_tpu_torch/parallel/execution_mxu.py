@@ -48,6 +48,8 @@ class MxuDistributedExecution(PaddingHelpers, MxuLocalExecution):
                  fuse=None):
         self._setup(params, real_dtype, mesh, exchange_type)
         self.precision = offt.resolve_precision(precision)
+        self.k1_precision = offt.k1_form(self.precision, self.real_dtype)
+        self.twiddle_dtype = offt.twiddle_dtype(self.real_dtype)
         p = params
         S, L, Z, Y, Xf, P = self._S, self._L, p.dim_z, p.dim_y, p.dim_x_freq, p.num_shards
         self._zs = self.num_local * L  # the slab grid's z extent
@@ -134,3 +136,31 @@ class MxuDistributedExecution(PaddingHelpers, MxuLocalExecution):
 
     def _st_compress(self, sre, sim):
         return self._compress_values(sre), self._compress_values(sim)
+
+    # ---- the legacy path (ir_lower_failed): _lower_slab's nodes in order, no graph ----
+
+    def _legacy_backward(self, values_re, values_im):
+        cur = self._st_decompress(values_re, values_im)
+        if self.is_r2c and self._zero_stick_id is not None:
+            cur = self._st_stick_symmetry(*cur)
+        cur = self._legacy_exchange("backward", *self._st_z_backward(*cur))
+        if self.y_plan == "per-slot":
+            cur = self._st_y_sparse_backward(*cur)
+        elif self.y_plan == "blocked":
+            cur = self._y_blocked_from_tables(*cur)
+        else:
+            if self.is_r2c and self._x0_slot is not None:
+                cur = self._st_plane_symmetry(*cur)
+            cur = self._st_y_dense_backward(*cur)
+        return self._st_x_backward(*cur)
+
+    def _legacy_forward(self, scaling, space_re, space_im):
+        cur = self._st_x_forward(space_re, space_im)
+        if self.y_plan == "per-slot":
+            cur = self._st_y_sparse_forward(*cur)
+        elif self.y_plan == "blocked":
+            cur = self._y_blocked_to_flat(*cur)
+        else:
+            cur = self._st_y_dense_forward(*cur)
+        cur = self._legacy_exchange("forward", *cur)
+        return self._st_compress(*self._st_z_forward(*cur, scaling))

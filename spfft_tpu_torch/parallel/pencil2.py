@@ -370,6 +370,15 @@ class Pencil2Helpers(PaddingHelpers):
         rows = self._exchanges[tag, direction].unpack(recv)
         return self._shaped(rows, self._out_shape(tag, direction), tag, direction)
 
+    def _legacy_pencil_exchange(self, tag, direction, *parts):
+        """The legacy path's exchange ``tag``: ``_lower_pencil``'s nodes of
+        it called in order (one gather, or pack, the collective and unpack
+        over a process group)."""
+        if not self.collective:
+            return self._st_exchange(tag, direction, *parts)
+        send = self._st_pack(tag, direction, *parts)
+        return self._st_unpack(tag, direction, self._st_collective(tag, direction, send))
+
     # ---- caller data <-> the stacked 2-D blocks -------------------------------
 
     def _block(self, r):
@@ -560,3 +569,20 @@ class Pencil2Execution(Pencil2Helpers, DistributedExecution):
         if self.is_r2c:
             return torch.fft.rfft(flat(space_re), n=self.params.dim_x, dim=1)
         return torch.fft.fft(torch.complex(flat(space_re), flat(space_im)), dim=1)
+
+    # ---- the legacy path (ir_lower_failed): _lower_pencil's nodes in order, no graph ----
+
+    def _legacy_backward(self, values_re, values_im):
+        sticks = self._st_decompress(values_re, values_im)
+        if self.is_r2c and self._zero_stick_id is not None:
+            sticks = self._st_stick_symmetry(sticks)
+        grid = self._legacy_pencil_exchange("A", "backward", self._st_z_backward(sticks))
+        if self.is_r2c and self._x0_cols is not None:
+            grid = self._st_plane_symmetry(grid)
+        slab = self._legacy_pencil_exchange("B", "backward", self._st_y_backward(grid))
+        return self._st_x_backward(slab)
+
+    def _legacy_forward(self, scaling, space_re, space_im):
+        grid = self._legacy_pencil_exchange("B", "forward", self._st_x_forward(space_re, space_im))
+        sticks = self._legacy_pencil_exchange("A", "forward", self._st_y_forward(grid))
+        return self._st_compress(self._st_z_forward(sticks), scaling)

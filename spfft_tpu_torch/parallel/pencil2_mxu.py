@@ -47,6 +47,8 @@ class MxuPencil2Execution(Pencil2Helpers, MxuDistributedExecution):
 
         self._setup_pencil(params, real_dtype, mesh, exchange_type, columns, planes=2)
         self.precision = offt.resolve_precision(precision)
+        self.k1_precision = offt.k1_form(self.precision, self.real_dtype)
+        self.twiddle_dtype = offt.twiddle_dtype(self.real_dtype)
         p, g, rt = params, self.geometry, self.real_dtype
         Z, Y = p.dim_z, p.dim_y
         self.sy, self.buckets = 0, None  # the dense y plan
@@ -68,7 +70,8 @@ class MxuPencil2Execution(Pencil2Helpers, MxuDistributedExecution):
 
     def describe(self) -> dict:
         return {"pipeline": "matmul DFT stages + exchange gathers (pencil)",
-                "matmul_precision": self.precision.upper(), **self._geometry()}
+                "matmul_precision": self.precision.upper(), "k1_form": self.k1_precision,
+                "twiddle_dtype": self.twiddle_dtype, **self._geometry()}
 
     def _rows(self, *parts):
         return [t.reshape(-1, self._Lz) for t in parts]
@@ -96,3 +99,20 @@ class MxuPencil2Execution(Pencil2Helpers, MxuDistributedExecution):
     def _st_x_forward(self, space_re, space_im):
         flat = lambda t: None if t is None else t.reshape(-1, self.params.dim_x, self._Lz)
         return MxuLocalExecution._st_x_forward(self, flat(space_re), flat(space_im))
+
+    # ---- the legacy path (ir_lower_failed): _lower_pencil's nodes in order, no graph ----
+
+    def _legacy_backward(self, values_re, values_im):
+        cur = self._st_decompress(values_re, values_im)
+        if self.is_r2c and self._zero_stick_id is not None:
+            cur = self._st_stick_symmetry(*cur)
+        cur = self._legacy_pencil_exchange("A", "backward", *self._st_z_backward(*cur))
+        if self.is_r2c and self._x0_cols is not None:
+            cur = self._st_plane_symmetry(*cur)
+        cur = self._legacy_pencil_exchange("B", "backward", *self._st_y_dense_backward(*cur))
+        return self._st_x_backward(*cur)
+
+    def _legacy_forward(self, scaling, space_re, space_im):
+        cur = self._legacy_pencil_exchange("B", "forward", *self._st_x_forward(space_re, space_im))
+        cur = self._legacy_pencil_exchange("A", "forward", *self._st_y_dense_forward(*cur))
+        return self._st_compress(*self._st_z_forward(*cur, scaling))

@@ -23,18 +23,26 @@ from __future__ import annotations
 
 import numpy as np
 
+from .. import knobs
 from ..errors import InvalidParameterError
 from ..types import ExchangeType
 
+# "default": this module's rule resolves ExchangeType.DEFAULT and the static
+#            auto rule picks the engine;
+# "tuned":   spfft_tpu_torch.tuning measures the alternatives on the plan's
+#            own geometry and device and keeps the winner in wisdom
+#            (SPFFT_TPU_WISDOM), falling back to "default" where trials
+#            cannot run.
+POLICY_ENV = "SPFFT_TPU_POLICY"
+POLICIES = ("default", "tuned")
+
 
 def resolve_policy(policy=None) -> str:
-    """The plan-decision policy: ``"default"`` (also for None).
-    ``"tuned"`` (measured choices, queue A item 10) is not ported and raises."""
-    policy = "default" if policy is None else str(policy)
-    if policy == "tuned":
-        raise InvalidParameterError('policy="tuned" is not ported yet (ROADMAP queue A item 10)')
-    if policy != "default":
-        raise InvalidParameterError(f"unknown policy {policy!r}: expected 'default'")
+    """The plan-decision policy: the explicit argument, else
+    ``SPFFT_TPU_POLICY``, else ``"default"``."""
+    policy = knobs.get_str(POLICY_ENV) if policy is None else str(policy)
+    if policy not in POLICIES:
+        raise InvalidParameterError(f"unknown policy {policy!r}: expected one of {POLICIES}")
     return policy
 
 

@@ -55,12 +55,6 @@ EXCHANGE_NAMES = {
 }
 # the -e names a --mesh2 run takes, as the JAX program's
 PENCIL_EXCHANGES = ("buffered", "bufferedBF16", "bufferedFloat")
-# What the JAX package's report says of wisdom for policy="default": no store,
-# the analytic model decided (spfft_tpu.tuning.wisdom_state).
-WISDOM_DEFAULT = {"path": None, "configured": False, "policy": "default",
-                  "provenance": "model", "hit": None}
-
-
 def create_benchmark_triplets(dim_x, dim_y, dim_z, sparsity, r2c):
     """The reference benchmark's stick set (reference: benchmark.cpp:177-205):
     all (x, y) with x < dimXFreq*sparsity; for R2C, the x==0 sticks cover only
@@ -240,7 +234,8 @@ def main(argv=None):
             "wall_s_per_transform_pair": pair_seconds,
             "gflops_per_pair": flops / pair_seconds / 1e9,
             "plan": transforms[0].report(),
-            "wisdom": dict(WISDOM_DEFAULT),
+            # how the plan's decisions were made (tuning.wisdom_state)
+            "wisdom": sp.tuning.wisdom_state(transforms[0]),
             "roundtrip_residual": residual,
         }
         if args.shards > 1:

@@ -34,7 +34,7 @@ from contextlib import contextmanager
 import numpy as np
 import torch
 
-from . import faults, obs, timing
+from . import faults, obs, timing, tuning
 from .errors import FFTWError, InvalidParameterError
 from .execution import LocalExecution, from_pair
 from .execution_mxu import MxuLocalExecution
@@ -141,8 +141,11 @@ class Transform(_Observed):
     ``"off"``/``False``, the ABFT checks and recovery supervisor
     (:mod:`spfft_tpu_torch.verify`); None reads ``SPFFT_TPU_VERIFY``.
 
-    ``policy`` takes only ``None`` or ``"default"``: ``"tuned"`` (measured
-    plan choices) is not ported and raises.
+    ``policy``: ``"tuned"`` resolves ``engine="auto"`` by measurement
+    (:mod:`spfft_tpu_torch.tuning`: a wisdom hit, else trials of the local
+    candidates on this plan, else the static rule), ``"default"`` by the
+    static rule; None reads ``SPFFT_TPU_POLICY``. The decision's record is
+    ``report()["tuning"]``.
     """
 
     def __init__(
@@ -236,7 +239,8 @@ class Transform(_Observed):
         if self._real_dtype not in (np.dtype(np.float32), np.dtype(np.float64)):
             raise InvalidParameterError("dtype must be float32 or float64")
         self._precision = resolve_precision(precision)
-        resolve_policy(policy)  # "default" is the only policy: nothing to keep
+        self._policy = resolve_policy(policy)
+        self._tuning = None  # the tuned decision's record (tuning._record)
         if engine not in ("auto", "mxu", "xla"):
             raise InvalidParameterError(f"unknown engine {engine!r}")
         self._device = device_for_processing_unit(self._processing_unit, device)
@@ -247,13 +251,31 @@ class Transform(_Observed):
         # the engine is built.
         self._run_id = obs.trace.new_run_id()
         with obs.trace.operation("plan", run_id=self._run_id, kind="local"):
+            engine_env = {}  # a tuned candidate's knob overrides
+            if engine == "auto" and self._policy == "tuned":
+                # trial plans name their engine and take the model policy,
+                # so tuning cannot recurse
+                def build(cand):
+                    with tuning.env_overrides(cand.get("env") or {}):
+                        return Transform.from_parameters(
+                            self._processing_unit, params, dtype=self._real_dtype,
+                            engine=cand["engine"], precision=self._precision,
+                            device=self._device, fuse=fuse, policy="default", guard=False,
+                            verify=False)
+
+                with faults.collecting(self._degradations):
+                    choice, self._tuning = tuning.tuned_local(
+                        params, self._device, self._real_dtype, self._precision, build,
+                        fuse=fuse)
+                engine, engine_env = choice["engine"], dict(choice.get("env") or {})
             if engine == "auto":  # the JAX package's rule (spfft_tpu/transform.py:207-208)
                 engine = "xla" if self._device.type == "cpu" else "mxu"
             # the reference's plan-creation scope (src/execution/execution_host.cpp:56).
             # Ladder rung 1: an mxu engine that fails to build (fault site
             # engine.compile) falls back to torch.fft; the kernels' typed
             # errors raise. A torch.fft engine has no rung below it.
-            with timing.scoped("Execution init"), faults.collecting(self._degradations):
+            with timing.scoped("Execution init"), faults.collecting(self._degradations), \
+                    tuning.env_overrides(engine_env):
                 if engine == "mxu":
                     try:
                         faults.site("engine.compile")
@@ -268,8 +290,10 @@ class Transform(_Observed):
                                                     fuse=fuse)
                     except faults.ENGINE_BUILD_ERRORS as e:
                         raise FFTWError(f"local engine construction failed: {e}") from e
-            obs.trace.event("decision", what="engine", choice=engine, policy="default")
+            obs.trace.event("decision", what="engine", choice=engine, policy=self._policy)
         self._engine = engine
+        if self._tuning is not None:
+            self._tuning = tuning.with_k1_form(self._tuning, self._exec)
         self._exec_mode = ExecType.SYNCHRONOUS
         self._space_data = None  # native layout: (re, im) for C2C, re for R2C
         self._init_verify(verify)

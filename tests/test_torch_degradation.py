@@ -315,10 +315,19 @@ def _raise_runtime(*args):
 
 
 def test_a_mesh_lowering_failure_raises_a_typed_error():
-    trip, _, _ = problem()
-    with faults.inject("ir.lower=raise"), pytest.raises(tp.MPIError, match="legacy path"):
-        mesh_plan(tp, trip)
-    assert not any(k.startswith("degradations") for k in family(obs))
+    """Once a typed refusal; now JAX's outcome: the mesh engine runs its
+    legacy path, records ``ir_lower_failed`` and gives JAX's result."""
+    trip, values, _ = problem()
+    per = tp.distribute_triplets(trip, 2, DIM)
+    lut = {tuple(x): v for x, v in zip(map(tuple, trip), values)}
+    vals = [np.asarray([lut[tuple(x)] for x in p]) for p in per]
+    with faults.inject("ir.lower=raise"), jfaults.inject("ir.lower=raise"):
+        t, jt = mesh_plan(tp, trip), mesh_plan(spfft_tpu, trip)
+    assert t.report()["ir"]["path"] == "legacy" == jt.report()["ir"]["path"]
+    assert [d["event"] for d in t.report()["degradations"]] == ["ir_lower_failed"] == [
+        d["event"] for d in jt.report()["degradations"]]
+    np.testing.assert_allclose(t.backward(vals).numpy(), np.asarray(jt.backward(vals)),
+                               rtol=0, atol=1e-11 * np.abs(values).sum())
 
 
 def test_a_staged_fallback_on_a_mesh_matches_the_fused_plan():

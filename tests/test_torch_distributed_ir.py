@@ -122,8 +122,9 @@ def test_what_is_not_ported_raises():
     for overlap in (2, 4):
         with pytest.raises(tp.InvalidParameterError, match="5b"):
             port_plan(False, 2, per, np.float64, dims=DIMS, overlap=overlap)
-    with pytest.raises(tp.InvalidParameterError, match="tuned"):
-        port_plan(False, 2, per, np.float64, dims=DIMS, policy="tuned")
+    # policy="tuned" is ported: on the CPU without trials it takes the model
+    tuned = port_plan(False, 2, per, np.float64, dims=DIMS, policy="tuned")
+    assert tuned._tuning["provenance"] == "model"
     with pytest.raises(tp.InvalidParameterError):
         tp.make_fft_mesh(0, device="cpu")
     if not torch.cuda.is_available():

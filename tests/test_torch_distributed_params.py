@@ -141,10 +141,14 @@ def test_value_order_map_matches_jax():
     assert tragged.value_order_map(trip, req[1:]) is None
 
 
-def test_policy_and_overlap_take_only_their_defaults():
+def test_policy_and_overlap_take_only_their_defaults(monkeypatch):
+    monkeypatch.delenv("SPFFT_TPU_POLICY", raising=False)
     assert tpolicy.resolve_policy() == tpolicy.resolve_policy("default") == "default"
-    with pytest.raises(tp.InvalidParameterError, match="tuned"):
-        tpolicy.resolve_policy("tuned")
+    # "tuned" is ported, and the knob reads as the JAX package's
+    assert tpolicy.resolve_policy("tuned") == "tuned"
+    monkeypatch.setenv("SPFFT_TPU_POLICY", "tuned")
+    assert tpolicy.resolve_policy() == spfft_tpu.parallel.policy.resolve_policy() == "tuned"
+    monkeypatch.delenv("SPFFT_TPU_POLICY")
     with pytest.raises(tp.InvalidParameterError):
         tpolicy.resolve_policy("fastest")
     assert tpolicy.resolve_overlap_chunks() == tpolicy.resolve_overlap_chunks(1) == 1

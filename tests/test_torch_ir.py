@@ -314,3 +314,31 @@ def test_results_stay_put(monkeypatch):
     kept = first.clone()
     t.backward(_values(rng, trip, (16, 24, 8), False))
     assert torch.equal(first, kept)
+
+
+def test_captures_hold_off_the_cyclic_collector():
+    """A dropped plan is cyclic garbage (engine and programs refer to each
+    other), so a collection may destroy its CUDA graphs at any allocation:
+    ``no_collection`` keeps the collector off while a capture runs, and
+    restores it as it was."""
+    import gc
+    import weakref
+
+    trip = np.asarray(tp.create_spherical_cutoff_triplets(8, 8, 8, 0.8))
+    t = tp.Transform(tp.ProcessingUnit.HOST, 0, 8, 8, 8, indices=trip, engine="mxu")
+    engine = weakref.ref(t._exec)
+    del t
+    assert engine() is not None  # only the cyclic collector frees it
+    gc.collect()
+    assert engine() is None
+    assert gc.isenabled()
+    with tir.compile.no_collection():
+        assert not gc.isenabled()
+    assert gc.isenabled()
+    gc.disable()
+    try:
+        with tir.compile.no_collection():
+            pass
+        assert not gc.isenabled()
+    finally:
+        gc.enable()

@@ -273,3 +273,84 @@ def test_clone_carries_engine_and_precision():
     assert c.describe() == t.describe()
     values = np.random.default_rng(4).standard_normal(len(trip)) + 0j
     assert torch.equal(c.backward(values), t.backward(values))
+
+
+# ---- the bf16-constant form ("highest-bf16", SPFFT_TPU_TWIDDLE_BF16) --------------
+
+
+@pytest.mark.parametrize("k,q,imag,batch", [(256, 256, True, 1), (176, 256, False, 1),
+                                            (120, 256, True, 4), (9, 50, True, 3)])
+def test_tile_constant_bf16_constant_is_one_plane_a_part(k, q, imag, batch):
+    """The constant's hi planes alone, float32 TF32 tiles holding its BF16
+    rounding: half the bytes of the "highest" tiles of the same constant."""
+    rng = np.random.default_rng(k + q + batch)
+    shape = (batch, k, q) if batch > 1 else (k, q)
+    vr = torch.from_numpy(rng.standard_normal(shape).astype(np.float32))
+    vi = torch.from_numpy(rng.standard_normal(shape).astype(np.float32)) if imag else None
+    tiles = k1.tile_constant(vr, vi, k1.BF16_CONSTANT)
+    assert tiles.dtype == torch.float32 and tiles.shape[-2:] == (k1.tile_q(q), k1.TILE_K)
+    assert tiles.numel() * 2 == k1.tile_constant(vr, vi, "highest").numel()
+    got, _ = _read_tiles(tiles, k, q)
+    parts = [vr] + ([vi] if imag else [])
+    want = np.stack([_bf16(v.reshape(-1, k, q).numpy()) for v in parts], 1)
+    np.testing.assert_array_equal(got, want)
+
+
+def test_bf16_constant_arithmetic_is_3xtf32_with_exact_zeros():
+    """On a BF16-exact constant the lo planes are zero, so dropping their
+    products (the kernel's two-product form) changes no bit of 3xTF32."""
+    g = torch.Generator().manual_seed(3)
+    a = torch.randn(2, 40, 64, generator=g), torch.randn(2, 40, 64, generator=g)
+    b = tuple(k1.round_bf16(torch.randn(2, 64, 24, generator=g)) for _ in range(2))
+    assert all(k1.split_tf32(t)[1].eq(0).all() for t in b)
+    two = lambda x, y: k1._mm(x[1], y[0]) + k1._mm(x[0], y[0])
+    parts = lambda t: k1.split_tf32(t)
+    want = k1._four_products(two, parts(a[0]), parts(a[1]), parts(b[0]), parts(b[1]), True)
+    got = k1.ARITHMETIC[k1.BF16_CONSTANT](*a, *b)
+    for x, y in zip(got, want):
+        assert torch.equal(x, y)
+
+
+def test_bf16_constant_form_needs_a_bf16_constant():
+    x = torch.randn(8, 8)
+    with pytest.raises(tp.InvalidParameterError, match="bfloat16"):
+        k1.Constant(x, None, k1.BF16_CONSTANT)
+    w = k1.Constant(k1.round_bf16(x), None, k1.BF16_CONSTANT)
+    assert w.precision == k1.BF16_CONSTANT
+    a = torch.randn(1, 5, 8)
+    with pytest.raises(tp.InvalidParameterError, match="constant"):
+        k1.complex_matmul(a, None, w.re[None], None, precision=k1.BF16_CONSTANT)
+    got = k1.complex_matmul(a, None, w.re[None], None, constant=w, precision=k1.BF16_CONSTANT)
+    assert torch.equal(got[0], k1.complex_matmul_plain(a, None, w.re[None], None)[0])
+    # not a caller's precision
+    with pytest.raises(tp.InvalidParameterError):
+        tfft.resolve_precision(k1.BF16_CONSTANT)
+
+
+def test_launch_bucket_form_of_the_bf16_constant():
+    g = torch.Generator().manual_seed(4)
+    ag, syg, Y, Z, A = 3, 24, 40, 20, 9
+    wr, wi = (k1.round_bf16(torch.randn(ag, syg, Y, generator=g)) for _ in range(2))
+    w = k1.Constant(wr, wi, k1.BF16_CONSTANT)
+    w.tiles = k1.tile_constant(w.re, w.im, k1.BF16_CONSTANT)
+    xr, xi = torch.randn(ag, syg, Z, generator=g), torch.randn(ag, syg, Z, generator=g)
+    grid = torch.empty(Y, A, Z), torch.empty(Y, A, Z)
+    out = tuple(tfft.result_view("ajz,ajk->kaz", t[:, 2:2 + ag]) for t in grid)
+    (ar, ai, br, bi), _ = tfft.operands("ajz,ajk->kaz", xr, xi, w.re, w.im)
+    rec = _Recorder()
+    assert k1._launch_tc(rec, ar, ai, br, bi, *out, w, 0, k1.BF16_CONSTANT) == 0
+    args = dict(zip(_ARG_NAMES, rec.args))
+    assert args["v"] == w.tiles.data_ptr() and args["v_im"] == 1 and args["bn"] == 64
+    assert (args["batch"], args["P"], args["Q"], args["K"]) == (ag, Z, Y, syg)
+    assert k1.LIBRARIES[k1.BF16_CONSTANT] == ("complex_matmul_tf32x2",
+                                              "spfft_complex_matmul_tf32x2")
+
+
+@pytest.mark.parametrize("dtype,precision,form", [
+    (np.float32, "highest", k1.BF16_CONSTANT), (np.float32, "high", "high"),
+    (np.float32, "default", "default"), (np.float64, "highest", "highest")])
+def test_the_twiddle_knob_picks_the_bf16_constant_form(monkeypatch, dtype, precision, form):
+    monkeypatch.setenv("SPFFT_TPU_TWIDDLE_BF16", "1")
+    assert tfft.k1_form(precision, dtype) == form
+    monkeypatch.delenv("SPFFT_TPU_TWIDDLE_BF16")
+    assert tfft.k1_form(precision, dtype) == precision

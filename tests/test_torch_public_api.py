@@ -40,12 +40,16 @@ def test_local_plans_accept_the_default_policy(pkg, via_grid, policy):
 
 
 @pytest.mark.parametrize("via_grid", [True, False])
-def test_tuned_policy_is_not_ported(via_grid):
-    # the JAX package takes "tuned" (its measured choices); the port raises
-    # and names the queue item that would port them
-    assert _local(spfft_tpu, via_grid, policy="tuned").num_local_elements == len(TRIP)
-    with pytest.raises(tp.InvalidParameterError, match="item 10"):
-        _local(tp, via_grid, policy="tuned")
+def test_tuned_policy_is_not_ported(via_grid, monkeypatch):
+    # once a refusal; now both packages take "tuned" (measured choices),
+    # and on the CPU without SPFFT_TPU_TUNE_CPU both take the model, for the
+    # same reason
+    monkeypatch.delenv("SPFFT_TPU_TUNE_CPU", raising=False)
+    monkeypatch.delenv("SPFFT_TPU_WISDOM", raising=False)
+    jax, port = _local(spfft_tpu, via_grid, policy="tuned"), _local(tp, via_grid, policy="tuned")
+    assert jax.num_local_elements == port.num_local_elements == len(TRIP)
+    assert port._tuning["provenance"] == jax._tuning["provenance"] == "model"
+    assert port._tuning["reason"] == jax._tuning["reason"]
 
 
 @PACKAGES
@@ -56,15 +60,15 @@ def test_unknown_policy_and_local_overlap_raise(pkg):
         _local(pkg, True, overlap=2)
 
 
-@pytest.mark.parametrize("policy,ok", [(None, True), ("default", True), ("tuned", False)])
-def test_from_parameters_checks_the_policy(policy, ok):
+@pytest.mark.parametrize("policy,default", [(None, True), ("default", True), ("tuned", False)])
+def test_from_parameters_checks_the_policy(policy, default, monkeypatch):
+    monkeypatch.delenv("SPFFT_TPU_POLICY", raising=False)
     params = _local(tp, False).params
-    make = lambda: tp.Transform.from_parameters(tp.ProcessingUnit.HOST, params, policy=policy)
-    if ok:
-        assert make().clone().num_local_elements == len(TRIP)
-    else:
-        with pytest.raises(tp.InvalidParameterError):
-            make()
+    made = tp.Transform.from_parameters(tp.ProcessingUnit.HOST, params, policy=policy)
+    assert made.clone().num_local_elements == len(TRIP)
+    assert made.report()["policy"] == ("default" if default else "tuned")
+    with pytest.raises(tp.InvalidParameterError):
+        tp.Transform.from_parameters(tp.ProcessingUnit.HOST, params, policy="fastest")
 
 
 def test_num_threads_is_one_in_both():

@@ -418,6 +418,30 @@ def test_a_mesh_across_processes_rejects_verify(monkeypatch):
                                 verify="on")
 
 
+@pytest.mark.parametrize("mode", ["1", "on", "strict"])
+def test_a_mesh_across_processes_rejects_the_verify_knob(monkeypatch, mode):
+    """SPFFT_TPU_VERIFY set process-wide is refused as the argument is,
+    naming the knob (it once reached the supervisor and an untyped
+    TypeError at the first backward); set to off, the plan builds."""
+    import torch.distributed as dist
+
+    from spfft_tpu_torch.parallel.mesh import ShardMesh
+
+    trip, _, _ = problem()
+    monkeypatch.setattr(dist, "get_world_size", lambda group: 2)
+    monkeypatch.setattr(dist, "get_rank", lambda group: 0)
+    mesh = ShardMesh(torch.device("cpu"), 2, group=object())
+    per = tp.distribute_triplets(trip, 4, DIM)
+    monkeypatch.setenv("SPFFT_TPU_VERIFY", mode)
+    with pytest.raises(tp.InvalidParameterError,
+                       match=f"SPFFT_TPU_VERIFY='{mode}' needs every shard in this process"):
+        tp.DistributedTransform(tp.ProcessingUnit.HOST, 0, DIM, DIM, DIM, per, mesh=mesh)
+    # an explicit verify="off" wins over the knob
+    t = tp.DistributedTransform(tp.ProcessingUnit.HOST, 0, DIM, DIM, DIM, per, mesh=mesh,
+                                verify="off")
+    assert t._verifier is None
+
+
 def test_verified_batches_run_each_request_under_the_supervisor():
     trip, values, space = problem()
     want = plan(tp, trip)
