@@ -145,7 +145,22 @@ Phases, one JSON line each:
    within 1e-6 of (in fact bitwise) the staged twin. Each plan's K1 and K2
    forms get kernel rows, their launches counted from 0 before its tuning
    (the trials included) and read after its pair; no tuned plan takes a rung;
-11. the ``kernels`` line; last, the ``{"ok": true, "device": ...}`` line.
+11. the C ABI (``capi_phase``): ``libspfft_tpu_torch.so`` built from the
+   checkout with ``g++`` and loaded into this process with ctypes; through
+   the C functions with ``SPFFT_PU_GPU``, ``c2c-blocked`` in float and
+   double and ``r2c-blocked`` in float (256^3, ``CAPI_PLANS``) and
+   BASELINE.json's 512^3 R2C float32 plan over 16 shards
+   (``spfft_grid_create_distributed``, ``spfft_dist_transform_*``), each
+   backward and forward bitwise the Python plan's with the same arguments,
+   K1 and K2 launched behind the C calls, the ms per pair of the C ABI and
+   of the Python pair taking turns, and the rates of the host copies the C
+   layer makes; then the twin C and C++ API tests, the C, C++ and
+   distributed examples (the Fortran one where ``gfortran`` exists) and the
+   benchmark program with ``-p gpu`` at 256^3 and ``--shards 4``, each a
+   process that must exit 0; and ``dist4-c2c-nccl1`` with ``verify=True``:
+   the verdict rows of ``dist4-c2c`` with ``verify=True``, one NCCL
+   all-reduce in the profile of each verified call;
+12. the ``kernels`` line; last, the ``{"ok": true, "device": ...}`` line.
 
 Exits non-zero, with no result line, when there is no CUDA device or any
 check fails.
@@ -2715,6 +2730,327 @@ TURN_PLANS = ("c2c-blocked", "c2c-blocked-high", "r2c-blocked", "r2c-blocked-hig
 TURN_DIST = ("dist4-c2c", "dist4-r2c")
 
 
+# ---- phase 11: the C ABI on the card ------------------------------------------------
+
+# The local plans through the C functions with SPFFT_PU_GPU: (name, transform,
+# radius, dtype)
+CAPI_PLANS = [("capi-c2c-blocked", "c2c", 0.659, F32), ("capi-c2c-blocked-f64", "c2c", 0.659, F64),
+              ("capi-r2c-blocked", "r2c", 0.659, F32)]
+# BASELINE.json's 512^3 R2C float32 plan over 16 shards, through
+# spfft_grid_create_distributed and spfft_dist_transform_*
+CAPI_DIST = ("capi-512-r2c-16-single", 512, 0.15, 16)
+CAPI_TURNS = 3  # rounds of the C pairs and the Python pairs taking turns
+CAPI_PAIRS = 3  # timed pairs per turn
+SPFFT_PU_GPU = 2
+# the programs on the library, run as processes: (name, arguments, what stdout must hold)
+CAPI_PROGRAMS = [
+    ("run_native_tests", [], "ALL NATIVE TESTS PASSED"),
+    ("run_native_tests_cpp", [], "ALL NATIVE C++ TESTS PASSED"),
+    ("example", [], "roundtrip, first element"),
+    ("example_cpp", [], "roundtrip, first element"),
+    ("example_distributed", [], "distributed roundtrip max error"),
+    ("example_f90", [], None),  # where gfortran built it
+]
+CAPI_BENCH = [("capi-bench-256", ["-d", "256", "256", "256", "-r", "4", "-p", "gpu"]),
+              ("capi-bench-256-shards4", ["-d", "256", "256", "256", "-r", "4", "-p", "gpu",
+                                          "--shards", "4"])]
+
+
+def k_launches(counts) -> tuple[int, int]:
+    """(K1, K2) host launches in a launch count."""
+    return sum(counts["complex_matmul"].values()), sum(counts["row_gather"].values())
+
+
+def host_copy_gbps(nbytes: int, reps: int = 3) -> dict:
+    """GB/s of one copy of ``nbytes`` between the card and pageable host
+    memory each way (a numpy buffer, as a C caller's), and of a host
+    memcpy, the best of ``reps``."""
+    import torch
+
+    dev = torch.empty(nbytes, dtype=torch.uint8, device="cuda")
+    host = np.ones(nbytes, dtype=np.uint8)
+    other = np.ones(nbytes, dtype=np.uint8)
+    pageable = torch.from_numpy(host)
+    out = {}
+    for way, fn in (("device_to_host", lambda: pageable.copy_(dev)),
+                    ("host_to_device", lambda: dev.copy_(pageable)),
+                    ("host_memcpy", lambda: np.copyto(other, host))):
+        best = float("inf")
+        for _ in range(reps):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            best = min(best, time.perf_counter() - t0)
+        out[way] = nbytes / best / 1e9
+    return out
+
+
+def capi_compare(name, pairs, c_pair, py_pair, copies, launches) -> dict:
+    """The C pair against the Python pair, taking turns (host clock, ms):
+    their least and median; the rates of the host copies the C pair makes
+    (``copies``: (what, bytes, way)) at their sizes, and the share of the C
+    pair they take at those rates."""
+    times = {"c_abi": [], "python": []}
+    for _ in range(CAPI_TURNS):
+        for label, fn in (("c_abi", c_pair), ("python", py_pair)):
+            for _ in range(pairs):
+                t0 = time.perf_counter()
+                fn()
+                times[label].append((time.perf_counter() - t0) * 1e3)
+    rates = {n: host_copy_gbps(n) for n in sorted({n for _, n, _ in copies})}
+    copy_ms = {what: n / (rates[n][way] * 1e9) * 1e3 for what, n, way in copies}
+    c_ms = statistics.median(times["c_abi"])
+    return {"phase": "capi_pair", "plan": name, "pairs_each": len(times["c_abi"]),
+            "c_abi_pair_ms_min": min(times["c_abi"]), "c_abi_pair_ms_median": c_ms,
+            "python_pair_ms_min": min(times["python"]),
+            "python_pair_ms_median": statistics.median(times["python"]),
+            "c_over_python": c_ms / statistics.median(times["python"]),
+            "host_copies": [{"what": what, "bytes": n, "way": way, "gbps": rates[n][way],
+                             "ms": copy_ms[what]} for what, n, way in copies],
+            "host_copy_ms_at_those_rates": sum(copy_ms.values()),
+            "host_copy_share_of_c_pair": sum(copy_ms.values()) / c_ms,
+            "k1_launches": launches[0], "k2_launches": launches[1]}
+
+
+def capi_bitwise(name, what, got: np.ndarray, want: np.ndarray) -> None:
+    """The C ABI's buffer ``got`` bitwise the Python plan's ``want``;
+    else the difference and the reason are printed, and the run fails."""
+    same_bits = got.shape == want.shape and np.array_equal(got.view(np.uint8),
+                                                           want.view(np.uint8))
+    if not same_bits:
+        diff = float(np.abs(got.astype(np.float64) - want.astype(np.float64)).max()) \
+            if got.shape == want.shape else None
+        emit({"phase": "capi_mismatch", "plan": name, "what": what, "max_abs_diff": diff,
+              "reason": "the C ABI runs the same plan object as the Python call; a "
+                        "difference means a copy or a dtype differs on the way"})
+    check(same_bits, f"{name}: the C ABI's {what} is not the Python plan's, bitwise")
+
+
+def capi_local(sp, api, name, kind, dtype, triplets, vals) -> dict:
+    """One local plan through the C functions and through the Python API
+    with the same arguments: bitwise results, K1/K2 launches behind the C
+    calls, the pair times in turns and the host copies."""
+    import torch
+
+    r2c = kind == "r2c"
+    cdt = np.complex64 if dtype == F32 else np.complex128
+    values = np.ascontiguousarray(vals.astype(cdt))
+    vin = values.view(dtype)
+    X, Y, Z = DIMS
+    space = np.zeros(X * Y * Z * (1 if r2c else 2), dtype=dtype)
+    back = np.zeros(2 * len(values), dtype=dtype)
+    ttype = getattr(sp.TransformType, kind.upper())
+    py = sp.Transform(sp.ProcessingUnit.GPU, ttype, *DIMS, len(triplets), triplets, dtype=dtype)
+    torch.cuda.synchronize()
+    clear_counts()
+    plan = api.transform(SPFFT_PU_GPU, int(ttype), DIMS, triplets, dtype == F64)
+    plan.backward(vin, space)
+    plan.forward(space, back, int(sp.ScalingType.FULL))
+    torch.cuda.synchronize()
+    launches = k_launches(launch_counts())
+    check(launches[0] > 0 and launches[1] > 0,
+          f"{name}: K1/K2 launches behind the C ABI {launches}")
+    py_space = py.backward(values).cpu().numpy()
+    py_back = py.forward(py_space, sp.ScalingType.FULL).cpu().numpy()
+    capi_bitwise(name, "backward", space, py_space.reshape(-1).view(dtype))
+    capi_bitwise(name, "forward", back, py_back.view(dtype))
+
+    def c_pair():
+        plan.backward(vin, space)
+        plan.forward(space, back, int(sp.ScalingType.FULL))
+
+    def py_pair():
+        s = py.backward(values).cpu().numpy()
+        py.forward(s, sp.ScalingType.FULL).cpu().numpy()
+
+    # backward_ptr lands the space in the plan's host buffer, then copies it
+    # to the caller's (the reference's space_domain_data semantics)
+    copies = [("values_in", vin.nbytes, "host_to_device"),
+              ("space_out", space.nbytes, "device_to_host"),
+              ("space_to_caller", space.nbytes, "host_memcpy"),
+              ("space_in", space.nbytes, "host_to_device"),
+              ("values_out", back.nbytes, "device_to_host")]
+    row = capi_compare(name, CAPI_PAIRS, c_pair, py_pair, copies, launches)
+    plan.close()
+    return row | {"dtype": np.dtype(dtype).name, "transform": kind, "bitwise": True}
+
+
+def capi_dist(sp, api) -> dict:
+    """BASELINE.json's 512^3 R2C float32 plan over 16 shards through
+    spfft_grid_create_distributed / spfft_dist_transform_* and through a
+    Python Grid with the same arguments: bitwise, launches, times."""
+    import torch
+
+    name, dim, fraction, shards = CAPI_DIST
+    dims = (dim,) * 3
+    radius = sp.spherical_radius_for_fraction(fraction)
+    triplets = np.asarray(sp.create_spherical_cutoff_triplets(*dims, radius,
+                                                              hermitian_symmetry=True))
+    per = [np.asarray(t, dtype=np.int32) for t in sp.distribute_triplets(triplets, shards, dim)]
+    rng = np.random.default_rng(SEED + 11)
+    n = sum(len(t) for t in per)
+    values = (rng.standard_normal(n) + 1j * rng.standard_normal(n)).astype(np.complex64)
+    vin = values.view(F32)
+    space = np.zeros(dim ** 3, dtype=F32)
+    back = np.zeros(2 * n, dtype=F32)
+    t0 = time.perf_counter()
+    grid = sp.Grid(*dims, dim * dim, sp.ProcessingUnit.GPU, 1, max_local_z_length=dim,
+                   mesh=sp.make_fft_mesh(shards), exchange_type=sp.ExchangeType.DEFAULT)
+    py = grid.create_transform(sp.ProcessingUnit.GPU, sp.TransformType.R2C, *dims,
+                               indices=per, dtype=F32)
+    split = np.cumsum([len(t) for t in per])[:-1]
+    py_values = np.split(values, split)
+    torch.cuda.synchronize()
+    clear_counts()
+    plan = api.dist_transform(SPFFT_PU_GPU, int(sp.TransformType.R2C), dims, per, False)
+    plan.backward(vin, space)
+    plan.forward(space, back, int(sp.ScalingType.FULL))
+    torch.cuda.synchronize()
+    launches = k_launches(launch_counts())
+    setup_s = time.perf_counter() - t0
+    check(launches[0] > 0 and launches[1] > 0,
+          f"{name}: K1/K2 launches behind the C ABI {launches}")
+    py_space = py.backward(py_values).cpu().numpy()
+    py_back = torch.cat([v.reshape(-1) for v in py.forward(py_space, sp.ScalingType.FULL)])
+    capi_bitwise(name, "backward", space, py_space.reshape(-1))
+    capi_bitwise(name, "forward", back, py_back.cpu().numpy().view(F32))
+    del py_space, py_back
+
+    def c_pair():
+        plan.backward(vin, space)
+        plan.forward(space, back, int(sp.ScalingType.FULL))
+
+    def py_pair():
+        s = py.backward(py_values).cpu().numpy()
+        torch.cat([v.reshape(-1) for v in py.forward(s, sp.ScalingType.FULL)]).cpu().numpy()
+
+    copies = [("values_in", vin.nbytes, "host_to_device"),
+              ("space_out", space.nbytes, "device_to_host"),
+              ("space_in", space.nbytes, "host_to_device"),
+              ("values_out", back.nbytes, "device_to_host")]
+    row = capi_compare(name, 1, c_pair, py_pair, copies, launches)
+    plan.close()
+    del py, grid
+    return row | {"dtype": "float32", "transform": "r2c", "shards": shards,
+                  "exchange": "DEFAULT", "setup_s": setup_s, "bitwise": True}
+
+
+def capi_programs(built) -> dict:
+    """The C and C++ API tests and the examples (all at once, on the host's
+    CPU, SPFFT_PU_HOST), then the benchmark with ``-p gpu``, one at a time:
+    each must exit 0; the benchmark's ``ms_per_pair`` from its JSON."""
+    from spfft_tpu_torch import _build
+
+    env = _build.native_env()
+    started = {}
+    for name, args, _ in CAPI_PROGRAMS:
+        if (built / name).exists():
+            started[name] = subprocess.Popen([str(built / name), *args], env=env, cwd=built,
+                                             stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                                             text=True)
+    out = {"fortran_example_ran": _build.FORTRAN_EXAMPLE in started,
+           "gfortran": shutil.which("gfortran")}
+    for name, args, marker in CAPI_PROGRAMS:
+        if name not in started:
+            continue
+        try:
+            stdout, stderr = started[name].communicate(timeout=300)
+        except subprocess.TimeoutExpired:
+            started[name].kill()
+            stdout, stderr = started[name].communicate()
+        rc = started[name].returncode
+        out[name] = {"rc": rc, "tail": stdout[-200:]}
+        check(rc == 0 and (marker is None or marker in stdout),
+              f"{name} exited {rc}: {stdout[-1000:]} {stderr[-2000:]}")
+    for name, args in CAPI_BENCH:
+        t0 = time.perf_counter()
+        result = subprocess.run([str(built / "benchmark"), *args], env=env, cwd=built,
+                                capture_output=True, text=True, timeout=300)
+        check(result.returncode == 0,
+              f"{name} exited {result.returncode}: {result.stdout[-1000:]} {result.stderr[-2000:]}")
+        report = json.loads(result.stdout[result.stdout.index("{"):])
+        out[name] = {"args": args, "seconds": time.perf_counter() - t0,
+                     "ms_per_pair": report["results"]["ms_per_pair"],
+                     "results": report["results"], "parameters": report["parameters"]}
+        print(f"{name}: ms_per_pair {report['results']['ms_per_pair']}", flush=True)
+    return out
+
+
+def allreduces(prof) -> int:
+    """The all-reduces in a profile: the NCCL process group's
+    ``nccl:all_reduce`` records, or where it draws none, the dispatcher's
+    ``c10d::allreduce_``."""
+    names = [e.name for e in prof.events()]
+    nccl = sum(1 for n in names if n == "nccl:all_reduce")
+    return nccl if nccl else sum(1 for n in names if n == "c10d::allreduce_")
+
+
+def capi_verify_group(sp, data, group, before) -> dict:
+    """``dist4-c2c-nccl1`` with ``verify=True`` against ``dist4-c2c`` with
+    ``verify=True``: the same verdict rows (all passes), the same results,
+    one all-reduce in the profile of each verified call, and no rung taken
+    (the rung counters as in ``before``)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    triplets, vals, _ = data["c2c", 0.659]
+    per = sp.distribute_triplets(triplets, 4, DIMS[1])
+    values = [torch.as_tensor(vals[i].astype(np.complex64), device="cuda")
+              for i in shard_index(triplets, per)]
+    make = lambda mesh: sp.DistributedTransform(sp.ProcessingUnit.GPU, sp.TransformType.C2C,
+                                                *DIMS, per, mesh=mesh, dtype=F32, verify=True)
+    stacked, grouped = make(sp.make_fft_mesh(4)), make(sp.make_fft_mesh(4, group=group))
+    s_space, s_back, s_rows = verify_rows(sp, stacked, values)
+    g_space, g_back, g_rows = verify_rows(sp, grouped, values)
+    key = lambda rows: [(r["direction"], r["check"], r["verdict"]) for r in rows
+                        if r["check"] is not None]
+    check(key(g_rows) == key(s_rows) and key(g_rows)
+          and all(v == "pass" for *_, v in key(g_rows)),
+          f"dist4-c2c-nccl1 verdicts {key(g_rows)} against dist4-c2c's {key(s_rows)}")
+    check(same(g_space, s_space) and same(g_back, s_back),
+          "dist4-c2c-nccl1 verified results differ from dist4-c2c's")
+    calls = {}
+    for direction, call in (("backward", lambda: grouped.backward(values)),
+                            ("forward", lambda: grouped.forward(scaling=sp.ScalingType.FULL))):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            call()
+            torch.cuda.synchronize()
+        calls[direction] = allreduces(prof)
+    check(all(n == 1 for n in calls.values()),
+          f"dist4-c2c-nccl1: all-reduces per verified call {calls}, not 1")
+    no_rungs("capi verify", {"dist4-c2c-nccl1": grouped, "dist4-c2c": stacked}, before)
+    return {"phase": "capi_verify_group", "rows": g_rows, "stacked_rows": s_rows,
+            "allreduces_per_call": calls}
+
+
+def capi_phase(sp, data, group) -> None:
+    """Phase 11 (module docstring): the C library built from the checkout
+    and loaded into this process, the local and the 512^3 distributed plans
+    through the C ABI against the Python API, the programs on the library,
+    and verification over the one-rank NCCL group."""
+    from spfft_tpu_torch import _build
+    from spfft_tpu_torch.native import abi
+
+    started = time.perf_counter()
+    before = rung_counters()
+    built = _build.build_native()
+    emit({"phase": "capi_build", "seconds": time.perf_counter() - started, "dir": str(built),
+          "programs": sorted(p.name for p in built.iterdir() if os.access(p, os.X_OK)
+                             and p.is_file()),
+          "libpython_shared": bool(__import__("sysconfig").get_config_var("Py_ENABLE_SHARED"))})
+    api = abi.Api()
+    for name, kind, radius, dtype in CAPI_PLANS:
+        triplets, vals, _ = data[kind, radius]
+        emit(capi_local(sp, api, name, kind, dtype, triplets, vals))
+    emit(capi_dist(sp, api))
+    no_rungs("capi phase", {}, before)
+    emit({"phase": "capi_programs", **capi_programs(built)})
+    emit(capi_verify_group(sp, data, group, before))
+    emit({"phase": "capi", "seconds": time.perf_counter() - started})
+
+
 def turns_worker(root) -> int:
     """One tree's pair times (``--turns-worker ROOT``): ``spfft_tpu_torch``
     imported from ``ROOT``, every plan of ``TURN_PLANS`` and ``TURN_DIST``
@@ -3027,6 +3363,9 @@ def main() -> int:
     trows, tcounts = tuning_phase(sp, fdata)
     rows += trows
     counts.update(tcounts)
+
+    # ---- the C ABI on the card, and verification over the process group ----
+    capi_phase(sp, fdata, group)
     del fdata
 
     kernels = []

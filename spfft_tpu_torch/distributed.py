@@ -35,7 +35,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from . import faults, knobs, obs, timing, tuning
+from . import faults, obs, timing, tuning
 from .errors import InvalidParameterError, MPIError
 from .grid import Grid
 from .ops.fft import resolve_precision
@@ -51,7 +51,6 @@ from .parameters import (DistributedParameters, distribute_triplets,
 from .sync import fence
 from .transform import (_Observed, _resolve_batch_count, _validate_data_location,
                         reference_parts, storage_triplets_from)
-from .verify import VERIFY_ENV, resolve_mode
 from .types import (ExchangeType, ExecType, IndexFormat, ProcessingUnit, ScalingType,
                     TransformType, wire_scalar_bytes)
 
@@ -79,8 +78,12 @@ class DistributedTransform(_Observed):
     its record in ``report()["tuning"]``.
     A process group that fails while the exchange is built raises
     :class:`MPIError`; no engine takes its place. ``guard`` and ``verify``
-    as on :class:`~spfft_tpu_torch.transform.Transform`; ``verify`` needs
-    every shard in this process (a group of more than one process raises).
+    as on :class:`~spfft_tpu_torch.transform.Transform`. Over a process
+    group every process verifies the global transform from its own shards:
+    the checks' sums meet in one all-reduce a call, and the reference rung
+    gathers what it needs, so every process of the group must make the same
+    verified calls. Guard's input check meets the group's in one all-reduce
+    a call, so a bad input on one process raises on every process.
     """
 
     def __init__(self, processing_unit, transform_type, dim_x, dim_y, dim_z, indices, *,
@@ -218,14 +221,8 @@ class DistributedTransform(_Observed):
         self._space_data = None  # native: (re, im) for C2C, re for R2C
         # a plan constant, counted on every call: summed here once
         self._wire_bytes = self.exchange_wire_bytes()
-        if mesh.world > 1 and resolve_mode(verify) != "off":
-            # the checks and the reference rung need every shard's data here;
-            # the mode is the resolved one, so SPFFT_TPU_VERIFY is refused too
-            source = f"verify={verify!r}" if verify is not None else \
-                f"{VERIFY_ENV}={knobs.raw(VERIFY_ENV)!r}"
-            raise InvalidParameterError(
-                f"{source} needs every shard in this process, but the mesh "
-                f"spans {mesh.world} processes: verify each process's local plans instead")
+        # over a process group (one process included) the checks reduce
+        # their sums over the group (_check_shards)
         self._init_verify(verify)
 
     # ---- transforms -----------------------------------------------------------------
@@ -273,6 +270,28 @@ class DistributedTransform(_Observed):
         if self._guard:
             faults.check_array(result, check="forward output", platform=self._platform)
         return result
+
+    def _guard_input(self, data, direction: str) -> None:
+        """Guard's check of a call's input. Over a process group the
+        processes agree before the exchange: each one's verdict meets the
+        others' in one all-reduce, and a bad input on any of them raises the
+        same typed error on every one."""
+        if not self._guard or self._mesh.group is None:
+            return super()._guard_input(data, direction)
+        error = faults.execution_error(self._platform)
+        mine = None
+        try:
+            super()._guard_input(data, direction)
+        except error as e:
+            mine = e
+        from .verify.checks import group_scalar
+
+        failed = int(group_scalar(mine is not None, self._mesh.group, self.device))
+        if mine is not None:
+            raise mine
+        if failed:
+            raise error(f"guard [{direction} input]: failed on {failed} other process(es) "
+                        "of the group")
 
     def _guard_space(self, result) -> None:
         """Guard's check of a backward result: the global slab's values and
@@ -471,32 +490,167 @@ class DistributedTransform(_Observed):
         return self._reference_exec
 
     def _reference_backward(self, values):
-        """Per-shard values, concatenated -> the global ``(Z, Y, X)`` space."""
+        """Per-shard values, concatenated -> the global ``(Z, Y, X)`` space;
+        over a process group every shard's values are gathered first and
+        this process keeps its own blocks, as :meth:`backward` returns them."""
         from .execution import from_pair
         from .verify.supervisor import flat_values
 
+        if self._mesh.group is not None:
+            values = self._gathered_values(values)
         ref = self._reference_engine()
         out = fence(ref.backward_pair(*ref.values_pair(flat_values(values))))
-        return out if self._is_r2c else from_pair(out)
+        out = out if self._is_r2c else from_pair(out)
+        return out if self._mesh.group is None else self._own_blocks(out)
 
     def _reference_forward(self, space, scaling):
-        """A global ``(Z, Y, X)`` space on the device -> the per-shard values."""
+        """A global ``(Z, Y, X)`` space on the device (over a process group
+        the global space or this process's blocks: its blocks are gathered
+        first) -> the per-shard values."""
         from .execution import from_pair
 
+        if self._mesh.group is not None:
+            space = self._gathered_space(space)
         ref = self._reference_engine()
         flat = from_pair(fence(ref.forward_pair(*reference_parts(space, self._is_r2c),
                                                 ScalingType(scaling))))
-        return list(torch.split(flat, [int(n) for n in self._params.num_values_per_shard]))
+        values = list(torch.split(flat, [int(n) for n in self._params.num_values_per_shard]))
+        if self._mesh.group is None:
+            return values
+        local = set(self._mesh.local_shards)
+        return [v if r in local else None for r, v in enumerate(values)]
+
+    # ---- verification over a process group ---------------------------------------------
+
+    def _check_shards(self):
+        """This process's part of the plan for the checks
+        (:class:`~.verify.checks.Shards`), None without a process group."""
+        if self._mesh.group is None:
+            return None
+        from .verify.checks import Shards
+
+        p = self._params
+        first = self._mesh.local_shards[0]
+        return Shards(self._mesh.group, (p.dim_z, p.dim_y, p.dim_x),
+                      int(p.num_values_per_shard.sum()),
+                      int(p.num_values_per_shard[:first].sum()), self.device)
+
+    def _local_values(self, values):
+        """This process's shards' values of a per-shard list, concatenated."""
+        from .verify.supervisor import flat_values
+
+        return flat_values([values[r] for r in self._mesh.local_shards])
+
+    def _holds_every_shard(self) -> bool:
+        return len(self._mesh.local_shards) == self.num_shards
+
+    def _shard_blocks(self, space) -> list:
+        """A space as a per-shard list of this process's blocks (None for
+        the others'): a per-shard list as it is, a global ``(Z, Y, X)``
+        tensor cut at each of this process's shards' offsets."""
+        if isinstance(space, (list, tuple)):
+            return list(space)
+        out = [None] * self.num_shards
+        for r in self._mesh.local_shards:
+            z0, y0 = self.local_z_offset(r), self.local_y_offset(r)
+            out[r] = space[z0:z0 + self.local_z_length(r), y0:y0 + self.local_y_length(r)]
+        return out
+
+    def _local_blocks(self, space) -> list:
+        """``(block, z0, y0)`` for this process's part of a space (a global
+        tensor or a per-shard list): the global ``(Z, Y, X)`` tensor where
+        it holds every shard, else each of its shards' blocks at its
+        offset."""
+        if not isinstance(space, (list, tuple)) and self._holds_every_shard():
+            return [(space, 0, 0)]
+        blocks = self._shard_blocks(space)
+        return [(blocks[r], self.local_z_offset(r), self.local_y_offset(r))
+                for r in self._mesh.local_shards]
+
+    def _own_blocks(self, full):
+        """A global ``(Z, Y, X)`` result -> what :meth:`backward` returns on
+        this process: the global tensor where it holds every shard, else
+        its shards' blocks (None for the others')."""
+        if self._holds_every_shard():
+            return full
+        return [None if b is None else b.contiguous() for b in self._shard_blocks(full)]
+
+    def _all_gather(self, t):
+        """``t`` from every process of the group, stacked in rank order on
+        the plan's device (NCCL gathers on the card, gloo on the CPU)."""
+        import torch.distributed as dist
+
+        group = self._mesh.group
+        src = t.to(self.device if dist.get_backend(group) == "nccl" else "cpu")
+        parts = [torch.empty_like(src) for _ in range(self._mesh.world)]
+        dist.all_gather(parts, src, group=group)
+        return torch.cat(parts).to(self.device)
+
+    def _gathered_values(self, values):
+        """Every shard's values from every process: each sends its shards'
+        ``(re, im)`` padded to the longest shard, in the plan's dtype."""
+        from .verify.supervisor import flat_values
+
+        counts = [int(n) for n in self._params.num_values_per_shard]
+        local = list(self._mesh.local_shards)
+        buf = torch.zeros((len(local), max(counts), 2), dtype=self._exec.torch_dtype,
+                          device=self.device)
+        for j, r in enumerate(local):
+            v = flat_values([values[r]]).to(self.device)
+            buf[j, :counts[r], 0] = v.real if v.is_complex() else v
+            if v.is_complex():
+                buf[j, :counts[r], 1] = v.imag
+        every = self._all_gather(buf)
+        return [torch.complex(every[r, :n, 0], every[r, :n, 1]) for r, n in enumerate(counts)]
+
+    def _gathered_space(self, space):
+        """The global ``(Z, Y, X)`` space from every process's blocks (each
+        sends its shards' blocks, flattened and padded to the largest)."""
+        if not isinstance(space, (list, tuple)):
+            if self._holds_every_shard():  # a group of one: nothing to gather
+                return space
+            space = self._shard_blocks(space)
+        shape = lambda r: (self.local_z_length(r), self.local_y_length(r), self.dim_x)
+        size = max(int(np.prod(shape(r))) for r in range(self.num_shards))
+        planes = 1 if self._is_r2c else 2
+        local = list(self._mesh.local_shards)
+        buf = torch.zeros((len(local), size, planes), dtype=self._exec.torch_dtype,
+                          device=self.device)
+        for j, r in enumerate(local):
+            blk = space[r].reshape(-1)
+            n = blk.numel()
+            buf[j, :n, 0] = blk.real if blk.is_complex() else blk
+            if planes == 2 and blk.is_complex():
+                buf[j, :n, 1] = blk.imag
+        every = self._all_gather(buf)
+        complex_dtype = torch.complex128 if every.dtype == torch.float64 else torch.complex64
+        full = torch.zeros((self.dim_z, self.dim_y, self.dim_x),
+                           dtype=every.dtype if self._is_r2c else complex_dtype,
+                           device=self.device)
+        for r in range(self.num_shards):
+            lz, ly, _ = shape(r)
+            z0, y0 = self.local_z_offset(r), self.local_y_offset(r)
+            n = lz * ly * self.dim_x
+            blk = every[r, :n, 0] if self._is_r2c else torch.complex(every[r, :n, 0],
+                                                                     every[r, :n, 1])
+            full[z0:z0 + lz, y0:y0 + ly] = blk.reshape(shape(r))
+        return full
 
     def _device_space(self, space):
-        """The global ``(Z, Y, X)`` space on the plan's device: the caller's
-        (a tensor there is not copied) or, for None, the retained one."""
+        """The space on the plan's device: the caller's (a tensor there is
+        not copied) or, for None, the retained one; a global ``(Z, Y, X)``
+        tensor, or over a process group a per-shard list of this process's
+        blocks (None for the others')."""
         p = self._params
         if space is None:
             if self._space_data is None:
                 raise InvalidParameterError(
                     "no space domain data: run backward first or pass an array")
             return self._exec.unpad_space(self._space_data)
+        if isinstance(space, (list, tuple)) and self._mesh.group is not None:
+            local = set(self._mesh.local_shards)
+            return [self._exec._tensor(s) if r in local and s is not None else None
+                    for r, s in enumerate(space)]
         t = space.to(self.device) if torch.is_tensor(space) else torch.as_tensor(
             np.asarray(space), device=self.device)
         if t.numel() != p.total_size:

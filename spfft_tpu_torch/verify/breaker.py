@@ -8,7 +8,8 @@ skip it and go straight to the ``torch.fft`` reference rung. After
 admits one probe: a verified success closes it, a failure opens it again.
 
 State is per engine name (``mxu``, ``xla``, ``pencil2-mxu``, ...) and
-process-global, as the fault plane and the metrics registry are. Exposure:
+process-global, as the fault plane and the metrics registry are; a plan over
+a process group has an entry of its engine and group (:func:`group_key`). Exposure:
 the ``verify_breaker_state{engine}`` gauge (0 closed / 1 open / 2
 half-open), ``verify_breaker_trips_total{engine}``, a ``verify`` event at
 every transition, and :func:`describe` for the plan card's
@@ -41,6 +42,18 @@ def threshold() -> int:
 def cooldown_s() -> float:
     """Open -> half-open probe delay in seconds (0 probes immediately)."""
     return knobs.get_float(BREAKER_COOLDOWN_ENV)
+
+
+def group_key(engine: str, group) -> str:
+    """The breaker entry of a plan over a process group: the engine and the
+    group's global ranks (``"pencil2@ranks0,1"``). Only the group's verified
+    calls move it, and they give every process the same verdicts, so it is
+    in the same state on every process of the group, whatever the process's
+    other plans do to the engine's own entry."""
+    import torch.distributed as dist
+
+    ranks = ",".join(str(r) for r in dist.get_process_group_ranks(group))
+    return f"{engine}@ranks{ranks}"
 
 
 def _entry(engine: str) -> dict:
@@ -77,6 +90,17 @@ def _transition(engine: str, entry: dict, state: str) -> None:
     obs.trace.event("verify", what="breaker", engine=engine, state=state)
 
 
+def _admits(entry: dict, now: float) -> bool:
+    """Whether ``entry``'s breaker admits a caller at ``now`` (see :func:`allow`)."""
+    if entry["state"] == "open":
+        return now - entry["opened_at"] >= cooldown_s()
+    if entry["state"] == "half_open":
+        # a verdict-less probe (carrier escaped without record_*) frees
+        # its slot after the takeover interval — see _probe_takeover_s
+        return not (entry["probing"] and now - entry["probe_at"] < _probe_takeover_s())
+    return True
+
+
 def allow(engine: str) -> bool:
     """Whether a verified transform may attempt the primary engine now.
 
@@ -91,22 +115,29 @@ def allow(engine: str) -> bool:
     with _lock:
         entry = _entry(engine)
         now = time.monotonic()
-        if entry["state"] == "open":
-            if now - entry["opened_at"] >= cooldown_s():
-                _transition(engine, entry, "half_open")
-                entry["probing"] = True
-                entry["probe_at"] = now
-                return True
-            return False
-        if entry["state"] == "half_open":
-            # a verdict-less probe (carrier escaped without record_*) frees
-            # its slot after the takeover interval — see _probe_takeover_s
-            if entry["probing"] and now - entry["probe_at"] < _probe_takeover_s():
-                return False
-            entry["probing"] = True
-            entry["probe_at"] = now
+        if entry["state"] == "closed":
             return True
+        if not _admits(entry, now):
+            return False
+        if entry["state"] == "open":
+            _transition(engine, entry, "half_open")
+        entry["probing"] = True
+        entry["probe_at"] = now
         return True
+
+
+def state(engine: str) -> str:
+    """``"closed"``, ``"open"`` or ``"half_open"``."""
+    with _lock:
+        return _entry(engine)["state"]
+
+
+def would_allow(engine: str) -> bool:
+    """What :func:`allow` would answer now, with no transition and no probe
+    taken (a group of processes agrees on the answer before any of them
+    takes it)."""
+    with _lock:
+        return _admits(_entry(engine), time.monotonic())
 
 
 def release_probe(engine: str) -> None:

@@ -24,6 +24,15 @@ On the CPU the same code runs on CPU tensors. Every sum is taken in float64
 
 Fault site ``verify.check`` fires at the top of :func:`run_checks`, so the
 detector itself can fail under test.
+
+A mesh plan over a process group (:class:`Shards`) checks the same
+invariants of the global transform: each process takes every sum over its
+own shards' values and space blocks, a scalar that lives on one shard (the
+origin's value, the probe's element) comes from the process that holds it
+(0 from the others), and the call's scalars travel in one float64 tensor
+through one ``all_reduce(SUM)``, with a flag for a process whose attempt or
+detector failed. Every process then forms the same verdicts from the same
+sums, or raises the same :class:`GroupFailure`.
 """
 from __future__ import annotations
 
@@ -47,6 +56,11 @@ CHECKS = (
 )
 
 _TINY = 1e-300  # denominator floor: never divide by an exactly-zero scale
+
+# Failures of the detector itself (the verify.check site raises
+# InjectedFault, a RuntimeError; GroupFailure is one too): an unverifiable
+# result is a failed episode.
+CHECKER_ERRORS = (RuntimeError,)
 
 
 def resolve_mode(explicit=None) -> str:
@@ -134,6 +148,28 @@ class Geometry:
         return rows
 
 
+class Shards:
+    """This process's part of a mesh plan, for checks over a process group:
+    the global ``dims`` ``(Z, Y, X)`` and value count, the offset of this
+    process's values in the packed order (its shards' values, concatenated,
+    are one run of it), and the group (NCCL reduces on ``device``, gloo on
+    the CPU)."""
+
+    def __init__(self, group, dims, num_values, value_offset, device):
+        self.group = group
+        self.dims = tuple(int(d) for d in dims)
+        self.num_values = int(num_values)
+        self.value_offset = int(value_offset)
+        self.device = torch.device(device)
+
+
+class GroupFailure(RuntimeError):
+    """A check over a process group that some process could not complete:
+    its attempt raised, or its detector did. Every process raises it for
+    the same reduced flags, so the supervisor's next step is the same on
+    all of them."""
+
+
 def _tensor(a) -> torch.Tensor:
     """A tensor over ``a`` (numpy arrays shared where torch can)."""
     if torch.is_tensor(a):
@@ -192,10 +228,15 @@ def _phase_vec(k: float, n: int, device) -> torch.Tensor:
 # check does not apply to this call).
 
 
+def _total(parts):
+    """The sum of scalar tensors (the one itself for a single block)."""
+    return parts[0] if len(parts) == 1 else torch.stack(parts).sum()
+
+
 def _space_sum_sq(ctx):
     """``sum|space|^2``, which ``parseval`` and ``dc`` share: taken once."""
     if "sumsq" not in ctx:
-        ctx["sumsq"] = _sum_sq(ctx["space"])
+        ctx["sumsq"] = _total([_sum_sq(b) for b, _, _ in ctx["blocks"]])
     return ctx["sumsq"]
 
 
@@ -206,7 +247,7 @@ def _parseval_needs(ctx):
 def _parseval(ctx, got):
     """Backward energy conservation: ``sum|space|^2 == N * sum|freq|^2``."""
     measured = got["sumsq"].real
-    expected = float(ctx["space"].numel()) * got["freq_sumsq"].real
+    expected = float(ctx["size"]) * got["freq_sumsq"].real
     return _verdict("parseval", measured, expected, expected, ctx["rtol"])
 
 
@@ -215,22 +256,44 @@ def _space_sum(ctx):
     read of the grid (:func:`_contract`, once for both checks)."""
     if "sum" not in ctx:
         vecs = _probe_vecs(ctx) if ctx["direction"] == "forward" else None
-        ctx["sum"], ctx["contract"] = (_contract(ctx["space"], vecs) if vecs is not None
-                                       else (ctx["space"].sum(), None))
+        if vecs is None:
+            ctx["sum"], ctx["contract"] = _total([b.sum() for b, _, _ in ctx["blocks"]]), None
+        else:  # each block against its window of the phase vectors
+            vz, vy, vx = vecs
+            parts = [_contract(b, (vz[z0:z0 + b.shape[0]], vy[y0:y0 + b.shape[1]], vx))
+                     for b, z0, y0 in ctx["blocks"]]
+            ctx["sum"] = _total([p[0] for p in parts])
+            ctx["contract"] = _total([p[1] for p in parts])
     return ctx["sum"]
+
+
+def _value_at(ctx, j):
+    """Packed value ``j`` (a global index) where this process holds it, else 0."""
+    lo = ctx["lo"]
+    if lo <= j < lo + ctx["freq"].numel():
+        return ctx["freq"][j - lo]
+    return ctx["freq"].new_zeros(())
+
+
+def _space_at(ctx, z, y, x):
+    """Space element ``(z, y, x)`` from the block that holds it, else 0."""
+    for b, z0, y0 in ctx["blocks"]:
+        if z0 <= z < z0 + b.shape[0] and y0 <= y < y0 + b.shape[1]:
+            return b[z - z0, y - y0, x]
+    return ctx["blocks"][0][0].new_zeros(())
 
 
 def _dc_needs(ctx):
     need = {"sumsq": _space_sum_sq(ctx), "sum": _space_sum(ctx)}
     j = ctx["geometry"].origin
     if j is not None:
-        need["f0"] = ctx["freq"][j]
+        need["f0"] = _value_at(ctx, j)
     return need
 
 
 def _dc(ctx, got):
     """DC consistency: only the zero-frequency term survives a grid sum."""
-    size = ctx["space"].numel()
+    size = ctx["size"]
     j = ctx["geometry"].origin
     # tolerance scale: the cancellation mass of the grid sum (sqrt(N) * l2)
     mass = math.sqrt(size) * math.sqrt(max(got["sumsq"].real, 0.0))
@@ -251,48 +314,48 @@ def _dc(ctx, got):
 
 def _probe_site(ctx):
     """The probe's site: ``(z, y, x)`` backward, a value's index forward."""
-    space, freq = ctx["space"], ctx["freq"]
-    dz, dy, dx = space.shape
-    rng = _probe_rng((dx, dy, dz), freq.numel(), ctx["direction"])
+    dz, dy, dx = ctx["dims"]
+    rng = _probe_rng((dx, dy, dz), ctx["num_values"], ctx["direction"])
     if ctx["direction"] == "backward":
         return int(rng.integers(dz)), int(rng.integers(dy)), int(rng.integers(dx))
-    return int(rng.integers(freq.numel()))
+    return int(rng.integers(ctx["num_values"]))
 
 
 def _probe_needs(ctx):
-    space, freq = ctx["space"], ctx["freq"]
-    if not freq.numel():
+    freq = ctx["freq"]
+    if not ctx["num_values"]:
         return {}
-    dz, dy, dx = space.shape
+    dz, dy, dx = ctx["dims"]
     site = _probe_site(ctx)
     if ctx["direction"] == "backward":
         zs, ys, xs = site
-        k = ctx["geometry"].on(freq.device)
+        k = ctx["geometry"].on(freq.device)[ctx["lo"]:ctx["lo"] + freq.numel()]
         phase = 2 * math.pi * (k[:, 0] * xs / dx + k[:, 1] * ys / dy + k[:, 2] * zs / dz)
         return {"probe_expected": (freq * torch.polar(torch.ones_like(phase), phase)).sum(),
-                "probe_measured": space[zs, ys, xs],
+                "probe_measured": _space_at(ctx, zs, ys, xs),
                 "freq_l1": torch.linalg.vector_norm(freq, ord=1)}
     _space_sum(ctx)
-    return {"contract": ctx["contract"], "probe_measured": freq[site],
-            "l1": torch.linalg.vector_norm(_flat(space), ord=1)}
+    return {"contract": ctx["contract"], "probe_measured": _value_at(ctx, site),
+            "l1": _total([torch.linalg.vector_norm(_flat(b), ord=1)
+                          for b, _, _ in ctx["blocks"]])}
 
 
 def _probe_vecs(ctx):
     """The forward probe's phase vectors ``(ez, ey, ex)``, or None when there
     is no value to probe."""
-    space, freq = ctx["space"], ctx["freq"]
-    if not freq.numel():
+    if not ctx["num_values"]:
         return None
-    dz, dy, dx = space.shape
+    dz, dy, dx = ctx["dims"]
     kx, ky, kz = (float(v) for v in ctx["geometry"].rows[_probe_site(ctx)])
-    return [_phase_vec(k, n, space.device) for k, n in ((kz, dz), (ky, dy), (kx, dx))]
+    device = ctx["blocks"][0][0].device
+    return [_phase_vec(k, n, device) for k, n in ((kz, dz), (ky, dy), (kx, dx))]
 
 
 def _probe(ctx, got):
     """Random-probe linearity: one output element recomputed from the DFT
     definition (backward: a phase sum over the values at one space site;
     forward: one separable contraction over the space grid)."""
-    if not ctx["freq"].numel():
+    if not ctx["num_values"]:
         return None
     if ctx["direction"] == "backward":
         expected = got["probe_expected"]
@@ -324,6 +387,58 @@ def _fetch(named: dict) -> dict:
     return out
 
 
+# Every scalar a check may need, in the order of the reduced vector; a call
+# that needs fewer sends zeros in the others' places.
+SCALARS = ("sumsq", "freq_sumsq", "sum", "f0", "probe_expected", "probe_measured",
+           "freq_l1", "contract", "l1")
+
+
+def _group_device(group, device) -> torch.device:
+    """Where a collective of ``group`` runs: on ``device`` over NCCL, on the
+    CPU over gloo."""
+    import torch.distributed as dist
+
+    return torch.device(device) if dist.get_backend(group) == "nccl" else torch.device("cpu")
+
+
+def group_scalar(value: float, group, device, op=None) -> float:
+    """``value`` reduced over ``group`` (SUM, or ``op``) in one all-reduce."""
+    import torch.distributed as dist
+
+    t = torch.tensor([float(value)], dtype=torch.float64, device=_group_device(group, device))
+    dist.all_reduce(t, op=dist.ReduceOp.SUM if op is None else op, group=group)
+    return float(t.item())
+
+
+def _reduce(named: dict, shards: Shards, failure) -> dict:
+    """The scalars of ``named`` summed over the group: one float64 tensor
+    (each scalar's real and imaginary parts, then the counts of processes
+    whose attempt and whose detector failed) through one
+    ``all_reduce(SUM)``, then one host transfer. Raises
+    :class:`GroupFailure` on every process if any process failed."""
+    import torch.distributed as dist
+
+    device = _group_device(shards.group, shards.device)
+    zero = torch.zeros((), dtype=torch.complex128, device=device)
+    parts = [named[k].to(device=device, dtype=torch.complex128).reshape(()) if k in named
+             else zero for k in SCALARS]
+    flags = [failure is not None and failure[0] == "execution",
+             failure is not None and failure[0] == "checker"]
+    vec = torch.cat([torch.view_as_real(torch.stack(parts)).reshape(-1),
+                     torch.tensor(flags, dtype=torch.float64).to(device)])
+    dist.all_reduce(vec, op=dist.ReduceOp.SUM, group=shards.group)
+    host = vec.cpu().tolist()
+    executions, checkers = int(host[-2]), int(host[-1])
+    if executions or checkers:
+        world = dist.get_world_size(shards.group)
+        mine = f"; this process: {failure[0]}: {failure[1]}" if failure is not None else ""
+        raise GroupFailure(
+            f"{executions} of {world} process(es) failed to execute and {checkers} "
+            f"failed to check{mine}")
+    return {k: complex(host[2 * i], host[2 * i + 1]) for i, k in enumerate(SCALARS)
+            if k in named}
+
+
 def run_checks(
     *,
     direction: str,
@@ -333,6 +448,8 @@ def run_checks(
     transform_type,
     scale: float = 1.0,
     rtol: float,
+    shards: Shards | None = None,
+    failure=None,
 ) -> list:
     """Run every applicable check of one call; returns the verdict rows
     (``check``/``verdict``/``rel``/``rtol``/``measured``/``expected``).
@@ -343,26 +460,44 @@ def run_checks(
     rows aligned with ``freq`` (or a :class:`Geometry`), ``scale`` the
     forward scaling (1/N under ``ScalingType.FULL``).
 
+    Over a process group (``shards``) ``freq`` is this process's values,
+    ``space`` its blocks as ``(block, z0, y0)``, each at its offset in the
+    global grid, and ``triplets`` the global rows; ``failure`` is ``("execution", reason)``
+    when this process's attempt raised (``freq`` or ``space`` may then be
+    None). Every process of the group must call, whatever its own attempt
+    did: the call holds the group's one all-reduce.
+
     Each verdict counts ``verify_checks_total{check,verdict}`` and lands as
     a ``verify`` event. Fault site ``verify.check`` fires first: a ``raise``
     there is the detector failing, which the supervisor treats as a failed
     check, never as a pass."""
-    faults.site("verify.check")
     names = applicable_checks(direction, transform_type)
-    if not names:  # nothing to verify: no pass over the grid
-        return []
-    ctx = {
-        "direction": direction,
-        "freq": _wide(_tensor(freq).reshape(-1)),
-        "space": _wide(_tensor(space)),
-        "geometry": triplets if isinstance(triplets, Geometry) else Geometry(triplets),
-        "scale": float(scale),
-        "rtol": float(rtol),
-    }
-    need = {}
-    for name in names:
-        need.update(CHECK_FNS[name][0](ctx))
-    got = _fetch(need)
+    geometry = triplets if isinstance(triplets, Geometry) else Geometry(triplets)
+    if shards is None:
+        faults.site("verify.check")
+        if not names:  # nothing to verify: no pass over the grid
+            return []
+        space = _wide(_tensor(space))
+        freq = _wide(_tensor(freq).reshape(-1))
+        ctx = _context(direction, freq, [(space, 0, 0)], tuple(space.shape), 0,
+                       freq.numel(), geometry, scale, rtol)
+        got = _fetch(_needs(ctx, names))
+    else:
+        need, ctx = {}, None
+        if failure is None:
+            try:
+                faults.site("verify.check")
+                if names:
+                    ctx = _context(direction, _wide(_tensor(freq).reshape(-1)),
+                                   [(_wide(_tensor(b)), z0, y0) for b, z0, y0 in space],
+                                   shards.dims, shards.value_offset, shards.num_values,
+                                   geometry, scale, rtol)
+                    need = _needs(ctx, names)
+            except CHECKER_ERRORS as e:
+                failure = ("checker", faults.summarize(e))
+        got = _reduce(need, shards, failure)
+        if ctx is None:  # no check applies to this call
+            return []
     verdicts = []
     for name in names:
         row = CHECK_FNS[name][1](ctx, got)
@@ -379,3 +514,29 @@ def run_checks(
         )
         verdicts.append(row)
     return verdicts
+
+
+def _context(direction, freq, blocks, dims, lo, num_values, geometry, scale, rtol) -> dict:
+    """One call's operands: the values (this process's, from global index
+    ``lo``), the space blocks ``(block, z0, y0)``, the global dims and value
+    count."""
+    dims = tuple(int(d) for d in dims)
+    return {
+        "direction": direction,
+        "freq": freq,
+        "blocks": blocks,
+        "dims": dims,
+        "size": dims[0] * dims[1] * dims[2],
+        "lo": int(lo),
+        "num_values": int(num_values),
+        "geometry": geometry,
+        "scale": float(scale),
+        "rtol": float(rtol),
+    }
+
+
+def _needs(ctx, names) -> dict:
+    need = {}
+    for name in names:
+        need.update(CHECK_FNS[name][0](ctx))
+    return need

@@ -24,6 +24,17 @@ or breaker short-circuit (it still feeds the breaker). The breaker
 Unlike the JAX package, :meth:`Supervisor.forward` does not fetch the space
 grid to the host: it keeps it on the plan's device for the checks, the
 retries and the reference rung.
+
+A mesh plan over a process group runs the ladder on every process in step.
+Each attempt's checks hold one all-reduce (:func:`.checks.run_checks` with
+:class:`~.checks.Shards`), which every process reaches whatever its own
+attempt did, and which carries a flag for a failed attempt or detector: so
+every process sees the same verdicts and takes the same next rung. The
+plan's breaker entry is its engine's and its group's
+(:func:`.breaker.group_key`), which only such verdicts move, so it is in the
+same state on every process; one that is not closed asks the group once
+more, before the attempt, whether every process admits it (their cooldowns'
+clocks differ).
 """
 from __future__ import annotations
 
@@ -53,9 +64,9 @@ DEFAULT_BACKOFF_S = knobs.default(VERIFY_BACKOFF_ENV)
 # Typed execution failures the retry rung absorbs; parameter errors surface.
 RETRYABLE_ERRORS = (HostExecutionError, GPUFFTError, MPIError, FFTWError)
 
-# Failures of the detector itself (the verify.check site raises
-# InjectedFault, a RuntimeError): an unverifiable result is a failed episode.
-CHECKER_ERRORS = (RuntimeError,)
+# Failures of the detector itself (checks.CHECKER_ERRORS): an unverifiable
+# result is a failed episode.
+CHECKER_ERRORS = checks.CHECKER_ERRORS
 
 
 def resolve_retries() -> int:
@@ -100,19 +111,24 @@ class Supervisor:
         self.retries = resolve_retries()
         self._jitter = jitter_rng()
         self._geometry = None  # lazy: the plan-constant check geometry
+        # a mesh plan over a process group: this process's part (checks.Shards)
+        shards = getattr(transform, "_check_shards", None)
+        self._shards = shards() if shards is not None else None
 
     # ---- plan-facing entry points ------------------------------------------
 
     def backward(self, values):
         """Supervised backward: ``values`` (packed, or a per-shard list) ->
-        the verified ``(Z, Y, X)`` space tensor."""
-        freq = flat_values(values)
+        the verified ``(Z, Y, X)`` space tensor (across processes, this
+        process's blocks)."""
+        t = self._t
+        freq = flat_values(values) if self._shards is None else t._local_values(values)
         return self._supervise(
             direction="backward",
-            attempt=lambda: self._t._backward_attempt(values),
-            reference=lambda: self._t._reference_backward(values),
-            check=lambda result: self._run_checks(
-                "backward", freq=freq, space=result, scale=1.0
+            attempt=lambda: t._backward_attempt(values),
+            reference=lambda: t._reference_backward(values),
+            check=lambda result, failure: self._run_checks(
+                "backward", freq=freq, space=result, scale=1.0, failure=failure
             ),
         )
 
@@ -129,28 +145,79 @@ class Supervisor:
             if ScalingType(scaling) == ScalingType.FULL
             else 1.0
         )
+        local = self._shards is not None
         return self._supervise(
             direction="forward",
             attempt=lambda: t._forward_attempt(space if space is None else space_dev, scaling),
             reference=lambda: t._reference_forward(space_dev, scaling),
-            check=lambda result: self._run_checks(
+            check=lambda result, failure: self._run_checks(
                 "forward",
-                freq=flat_values(result),
+                freq=(None if result is None else
+                      t._local_values(result) if local else flat_values(result)),
                 space=space_dev,
                 scale=scale,
+                failure=failure,
             ),
         )
 
     # ---- the ladder ---------------------------------------------------------
 
+    def _verified(self, produce, check, errors=RETRYABLE_ERRORS):
+        """One rung: ``produce`` a result (a failure among ``errors`` is
+        the rung's) and check it; returns ``(result, None)`` on a pass,
+        else ``(None, reason)``. Over a process group every process reaches
+        the checks' all-reduce, its own failure carried in it, so all of
+        them return a pass or all a reason."""
+        result, failure = None, None
+        try:
+            result = produce()
+        except errors as e:
+            failure = ("execution", faults.summarize(e))
+            if self._shards is None:
+                return None, f"execution: {failure[1]}"
+        try:
+            verdicts = check(result, failure)
+        except CHECKER_ERRORS as e:
+            return None, f"checker: {faults.summarize(e)}"
+        failed = [v for v in verdicts if v["verdict"] != "pass"]
+        if not failed:
+            return result, None
+        return None, "; ".join(
+            f"{v['check']} rel={v['rel']:.3g} > rtol={v['rtol']:.3g}" for v in failed)
+
+    def _breaker_key(self) -> str:
+        """The plan's breaker entry: its engine's, over a process group its
+        engine's and group's."""
+        engine = self._t._engine
+        if self._shards is None:
+            return engine
+        return breaker.group_key(engine, self._shards.group)
+
+    def _admitted(self, key: str) -> bool:
+        """The breaker's admission (:func:`.breaker.allow`) of entry
+        ``key``. Over a process group the entry is in the same state on
+        every process, but an open one's cooldown may end at different
+        times, so the group admits the engine only if every process would,
+        in one all-reduce, and then every process takes the admission."""
+        if self._shards is None or breaker.state(key) == "closed":
+            return breaker.allow(key)
+        import torch.distributed as dist
+
+        if checks.group_scalar(breaker.would_allow(key), self._shards.group,
+                               self._shards.device, dist.ReduceOp.MIN) < 1:
+            return False
+        breaker.allow(key)
+        return True
+
     def _supervise(self, *, direction, attempt, reference, check):
         t = self._t
         engine = t._engine
+        key = self._breaker_key()
         strict = self.mode == "strict"
         failures: list = []
         # strict attempts the primary engine whatever the breaker says (and
         # still feeds it)
-        if strict or breaker.allow(engine):
+        if strict or self._admitted(key):
             budget = 1 if strict else 1 + self.retries
             backoff = resolve_backoff_s()
             for i in range(budget):
@@ -160,33 +227,18 @@ class Supervisor:
                         "verify", what="retry", direction=direction, attempt=i
                     )
                     time.sleep(faults.backoff_s(backoff, i, self._jitter))
-                bad = None
-                try:
-                    result = attempt()
-                except RETRYABLE_ERRORS as e:
-                    bad = f"execution: {faults.summarize(e)}"
+                result, bad = self._verified(attempt, check)
                 if bad is None:
-                    try:
-                        verdicts = check(result)
-                    except CHECKER_ERRORS as e:
-                        bad = f"checker: {faults.summarize(e)}"
-                    else:
-                        failed = [v for v in verdicts if v["verdict"] != "pass"]
-                        if not failed:
-                            breaker.record_success(engine)
-                            return result
-                        bad = "; ".join(
-                            f"{v['check']} rel={v['rel']:.3g} > rtol={v['rtol']:.3g}"
-                            for v in failed
-                        )
+                    breaker.record_success(key)
+                    return result
                 failures.append(bad)
                 if strict:
                     obs.counter("verify_failures_total", direction=direction).inc()
-                    breaker.record_failure(engine)
+                    breaker.record_failure(key)
                     raise VerificationError(
                         f"strict verification failed on {direction}: {bad}"
                     )
-            breaker.record_failure(engine)
+            breaker.record_failure(key)
             reason = failures[-1]
         else:
             reason = f"engine {engine!r} circuit breaker open"
@@ -199,23 +251,14 @@ class Supervisor:
                 )
         # rung 3: the torch.fft reference engine, itself verified
         obs.trace.event("verify", what="demote", direction=direction, engine=engine)
-        try:
-            result = reference()
-            verdicts = check(result)
-        except CHECKER_ERRORS + RETRYABLE_ERRORS as e:
+        result, bad = self._verified(reference, check,
+                                     RETRYABLE_ERRORS + CHECKER_ERRORS)
+        if bad is not None:
             obs.counter("verify_failures_total", direction=direction).inc()
             raise VerificationError(
-                f"{direction} failed verification and the reference rung could "
-                f"not verify either ({faults.summarize(e)}); attempts: "
-                f"{failures or [reason]}"
-            ) from e
-        failed = [v for v in verdicts if v["verdict"] != "pass"]
-        if failed:
-            obs.counter("verify_failures_total", direction=direction).inc()
-            raise VerificationError(
-                f"{direction} failed verification on engine {engine!r} AND on "
-                f"the torch.fft reference: "
-                + "; ".join(f"{v['check']} rel={v['rel']:.3g}" for v in failed)
+                f"{direction} failed verification on engine {engine!r} and the "
+                f"torch.fft reference rung could not verify either ({bad}); "
+                f"attempts: {failures or [reason]}"
             )
         obs.counter("verify_recoveries_total", direction=direction).inc()
         with faults.collecting(t._degradations):
@@ -233,7 +276,9 @@ class Supervisor:
 
     # ---- helpers ------------------------------------------------------------
 
-    def _run_checks(self, direction, *, freq, space, scale):
+    def _run_checks(self, direction, *, freq, space, scale, failure):
+        if self._shards is not None and space is not None:
+            space = self._t._local_blocks(space)
         return checks.run_checks(
             direction=direction,
             freq=freq,
@@ -242,6 +287,8 @@ class Supervisor:
             transform_type=self._t.transform_type,
             scale=scale,
             rtol=self.rtol,
+            shards=self._shards,
+            failure=failure,
         )
 
     def geometry(self) -> checks.Geometry:
@@ -263,5 +310,5 @@ class Supervisor:
             ),
             "rtol": float(self.rtol),
             "retries": int(self.retries),
-            "breaker": breaker.describe(self._t._engine),
+            "breaker": breaker.describe(self._breaker_key()),
         }

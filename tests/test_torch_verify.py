@@ -403,40 +403,54 @@ def test_a_distributed_plan_recovers():
     assert [d["event"] for d in t.report()["degradations"]] == ["verify_demoted"] * 2
 
 
-def test_a_mesh_across_processes_rejects_verify(monkeypatch):
+def _two_process_mesh(monkeypatch, rank=0):
+    """Rank ``rank``'s mesh of a two-process group, the group faked (the
+    plan is only built here; tests/test_torch_process_group_verify.py runs
+    such plans over real gloo groups)."""
     import torch.distributed as dist
 
     from spfft_tpu_torch.parallel.mesh import ShardMesh
 
-    trip, _, _ = problem()
     monkeypatch.setattr(dist, "get_world_size", lambda group: 2)
-    monkeypatch.setattr(dist, "get_rank", lambda group: 0)
-    mesh = ShardMesh(torch.device("cpu"), 2, group=object())
+    monkeypatch.setattr(dist, "get_rank", lambda group: rank)
+    monkeypatch.setattr(dist, "get_process_group_ranks", lambda group: [0, 1])
+    return ShardMesh(torch.device("cpu"), 2, group=object())
+
+
+def test_a_mesh_across_processes_rejects_verify(monkeypatch):
+    """(The name is from when such a mesh refused ``verify=``.) A mesh over
+    two processes now verifies: each rank's plan arms its supervisor with
+    its part of the checks, its values' offset in the packed order and the
+    global geometry."""
+    trip, _, _ = problem()
     per = tp.distribute_triplets(trip, 4, DIM)
-    with pytest.raises(tp.InvalidParameterError, match="every shard in this process"):
-        tp.DistributedTransform(tp.ProcessingUnit.HOST, 0, DIM, DIM, DIM, per, mesh=mesh,
-                                verify="on")
+    for rank in (0, 1):
+        mesh = _two_process_mesh(monkeypatch, rank)
+        t = tp.DistributedTransform(tp.ProcessingUnit.HOST, 0, DIM, DIM, DIM, per,
+                                    mesh=mesh, verify="on")
+        assert t._verifier is not None and t._verifier.mode == "on"
+        shards = t._verifier._shards
+        assert shards.group is mesh.group and shards.dims == (DIM, DIM, DIM)
+        assert shards.num_values == len(trip)
+        assert shards.value_offset == sum(len(p) for p in per[:2 * rank])
+        assert t.report()["verification"]["mode"] == "on"
+        # the group plan's own breaker entry: its engine's and its group's
+        assert t.report()["verification"]["breaker"]["engine"] == f"{t.engine}@ranks0,1"
 
 
 @pytest.mark.parametrize("mode", ["1", "on", "strict"])
 def test_a_mesh_across_processes_rejects_the_verify_knob(monkeypatch, mode):
-    """SPFFT_TPU_VERIFY set process-wide is refused as the argument is,
-    naming the knob (it once reached the supervisor and an untyped
-    TypeError at the first backward); set to off, the plan builds."""
-    import torch.distributed as dist
-
-    from spfft_tpu_torch.parallel.mesh import ShardMesh
-
+    """(The name is from when the knob was refused there.) SPFFT_TPU_VERIFY
+    set process-wide arms a mesh over two processes as ``verify=`` does (it
+    once reached the supervisor and an untyped TypeError at the first
+    backward, then was refused); an explicit verify="off" wins over it."""
     trip, _, _ = problem()
-    monkeypatch.setattr(dist, "get_world_size", lambda group: 2)
-    monkeypatch.setattr(dist, "get_rank", lambda group: 0)
-    mesh = ShardMesh(torch.device("cpu"), 2, group=object())
+    mesh = _two_process_mesh(monkeypatch)
     per = tp.distribute_triplets(trip, 4, DIM)
     monkeypatch.setenv("SPFFT_TPU_VERIFY", mode)
-    with pytest.raises(tp.InvalidParameterError,
-                       match=f"SPFFT_TPU_VERIFY='{mode}' needs every shard in this process"):
-        tp.DistributedTransform(tp.ProcessingUnit.HOST, 0, DIM, DIM, DIM, per, mesh=mesh)
-    # an explicit verify="off" wins over the knob
+    t = tp.DistributedTransform(tp.ProcessingUnit.HOST, 0, DIM, DIM, DIM, per, mesh=mesh)
+    assert t._verifier is not None and t._verifier._shards is not None
+    assert t._verifier.mode == ("strict" if mode == "strict" else "on")
     t = tp.DistributedTransform(tp.ProcessingUnit.HOST, 0, DIM, DIM, DIM, per, mesh=mesh,
                                 verify="off")
     assert t._verifier is None
