@@ -160,7 +160,33 @@ Phases, one JSON line each:
    process that must exit 0; and ``dist4-c2c-nccl1`` with ``verify=True``:
    the verdict rows of ``dist4-c2c`` with ``verify=True``, one NCCL
    all-reduce in the profile of each verified call;
-12. the ``kernels`` line; last, the ``{"ok": true, "device": ...}`` line.
+12. serving on the card (``serving_phase``), at 128^3 C2C, radius 0.659,
+   float32, "highest", ``engine="auto"`` (which must be ``mxu``), 3 tenants:
+   the capacity C of one warm batch-fused backward of 8 requests (host
+   staging included), the ms per transform of the batched program at B = 1,
+   2, 4, 8 against single calls, what admission costs a request, and the
+   RPC wire's cost per result (the pageable copy to the host, the frame's
+   JSON + base64 encode and decode for 1 and 8 results); in a process of its
+   own (``--serve-profile``), one B = 8 batched backward under the profiler
+   must run 8 times the staged twin's K1 and K2 kernels, and a steady 1 C
+   step of a service gives the card's busy share. Then the cells, through ``spfft_tpu_torch.programs.loadgen``'s
+   ``main()`` with the launch counts set to 0 before the first:
+   ``serve-128-c2c`` open-loop at 0.5, 1 and 2 C, 2 s a step, batch-fused
+   (each step: the accounting identity, the queue within its cap, 8 sampled
+   results bitwise a single call of a separately built plan, one within
+   1e-5 of the complex128 dense oracle, no rung; in the 1 C step a geometry
+   the cache has not seen arrives while two threads read results to the
+   host, the capture hazard of the fused plans), the 1 C step again with
+   batch fusion off, ``serve-mixed-sched`` (128^3 and 192^3 at 0.5
+   interleaved, scheduler off and on); ``serve.dispatch=raise`` at a fraction, at 2 C,
+   every ticket resolving typed; ``fleet-2w-kill``: two ``serve_worker``
+   processes on the card behind a ``ClusterFront``, worker 1 SIGKILLed in
+   the first step (``hosts_lost_total`` 1, completions after the kill, one
+   run's spans from the front and a worker in the front's trace, the fleet
+   document valid, ``fleetstat`` of the survivor and its ``--prom`` text);
+   and the serving plan's backward K1 and K2 forms against their plain
+   versions, as in phase 3, with their launches under serving;
+13. the ``kernels`` line; last, the ``{"ok": true, "device": ...}`` line.
 
 Exits non-zero, with no result line, when there is no CUDA device or any
 check fails.
@@ -3051,6 +3077,487 @@ def capi_phase(sp, data, group) -> None:
     emit({"phase": "capi", "seconds": time.perf_counter() - started})
 
 
+# ---- phase 12: serving on the card --------------------------------------------------
+
+SERVE_NAME = "serve-128-c2c"
+SERVE_DIMS = (128, 128, 128)  # gbench's first geometry: a SIRIUS-style caller's band FFTs
+SERVE_RADIUS = 0.659
+SERVE_MIX = (192, 192, 192, 0.5)  # gbench's second geometry, for the mixed cell
+SERVE_LATE_RADIUS = 0.5  # the 128^3 geometry that arrives in the middle of the 1·C step
+SERVE_TENANTS = 3
+SERVE_STEP_S = 2.0
+SERVE_SUBMITTERS = 4  # loadgen's submitting threads
+SERVE_SAMPLE = 8  # results per step held bitwise to a separately built plan's single call
+SERVE_RTOL = 1e-5  # one sample per step against the complex128 dense oracle ("highest")
+SERVE_BATCHES = (1, 2, 4, 8)
+SERVE_ARMED = "serve.dispatch=raise:0.5"
+FLEET_QUEUE_CAP = 64
+
+
+def serve_problem(sp, dims, radius, seed):
+    """Triplets and complex values of one serving geometry (caller order)."""
+    rng = np.random.default_rng(seed)
+    trip = np.asarray(sp.create_spherical_cutoff_triplets(*dims, radius))
+    return trip, rng.standard_normal(len(trip)) + 1j * rng.standard_normal(len(trip))
+
+
+def serve_oracle_err(trip, payload, dims, result) -> float:
+    """Max abs error of a backward result over max |oracle|: the complex128
+    dense inverse transform of ``payload`` placed at ``trip``."""
+    X, Y, Z = dims
+    dense = np.zeros((Z, Y, X), np.complex128)
+    dense[storage(trip[:, 2], Z), storage(trip[:, 1], Y), storage(trip[:, 0], X)] = payload
+    want = np.fft.ifftn(dense) * (X * Y * Z)
+    return float(np.abs(result.cpu().numpy() - want).max() / np.abs(want).max())
+
+
+def serve_plan(sp, trip, dims, **kw):
+    """A plan exactly as the service builds its cache entry (the canonical
+    triplets) and the map that stages a caller-order payload for it."""
+    from spfft_tpu_torch.parallel.ragged import value_order_map
+
+    canonical = sp.serve.canonical_triplets(trip, dims)
+    t = sp.Transform(sp.ProcessingUnit.GPU, sp.TransformType.C2C, *dims, indices=canonical,
+                     dtype=F32, **kw)
+    src = value_order_map(t._verify_triplets(), sp.serve.wrap_triplets(trip, dims))
+    return t, src
+
+
+def wall_ms(fn, reps: int = 5, warmup: int = 2) -> float:
+    """Median host-clock ms of ``fn()`` through the card's completion."""
+    import torch
+
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append(1e3 * (time.perf_counter() - t0))
+    return statistics.median(times)
+
+
+def kernel_counts(fn, attempts: int = 3) -> tuple:
+    """(K1, K2) kernels on the device timeline of ``fn()`` under
+    torch.profiler: the replays of a CUDA graph count there, where host
+    launch counters count none. A profile that records no device event at
+    all (seen in the full script's run, as ``busy_pair_ms`` has seen) is
+    taken again, up to ``attempts`` times."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(attempts):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        names = [e.name for e in device_kernels(prof)]
+        if names:
+            break
+    return (sum("tc_kernel" in n or "dmma_kernel" in n for n in names),
+            sum("row_gather_kernel" in n for n in names))
+
+
+def serve_capacity(sp, plan, src, trip, payloads) -> dict:
+    """Capacity C: one warm batch-fused backward of ``batch_max`` = 8 requests
+    with their host staging, C = 8 / its seconds; the ms per transform of the
+    batched program at B = 1, 2, 4, 8 against single calls (B4 under
+    serving); and what admission costs a request (``TransformService.submit``
+    of one payload: canonical triplets, the plan key, the value-order map,
+    the gather into plan order)."""
+    staged = [p[src] for p in payloads]
+    per_b = {b: wall_ms(lambda b=b: plan.backward_batch(staged[:b]), reps=10, warmup=3) / b
+             for b in SERVE_BATCHES}
+    single = wall_ms(lambda: plan.backward(staged[0]), reps=10, warmup=3)
+    seconds8 = per_b[8] * 8 / 1e3
+    svc = sp.serve.TransformService(sp.ProcessingUnit.GPU, dtype=F32, start=False,
+                                    queue_capacity=64)
+    svc.submit(sp.TransformType.C2C, SERVE_DIMS, trip, payloads[0])  # the plan build
+    t0 = time.perf_counter()
+    for p in payloads[1:8]:
+        svc.submit(sp.TransformType.C2C, SERVE_DIMS, trip, p)
+    admit_ms = 1e3 * (time.perf_counter() - t0) / 7
+    svc.close(drain=False)
+    row = {"phase": "serve_capacity", "batch8_seconds": seconds8, "capacity_per_s": 8 / seconds8,
+           "ms_per_transform_batched": {str(b): ms for b, ms in per_b.items()},
+           "ms_per_transform_single": single,
+           "batched_over_single": {str(b): ms / single for b, ms in per_b.items()},
+           "admission_ms_per_request": admit_ms,
+           "admission_limit_per_s": 1e3 / admit_ms}
+    emit(row)
+    return row
+
+
+def serve_wire(sp, plan, src, payload) -> dict:
+    """What the RPC path pays per result at 128^3 complex64: the pageable
+    device-to-host copy of ``.cpu().numpy()`` and the frame's JSON + base64
+    encode and decode, for a reply of 1 and of 8 results."""
+    import json as _json
+
+    from spfft_tpu_torch.serve import rpc
+
+    res = plan.backward(payload[src])
+    nbytes = res.numel() * res.element_size()
+    d2h = wall_ms(lambda: rpc.host_array(res), reps=7)
+    host = rpc.host_array(res)
+    row = {"phase": "serve_wire", "result_bytes": nbytes, "d2h_ms": d2h,
+           "d2h_gb_s": nbytes / d2h / 1e6}
+    for n in (1, 8):
+        reply = {"results": [{"result": host} for _ in range(n)]}
+        enc = lambda: _json.dumps(rpc.encode_value(reply)).encode("utf-8")  # noqa: E731
+        body = enc()
+        row[f"frame{n}_bytes"] = len(body)
+        row[f"frame{n}_encode_ms"] = wall_ms(enc, reps=3, warmup=0)
+        row[f"frame{n}_decode_ms"] = wall_ms(
+            lambda: rpc.decode_value(_json.loads(body.decode("utf-8"))), reps=3, warmup=0)
+        del body
+    row["wire_ms_per_result"] = d2h + (row["frame8_encode_ms"] + row["frame8_decode_ms"]) / 8
+    check(row["frame8_bytes"] < rpc.MAX_FRAME_BYTES, "an 8-result reply exceeds the frame cap")
+    emit(row)
+    return row
+
+
+def serve_row(cell, row, extra=None) -> dict:
+    keys = ("key", "target_rate", "offered", "unoffered", "offered_rate", "accepted",
+            "completed", "rejected", "shed", "deadline_miss", "failed", "unresolved",
+            "transforms_per_sec", "p50_ms", "p99_ms", "mean_batch_occupancy", "phases",
+            "completed_after_kill")
+    out = {"phase": "serve_step", "cell": cell, **{k: row[k] for k in keys if k in row},
+           **(extra or {})}
+    emit(out)
+    check(row["offered"] == row["completed"] + row["rejected"] + row["shed"]
+          + row["deadline_miss"] + row["failed"], f"{cell} {row['key']}: accounting broke")
+    check(row["unresolved"] == 0, f"{cell} {row['key']}: tickets left unresolved")
+    return out
+
+
+def plan_entries(service) -> list:
+    with service.plans._lock:
+        return list(service.plans._entries.values())
+
+
+def serve_loadgen(argv, hooks=None) -> dict:
+    """One loadgen run through its main(), its report read back."""
+    from spfft_tpu_torch.programs import loadgen
+
+    out = os.path.join(REPORTS, f"loadgen-{len(os.listdir(REPORTS))}.json")
+    with knobs({"SPFFT_TPU_BATCH_FUSE": os.environ.get("SPFFT_TPU_BATCH_FUSE", "1")}):
+        check(loadgen.main([*argv, "-o", out], hooks=hooks) == 0, f"loadgen {argv} failed")
+    with open(out) as f:
+        return json.load(f)
+
+
+def serving_phase(sp) -> tuple:
+    """Phase 12 (module docstring): serving on the card through K1 and K2.
+    Returns the kernel rows of the serving plan's forms and their launches
+    under serving."""
+    import queue as _queue
+    import threading
+
+    import torch
+    from spfft_tpu_torch import obs
+    from spfft_tpu_torch.obs import fleet
+    from spfft_tpu_torch.programs import fleetstat, loadgen
+
+    started = time.perf_counter()
+    os.makedirs(REPORTS, exist_ok=True)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    before = rung_counters()
+    dims = SERVE_DIMS
+    trip, values = serve_problem(sp, dims, SERVE_RADIUS, SEED + 12)
+    rng = np.random.default_rng(SEED + 13)
+    payloads = [values * (1 + 0.01 * rng.standard_normal()) for _ in range(8)]
+
+    # ---- the reference plan, the capacity, the wire ----
+    ref, src = serve_plan(sp, trip, dims)
+    check(ref.engine == "mxu", f"{SERVE_NAME}: auto resolved to {ref.engine} on the card")
+    cap = serve_capacity(sp, ref, src, trip, payloads)
+    C = cap["capacity_per_s"]
+    wire = serve_wire(sp, ref, src, payloads[0])
+    # the profiled checks in a process of their own: in the full script, after
+    # phases 1–11, the profiler lost K1/K2 records (0 of a staged backward's 7
+    # kernels, 45 of 48 K1 in a batched one) that a fresh process records
+    run = subprocess.run([sys.executable, os.path.abspath(__file__), "--serve-profile", str(C)],
+                         capture_output=True, text=True, timeout=600)
+    check(run.returncode == 0, f"the serving profile process failed: {run.stderr[-3000:]}")
+    prof = json.loads(run.stdout.strip().splitlines()[-1])
+    emit(prof)
+    k_single, k_batch = tuple(prof["staged_backward"]), tuple(prof["batched_backward_b8"])
+    check(k_single[0] > 0 and k_single[1] > 0, "the staged backward ran no K1 or K2")
+    check(k_batch == (8 * k_single[0], 8 * k_single[1]),
+          f"B = 8 batched backward ran {k_batch} K1/K2 kernels, not 8 x {k_single}")
+    base = ["--device", "gpu", "--dtype", "float32", "-d", *map(str, dims),
+            "-s", str(SERVE_RADIUS), "--tenants", str(SERVE_TENANTS),
+            "--duration", str(SERVE_STEP_S), "--submitters", str(SERVE_SUBMITTERS),
+            "--settle-s", "60"]
+
+    # ---- cell serve-128-c2c: 0.5·C, 1·C, 2·C batch-fused; the capture hazard mid-step ----
+    clear_counts()
+    reads = {"n": 0}
+    inbox = _queue.Queue(maxsize=8)
+    stop = threading.Event()
+
+    def reader():
+        while not stop.is_set():
+            try:
+                r = inbox.get(timeout=0.05)
+            except _queue.Empty:
+                continue
+            r.cpu()  # a submitter reading its result while the dispatcher captures
+            reads["n"] += 1
+
+    def consume(result):
+        try:
+            inbox.put_nowait(result)
+        except _queue.Full:
+            pass
+
+    late_trip, late_values = serve_problem(sp, dims, SERVE_LATE_RADIUS, SEED + 14)
+    late = {}
+
+    def late_geometry(service):
+        try:
+            tk = service.submit(sp.TransformType.C2C, dims, late_trip, late_values,
+                                tenant="late")
+            res = tk.result(timeout=120)
+            late["err"] = serve_oracle_err(late_trip, late_values, dims, res)
+        except Exception as e:  # reported below, where the check fails the run
+            late["error"] = repr(e)
+
+    late_thread = []
+
+    def during(service, step):
+        if step == 1:  # the 1·C step: a geometry the cache has not seen arrives
+            th = threading.Thread(target=late_geometry, args=(service,), daemon=True)
+            th.start()
+            late_thread.append(th)
+
+    steps = []
+
+    def step(service, row, samples):
+        i = len(steps)
+        stats = service.stats()
+        bitwise = []
+        oracle_err = None
+        for g, payload, result in samples:
+            got = ref.backward(payload[src])
+            bitwise.append(torch.equal(result, got))
+            if oracle_err is None:
+                oracle_err = serve_oracle_err(trip, payload, dims, result)
+        entries = plan_entries(service)
+        rungs = {e.plan._run_id: e.plan.report()["degradations"] for e in entries
+                 if e.plan.report()["degradations"]}
+        steps.append(serve_row(SERVE_NAME, row, {
+            "samples": len(samples), "samples_bitwise": sum(bitwise),
+            "oracle_rel_err": oracle_err, "queue_high_water": stats["queue_high_water"],
+            "queue_capacity": stats["queue_capacity"],
+            "engines": sorted({e.plan.engine for e in entries}), "degradations": rungs}))
+        check(len(samples) == SERVE_SAMPLE and all(bitwise),
+              f"{SERVE_NAME} {row['key']}: {len(samples)} samples, "
+              f"{sum(bitwise)} bitwise a single call's")
+        check(oracle_err is not None and oracle_err <= SERVE_RTOL,
+              f"{SERVE_NAME} {row['key']}: {oracle_err} from the dense oracle")
+        check(stats["queue_high_water"] <= stats["queue_capacity"], "the queue overran its cap")
+        check(i > 0 or row["failed"] == 0, f"{SERVE_NAME}: failures at 0.5·C: {row}")
+        check(not rungs, f"{SERVE_NAME} {row['key']}: a plan took a rung: {rungs}")
+        check(all(e.plan.engine == "mxu" for e in entries),
+              f"{SERVE_NAME}: a cached plan does not run mxu")
+
+    readers = [threading.Thread(target=reader, daemon=True) for _ in range(2)]
+    for th in readers:
+        th.start()
+    try:
+        doc = serve_loadgen([*base, "--rate", str(C), "--ramp", "0.5", "1", "2",
+                             "--batch-fuse", "1", "--sample", str(SERVE_SAMPLE),
+                             "--kill-at", "0.25"],
+                            hooks={"consume": consume, "during": during, "step": step})
+    finally:
+        stop.set()
+        for th in readers:
+            th.join(10)
+    for th in late_thread:
+        th.join(120)
+    emit({"phase": "serve_capture_hazard", "reads_on_host": reads["n"], **late,
+          "plan_cache": [{k: r[k] for k in ("engine", "batch_cap")} | {"run_id": r["run_id"]}
+                         for r in doc["service"]["plan_cache"]]})
+    check(reads["n"] > 0, "no submitter read a result while the service ran")
+    check(late.get("err") is not None and late["err"] <= SERVE_RTOL,
+          f"the geometry that arrived mid-step: {late}")
+    check(len(doc["service"]["plan_cache"]) == 2, "the late geometry has no cache entry")
+
+    # ---- the same at 1·C with batch fusion off (the split-phase loop) ----
+    doc0 = serve_loadgen([*base, "--rate", str(C), "--ramp", "1", "--batch-fuse", "0"])
+    unfused = serve_row(SERVE_NAME + "-unfused", doc0["rows"][0])
+
+    # ---- cell serve-mixed-sched: 128^3 and 192^3 interleaved, scheduler off and on ----
+    mixed = {}
+    for sched in (0, 1):
+        d = serve_loadgen([*base, "--rate", str(C), "--ramp", "1", "--sched", str(sched),
+                           "--mix", *map(str, SERVE_MIX)])
+        mixed[sched] = serve_row("serve-mixed-sched", d["rows"][0], {"sched": sched})
+        check(all(r["engine"] == "mxu" for r in d["service"]["plan_cache"]),
+              "serve-mixed-sched: a cached plan does not run mxu")
+    counts = launch_counts()
+    no_rungs("serving cells", {}, before)
+
+    # ---- one armed case: serve.dispatch raising at a fraction, at 2·C ----
+    svc = sp.serve.TransformService(sp.ProcessingUnit.GPU, dtype=F32)
+    try:
+        step_kw = dict(tenants=SERVE_TENANTS, trip=trip, values=values, dims=dims,
+                       transform_type=sp.TransformType.C2C, timeout_s=0.0,
+                       flops_per_transform=0.0, settle_s=60.0, rng=rng,
+                       submitters=SERVE_SUBMITTERS)
+        loadgen.run_step(svc, key="warm", rate=C, duration=1.0, **step_kw)
+        f0 = obs.snapshot()["counters"]
+        with sp.faults.inject(SERVE_ARMED):
+            armed = loadgen.run_step(svc, key="armed", rate=2 * C, duration=1.0, **step_kw)
+        injected = (sum(v for k, v in obs.snapshot()["counters"].items()
+                        if k.startswith("faults_injected_total"))
+                    - sum(v for k, v in f0.items() if k.startswith("faults_injected_total")))
+        serve_row("serve-armed", armed, {"spec": SERVE_ARMED, "injected": injected})
+        check(injected > 0 and armed["failed"] > 0, f"{SERVE_ARMED} never fired")
+    finally:
+        svc.close()
+        sp.faults.disarm()
+        sp.verify.breaker.reset()
+
+    # ---- cell fleet-2w-kill: two workers on the card, one SIGKILLed ----
+    rate = min(C, 1e3 / wire["wire_ms_per_result"])  # one result on the wire at a time
+    scraped = {}
+
+    def fleet_step(front, row, samples):
+        if "json" in scraped or front.hosts[0].lost:
+            return
+        addr = f"host0={front.hosts[0].address}"
+        path = os.path.join(REPORTS, "fleetstat.json")
+        prom = os.path.join(REPORTS, "fleetstat.prom")
+        scraped["json"] = fleetstat.main(["--host", addr, "-o", path])
+        scraped["prom"] = fleetstat.main(["--host", addr, "--prom", "-o", prom])
+        with open(path) as f:
+            scraped["doc"] = json.load(f)
+        with open(prom) as f:
+            scraped["prom_text"] = f.read()
+
+    obs.trace.enable(capacity=1 << 16)
+    try:
+        with knobs({"SPFFT_TPU_TRACE": "1"}):
+            fdoc = serve_loadgen([*base, "--rate", str(rate), "--ramp", "1", "1",
+                                  "--hosts", "2", "--kill-host", "1", "--kill-at", "0.4",
+                                  "--queue-cap", str(FLEET_QUEUE_CAP)],
+                                 hooks={"step": fleet_step})
+        events = obs.trace.snapshot()["events"]
+    finally:
+        obs.trace.disable()
+        obs.trace.clear()
+    by_run = {}
+    for e in events:
+        if e["run"] is not None:
+            sides = by_run.setdefault(e["run"], set())
+            sides.add(e["args"].get("host", "front"))
+    joined = [run for run, sides in by_run.items() if "front" in sides and len(sides) > 1]
+    lost = fdoc["metrics"]["counters"].get('hosts_lost_total{host="host1"}', 0)
+    findings = fleet.validate_fleet(fdoc["service"]["fleet"])
+    # the surviving worker's own rung counters, from its scraped snapshot
+    worker_rungs = {k: v for k, v in fdoc["service"]["fleet"]["counters"].items()
+                    if k.startswith(RUNG_COUNTERS) and v}
+    kill_row = fdoc["rows"][0]
+    for r in fdoc["rows"]:
+        serve_row("fleet-2w-kill", r, {"rate_basis": "the wire's results/s, one at a time"})
+    prom_lines = scraped.get("prom_text", "").splitlines()
+    emit({"phase": "serve_fleet", "rate": rate, "hosts_lost_host1": lost,
+          "completed_after_kill": kill_row.get("completed_after_kill"),
+          "runs_joined_front_and_worker": len(joined),
+          "fleet_findings": findings, "worker_rung_counters": worker_rungs,
+          "fleet_hosts": fdoc["service"]["fleet"]["hosts"],
+          "fleetstat_exit": [scraped.get("json"), scraped.get("prom")],
+          "fleetstat_hosts": scraped.get("doc", {}).get("hosts"),
+          "fleetstat_counters": len(scraped.get("doc", {}).get("counters", {})),
+          "prom_lines": len(prom_lines),
+          "prom_head": [ln for ln in prom_lines if ln.startswith("spfft_tpu_serve_requests")][:4]})
+    check(lost == 1, f"fleet-2w-kill: hosts_lost_total{{host=host1}} is {lost}")
+    check((kill_row.get("completed_after_kill") or 0) > 0, "fleet-2w-kill: nothing after the kill")
+    check(joined, "fleet-2w-kill: no run shows both the front's and a worker's spans")
+    check(findings == [], f"fleet-2w-kill: the fleet document has findings {findings}")
+    check(not worker_rungs, f"fleet-2w-kill: the surviving worker took a rung: {worker_rungs}")
+    check(scraped.get("json") == 0 and scraped.get("prom") == 0 and prom_lines,
+          f"fleetstat of the surviving worker: {scraped.get('json')}, {scraped.get('prom')}")
+
+    # ---- the serving plan's kernels against their plain versions ----
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 12)
+    rows = []
+    for form, spec, x, w, want_imag, out in k1_forms(SERVE_NAME, ref):
+        if form.endswith(("/z", "/y")) or "backward" in form:  # the traffic is backward
+            row, key = run_k1(form, spec, x, w, want_imag, "highest", out)
+            rows.append((row, SERVE_NAME, "complex_matmul", key))
+    for form, s_, idx in k2_forms(SERVE_NAME, ref, gen):
+        if form.endswith(("/expand", "/bucket_gather")):  # the backward's gathers
+            row, key = run_k2(form, s_, idx)
+            rows.append((row, SERVE_NAME, "row_gather", key))
+    emit({"phase": "serving", "seconds": time.perf_counter() - started,
+          "capacity_per_s": C, "peak_mib": torch.cuda.max_memory_allocated() / 2 ** 20,
+          "peak_mib_note": "this process only: the fleet cell's workers hold their own",
+          "transforms_per_s": {"0.5C": steps[0]["transforms_per_sec"],
+                               "1C": steps[1]["transforms_per_sec"],
+                               "2C": steps[2]["transforms_per_sec"],
+                               "1C_unfused": unfused["transforms_per_sec"],
+                               "mixed_sched0": mixed[0]["transforms_per_sec"],
+                               "mixed_sched1": mixed[1]["transforms_per_sec"]},
+          "device_busy_share_1C": prof["device_busy_share"]})
+    return rows, {SERVE_NAME: counts}
+
+def serve_profile_worker(rate: float) -> int:
+    """``--serve-profile C``: phase 12's profiled checks in a fresh process.
+    One B = 8 batch-fused backward and one staged backward of the serving
+    geometry, their K1/K2 kernels on the device timeline; then a steady
+    step of a service at ``rate`` requests a second under the profiler: the
+    card's busy share of the window. Prints one JSON line."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    import spfft_tpu_torch as sp
+    from spfft_tpu_torch.programs import loadgen
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dims = SERVE_DIMS
+    trip, values = serve_problem(sp, dims, SERVE_RADIUS, SEED + 12)
+    rng = np.random.default_rng(SEED + 13)
+    ref, src = serve_plan(sp, trip, dims)
+    twin, _ = serve_plan(sp, trip, dims, fuse=False)
+    batch = [(values * (1 + 0.01 * rng.standard_normal()))[src] for _ in range(8)]
+    ref.backward_batch(batch)  # the B = 8 program captured before its profile
+    twin.backward(batch[0])
+    k_single = kernel_counts(lambda: twin.backward(batch[0]))
+    k_batch = kernel_counts(lambda: ref.backward_batch(batch))
+    svc = sp.serve.TransformService(sp.ProcessingUnit.GPU, dtype=F32)
+    try:
+        step_kw = dict(tenants=SERVE_TENANTS, trip=trip, values=values, dims=dims,
+                       transform_type=sp.TransformType.C2C, timeout_s=0.0,
+                       flops_per_transform=0.0, settle_s=60.0, rng=rng,
+                       submitters=SERVE_SUBMITTERS)
+        loadgen.run_step(svc, key="warm", rate=rate, duration=1.0, **step_kw)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            row = loadgen.run_step(svc, key="profiled", rate=rate, duration=SERVE_STEP_S,
+                                   **step_kw)
+            torch.cuda.synchronize()
+            window_ms = 1e3 * (time.perf_counter() - t0)
+    finally:
+        svc.close()
+    kernels = device_kernels(prof)
+    busy = union_us(sorted((e.time_range.start, e.time_range.end) for e in kernels)) / 1e3
+    print(json.dumps({
+        "phase": "serve_profile", "staged_backward": k_single, "batched_backward_b8": k_batch,
+        "window_ms": window_ms, "device_busy_ms": busy, "device_busy_share": busy / window_ms,
+        "host_share": 1 - busy / window_ms, "completed": row["completed"],
+        "offered_rate": row["offered_rate"],
+        "k1_kernels": sum("tc_kernel" in e.name for e in kernels),
+        "k2_kernels": sum("row_gather_kernel" in e.name for e in kernels)}), flush=True)
+    return 0
+
 def turns_worker(root) -> int:
     """One tree's pair times (``--turns-worker ROOT``): ``spfft_tpu_torch``
     imported from ``ROOT``, every plan of ``TURN_PLANS`` and ``TURN_DIST``
@@ -3128,8 +3635,10 @@ def against(others) -> int:
         target = os.path.join(root, "build", "spfft_tpu_torch")
         os.makedirs(target, exist_ok=True)
         for f in os.listdir(_build.BUILD_DIR):
-            if not os.path.exists(os.path.join(target, f)):
-                shutil.copy2(os.path.join(_build.BUILD_DIR, f), target)
+            src = os.path.join(_build.BUILD_DIR, f)
+            # the kernels' libraries and logs; not the C library's build tree
+            if os.path.isfile(src) and not os.path.exists(os.path.join(target, f)):
+                shutil.copy2(src, target)
     order = [*others, here, here, *reversed(others)] * 2
     runs = {}
     for root in order:
@@ -3368,6 +3877,11 @@ def main() -> int:
     capi_phase(sp, fdata, group)
     del fdata
 
+    # ---- serving on the card: the service, the cluster front, the fleet ----
+    srows, scounts = serving_phase(sp)
+    rows += srows
+    counts.update(scounts)
+
     kernels = []
     for row, name, kernel, key in rows:
         launches = counts[name][kernel].get(key, 0)
@@ -3393,4 +3907,6 @@ if __name__ == "__main__":
         sys.exit(turns_worker(sys.argv[2]))
     if sys.argv[1:2] == ["--against"]:
         sys.exit(against(sys.argv[2:]))
+    if sys.argv[1:2] == ["--serve-profile"]:
+        sys.exit(serve_profile_worker(float(sys.argv[2])))
     sys.exit(main())

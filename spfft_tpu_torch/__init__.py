@@ -20,8 +20,10 @@ guard mode, fault injection and the degradation ladder
 (:mod:`spfft_tpu_torch.verify`, ``verify=``) its robustness layers;
 ``policy="tuned"`` measures the plan's choices and keeps them in wisdom
 (:mod:`spfft_tpu_torch.tuning`), and :mod:`spfft_tpu_torch.sched` runs task
-graphs of transforms; ``python -m spfft_tpu_torch.programs.benchmark`` is
-the reference benchmark.
+graphs of transforms; :mod:`spfft_tpu_torch.serve` serves them to many
+tenants (a bounded queue, coalesced batches, an RPC cluster front) and
+:mod:`spfft_tpu_torch.hostmesh` boots worker hosts;
+``python -m spfft_tpu_torch.programs.benchmark`` is the reference benchmark.
 
     import spfft_tpu_torch as sp
     trip = sp.create_spherical_cutoff_triplets(64, 64, 64, 0.659)
@@ -92,6 +94,7 @@ from .parameters import (  # noqa: F401
     make_local_parameters,
 )
 from .transform import Transform, TransformFloat  # noqa: F401
+from . import hostmesh, serve  # noqa: F401  (after the plans they serve)
 from .types import (  # noqa: F401
     ExchangeType,
     ExecType,

@@ -10,10 +10,10 @@ ladder's response.
 ``SPFFT_TPU_FAULTS`` spec parses the same in both packages. The port threads
 ``engine.compile``, ``engine.execute``, ``exchange.build``, ``ir.lower``,
 ``ir.compile``, ``ir.batch``, ``sync.fence``, ``verify.check``,
-``tuning.trial``, ``wisdom.load``, ``wisdom.save``, ``sched.place`` and
-``sched.run``; the others name subsystems that are not ported yet
-(``hlo.stats``, serving, hosts and RPC) and are registered but reached by
-no call.
+``tuning.trial``, ``wisdom.load``, ``wisdom.save``, ``sched.place``,
+``sched.run``, and the serving sites ``serve.admit``, ``serve.batch``,
+``serve.dispatch``, ``host.heartbeat`` and ``rpc.submit``; ``hlo.stats``
+names a subsystem that has no counterpart yet and is reached by no call.
 
 **Kinds** (:data:`KINDS`): ``raise`` raises :class:`InjectedFault`;
 ``nan`` / ``corrupt`` poison the site's payload (tensors multiplied by NaN /

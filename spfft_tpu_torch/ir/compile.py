@@ -54,6 +54,7 @@ from __future__ import annotations
 import collections
 import contextlib
 import gc
+import threading
 
 import torch
 
@@ -161,6 +162,10 @@ def _stack(items):
     return torch.stack(items)
 
 
+# One CUDA-graph capture at a time in the process (see _Program._capture).
+_CAPTURE_LOCK = threading.Lock()
+
+
 class _Program:
     """One program: ``body`` in one eager call on a CPU plan; on a CUDA plan
     one CUDA graph of ``body``, captured at the first call. ``finish`` turns
@@ -193,8 +198,17 @@ class _Program:
     def _capture(self, args) -> None:
         """Static inputs holding ``args``, one eager run on a side stream
         (cuFFT plans, the allocator, the kernels' libraries), then the
-        capture into the plan's pool."""
-        with torch.cuda.device(self.device):
+        capture into the plan's pool.
+
+        The capture is ``thread_local``: other threads may go on allocating,
+        building plans and copying results to the host while it runs (a
+        serving dispatcher captures a new batch size while its callers read
+        their results), which the default ``global`` mode refuses and which
+        would invalidate the capture. Captures of the process take turns
+        (:data:`_CAPTURE_LOCK`): ``torch.cuda.graph`` synchronizes the device
+        and empties the allocator's cache before it captures, which must not
+        meet another thread's capture."""
+        with _CAPTURE_LOCK, torch.cuda.device(self.device):
             static_in = [None if a is None else a.to(self.device).clone(
                 memory_format=torch.contiguous_format) for a in args]
             current = torch.cuda.current_stream(self.device)
@@ -205,7 +219,8 @@ class _Program:
                     self.body(*static_in)
                 current.wait_stream(side)
                 graph = torch.cuda.CUDAGraph()
-                with no_collection(), torch.cuda.graph(graph, pool=self.pool):
+                with no_collection(), torch.cuda.graph(graph, pool=self.pool,
+                                                       capture_error_mode="thread_local"):
                     static_out = self.body(*static_in)
             except Exception as e:  # the class is kept: EngineIr decides the rung
                 # a capture that fails inside torch.cuda.graph leaves its

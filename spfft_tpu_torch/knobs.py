@@ -18,6 +18,8 @@ from dataclasses import dataclass
 
 from .errors import InvalidParameterError
 
+PREFIX = "SPFFT_TPU_"
+
 
 @dataclass(frozen=True)
 class Knob:
@@ -72,6 +74,56 @@ REGISTRY = {k.name: k for k in (
     Knob("SPFFT_TPU_SCHED_INFLIGHT", "int", 8,
          "task-graph executor window: transform executions dispatched at once "
          "before one must be finalized (`sched.run_graph(max_inflight=)` wins)", floor=1),
+    # ---- serving and the fleet (spfft_tpu_torch.serve, .hostmesh, .obs.fleet) ----
+    Knob("SPFFT_TPU_SERVE_QUEUE_CAP", "int", 256,
+         "bounded admission-queue capacity of a `serve.TransformService`: offered "
+         "load beyond it is refused with typed `ServiceOverloadError`", floor=1),
+    Knob("SPFFT_TPU_SERVE_BATCH_MAX", "int", 8,
+         "max requests coalesced into one batched execution (and the plan-clone "
+         "pool width per cached geometry)", floor=1),
+    Knob("SPFFT_TPU_SERVE_TENANT_QUOTA", "float", 0.5,
+         "fraction of the queue one tenant may hold (floor 1 slot)", floor=0.0),
+    Knob("SPFFT_TPU_SERVE_TIMEOUT_S", "float", 0.0,
+         "default per-request deadline (0 = none; `timeout_s=` wins): enforced at "
+         "admission and before every dispatch attempt", floor=0.0),
+    Knob("SPFFT_TPU_SERVE_RETRIES", "int", 1,
+         "re-dispatches of a batch after a transient typed execution failure, "
+         "with jittered exponential backoff", floor=0),
+    Knob("SPFFT_TPU_SERVE_BACKOFF_S", "float", 0.005,
+         "base of the serving retry backoff (jittered x[0.5, 1.5))", floor=0.0),
+    Knob("SPFFT_TPU_SERVE_ON_BREAKER", "str", "demote",
+         "what the service does with a batch whose engine's breaker is open: "
+         "`demote` (the plan's `torch.fft` reference rung) or `shed` (typed "
+         "refusal)", choices=("demote", "shed")),
+    Knob("SPFFT_TPU_SERVE_PLANS", "int", 16,
+         "plan-cache capacity (whole geometry entries, LRU-evicted; keyed like "
+         "the wisdom store)", floor=1),
+    Knob("SPFFT_TPU_SERVE_SCHED", "bool", False,
+         "`1` = one dispatch cycle pops up to `SPFFT_TPU_SERVE_SCHED_BATCHES` "
+         "coalesced batches, mixed geometries included, and runs them as one "
+         "task graph"),
+    Knob("SPFFT_TPU_SERVE_SCHED_BATCHES", "int", 4,
+         "coalesced batches one graph-scheduled dispatch cycle may drain", floor=1),
+    Knob("SPFFT_TPU_HOSTS_HEARTBEAT_S", "float", 0.25,
+         "heartbeat interval of the cluster front's liveness monitor (sleeps "
+         "jittered x[0.5, 1.5))", floor=0.01),
+    Knob("SPFFT_TPU_HOSTS_HEARTBEAT_MISSES", "int", 3,
+         "consecutive failed heartbeat probes after which a worker host is "
+         "declared lost", floor=1),
+    Knob("SPFFT_TPU_HOSTS_RETRIES", "int", 2,
+         "times one in-flight task may be requeued onto a surviving host before "
+         "it resolves typed `HostLostError`", floor=0),
+    Knob("SPFFT_TPU_HOSTS_BACKOFF_S", "float", 0.02,
+         "base of the jittered backoff between host-loss requeues", floor=0.0),
+    Knob("SPFFT_TPU_HOSTS_WISDOM_BUNDLE", "str", None,
+         "fleet wisdom bundle a worker host merges into its own store at boot "
+         "(`hostmesh.warm_start`); unset = cold store"),
+    Knob("SPFFT_TPU_RPC_TIMEOUT_S", "float", 30.0,
+         "per-call wall deadline of the RPC transport: a connect/send/receive "
+         "past it raises typed `HostLostError` naming the host", floor=0.1),
+    Knob("SPFFT_TPU_FLEET_SCRAPE_S", "float", 5.0,
+         "per-host wall deadline of one fleet metric scrape: a host that cannot "
+         "answer inside it is stamped `unreachable`", floor=0.1),
     # ---- observability (spfft_tpu_torch.obs, .timing, .sync) ----
     Knob("SPFFT_TPU_METRICS", "bool", True,
          "`0` disables the `spfft_tpu_torch.obs` run-metrics registry at import: "
@@ -160,10 +212,11 @@ def _ambient(name: str):
     return None if value is None or value == "" else value
 
 
-def get_str(name: str):
-    """The value as a string; None for an unset knob without a default."""
+def get_str(name: str, override=None):
+    """The value as a string; None for an unset knob without a default.
+    ``override`` (an explicit caller argument) wins over the environment."""
     knob = _knob(name)
-    value = _ambient(name) or knob.default
+    value = override if override is not None else (_ambient(name) or knob.default)
     if value is None:
         return None
     value = str(value)
@@ -174,10 +227,10 @@ def get_str(name: str):
     return value
 
 
-def _get_number(name: str, cast, what: str):
+def _get_number(name: str, cast, what: str, override=None):
     """The value cast; None for an unset knob without a default."""
     knob = _knob(name)
-    value = _ambient(name)
+    value = override if override is not None else _ambient(name)
     if value is None and knob.default is None:
         return None
     try:
@@ -187,17 +240,22 @@ def _get_number(name: str, cast, what: str):
     return value if knob.floor is None else max(cast(knob.floor), value)
 
 
-def get_int(name: str) -> int:
-    return _get_number(name, int, "an integer")
+def get_int(name: str, override=None) -> int:
+    """``override`` (an explicit caller argument) wins, else the environment,
+    else the default; the floor clamps either."""
+    return _get_number(name, int, "an integer", override)
 
 
-def get_float(name: str) -> float:
-    return _get_number(name, float, "a float")
+def get_float(name: str, override=None) -> float:
+    return _get_number(name, float, "a float", override)
 
 
-def get_bool(name: str) -> bool:
-    """``1/true/on`` and ``0/false/off`` (any case); anything else raises."""
+def get_bool(name: str, override=None) -> bool:
+    """``1/true/on`` and ``0/false/off`` (any case); anything else raises.
+    ``override`` wins."""
     knob = _knob(name)
+    if override is not None:
+        return bool(override)
     value = _ambient(name)
     if value is None:
         return bool(knob.default)

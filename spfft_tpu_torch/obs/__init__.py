@@ -18,11 +18,13 @@ The layers, coarse to fine, as in the JAX package:
 5. **Performance reports** (:mod:`.perf`): fenced seconds per pair
    attributed to :data:`STAGES` by an analytic flop/byte model.
 
-The JAX package's sixth layer, fleet aggregation (``obs/fleet.py``), and its
-HLO statistics (``obs/hlo.py``, which has no counterpart without HLO) are not
-ported (ROADMAP items 11 and 8b).
+6. **Fleet aggregation** (:mod:`.fleet`): every serving host's snapshot
+   merged into one host-labeled document (``spfft_tpu.obs.fleet/1``).
+
+The JAX package's HLO statistics (``obs/hlo.py``, which has no counterpart
+without HLO) are not ported (ROADMAP item 8b).
 """
-from . import perf, trace  # noqa: F401
+from . import fleet, perf, trace  # noqa: F401
 from .registry import (  # noqa: F401
     HISTOGRAM_BUCKETS,
     METRICS_ENV,

@@ -2,9 +2,8 @@
 
 The JAX package's ``spfft_tpu/obs/metrics.py``, limited to the metrics that
 the ported paths record, with the same names, kinds, label keys and docs.
-The JAX package's other rows (serving, multi-host and the fleet, and
-``sync_probe_failures_total`` of the TPU-only fence probes) wait for those
-subsystems (ROADMAP queue A).
+The JAX package's one other row, ``sync_probe_failures_total`` of the
+TPU-only fence probes, waits with them (ROADMAP item 8b).
 
 Rows are ``(name, kind, label_keys, doc)``. Label values are free-form; only
 the key set is pinned.
@@ -80,6 +79,50 @@ METRICS = (
      "critical-path depth of the last scheduled graph"),
     ("host_requeues_total", "counter", (),
      "in-flight tasks requeued onto a surviving host after host loss"),
+    # ---- serving ------------------------------------------------------------
+    ("serve_requests_total", "counter", ("tenant", "outcome"),
+     "serviced requests, per tenant and resolution outcome"),
+    ("serve_sheds_total", "counter", ("reason",),
+     "requests refused/shed (queue_full, tenant_quota, fair_share, "
+     "deadline, breaker_open, plan_evicted, closing)"),
+    ("serve_deadline_misses_total", "counter", ("tenant",),
+     "requests that expired before or during dispatch"),
+    ("serve_batches_total", "counter", (),
+     "coalesced batches executed"),
+    ("serve_retries_total", "counter", (),
+     "batch re-dispatches after transient typed failures"),
+    ("serve_demotions_total", "counter", ("engine",),
+     "batches rerouted through the jnp.fft reference rung on an open "
+     "breaker"),
+    ("serve_plan_cache_total", "counter", ("event",),
+     "plan-cache traffic (hit / miss / evict)"),
+    ("serve_queue_depth", "gauge", (),
+     "admission-queue depth high-water tracking"),
+    ("serve_batch_occupancy", "histogram", (),
+     "requests coalesced per executed batch"),
+    ("serve_latency_seconds", "histogram", ("tenant",),
+     "admission-to-resolution latency per request"),
+    ("serve_phase_seconds", "histogram", ("phase",),
+     "per-request seconds spent reaching each ticket phase stamp from the "
+     "previous one (admitted -> coalesced -> dispatched -> wire -> "
+     "remote_execute -> finalized); labeled by the phase REACHED, so "
+     "phase=\"coalesced\" is queue wait and phase=\"remote_execute\" is "
+     "the cross-host round trip"),
+    # ---- multi-host serving -------------------------------------------------
+    ("hosts_lost_total", "counter", ("host",),
+     "worker hosts declared lost (missed heartbeat budget or dead RPC "
+     "transport)"),
+    ("host_heartbeats_total", "counter", ("verdict",),
+     "liveness probes sent to worker hosts, per ok/missed verdict"),
+    ("rpc_requests_total", "counter", ("op", "outcome"),
+     "length-prefixed-JSON RPC requests served by a worker host, per op "
+     "and ok/error outcome"),
+    ("fleet_scrapes_total", "counter", ("host", "outcome"),
+     "per-host metric scrapes by the fleet aggregator (obs.fleet), per "
+     "ok / lost (skipped typed) / unreachable outcome"),
+    ("remote_spans_spliced_total", "counter", ("host",),
+     "remote trace-segment events spliced into the local flight recorder "
+     "by the cluster front (cross-host run-ID join)"),
     # ---- performance observatory --------------------------------------------
     ("perf_pair_seconds", "histogram", ("engine", "decomposition"),
      "fenced seconds per backward+forward pair (perf reports)"),

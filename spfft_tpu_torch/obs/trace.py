@@ -19,8 +19,13 @@ one track per host phase, loadable in Perfetto).
 
 **Dump-on-error**: with ``SPFFT_TPU_TRACE_DUMP`` naming a directory, every
 typed :mod:`spfft_tpu_torch.errors` exception flushes the recorder there
-(:func:`dump`). The JAX package's cross-host segments (``segment``,
-``splice``) belong to its fleet layer and wait with it (ROADMAP item 11).
+(:func:`dump`).
+
+**Cross-host segments**: a worker host answers a request that carried the
+caller's run ID with :func:`segment`, the slice of its recorder stamped with
+that run (schema :data:`SEGMENT_SCHEMA`, checked by :func:`validate_segment`),
+and the cluster front re-emits it locally with :func:`splice`, tagged
+``host=``. One front-side :func:`snapshot` then shows both sides.
 """
 from __future__ import annotations
 
@@ -44,8 +49,7 @@ DEFAULT_CAPACITY = knobs.default(TRACE_CAP_ENV)
 
 # Canonical trace event-name vocabulary: the JAX package's names that the
 # ported paths emit. Every ``trace.event/span/operation`` call in the package
-# names one of these. The JAX package's other names (serving, hosts, RPC)
-# wait for those subsystems.
+# names one of these.
 EVENTS = (
     # operation spans (each pushes/propagates the active run ID)
     "plan",            # Transform / DistributedTransform construction
@@ -65,8 +69,14 @@ EVENTS = (
     "perf",            # performance report built (obs.perf)
     "wisdom.load",     # wisdom store consulted (tuning.wisdom)
     "wisdom.save",     # wisdom store write attempt (tuning.wisdom)
+    "serve",           # serving-layer transition (spfft_tpu_torch.serve): admit,
+    #                    reject, shed, coalesce, dispatch, complete
     "sched",           # task-graph scheduler transition (spfft_tpu_torch.sched):
-    #                    graph, place, dispatch, finalize, demote, fail
+    #                    graph, place, dispatch, finalize, demote, fail, rehost
+    "host",            # multi-host liveness transition (serve.cluster):
+    #                    heartbeat verdicts, a worker host declared lost
+    "rpc",             # cross-host RPC transition (serve.rpc): request served
+    #                    or failed
     "error",           # typed spfft_tpu_torch.errors exception constructed
 )
 
@@ -356,6 +366,74 @@ def validate_trace(snap: dict) -> list:
         if ev.get("name") not in EVENTS:
             missing.append(f"events[{i}].name (unknown: {ev.get('name')!r})")
     return missing
+
+
+# ---- cross-host segments ----------------------------------------------------
+
+# The wire format of the cross-host trace join, the JAX package's: the events
+# of one run, stripped to the wire keys (``seq`` is recorder-local and the run
+# is hoisted to the envelope).
+SEGMENT_SCHEMA = "spfft_tpu.obs.trace.segment/1"
+_SEGMENT_KEYS = ("schema", "run", "events")
+_SEGMENT_EVENT_KEYS = ("ts", "name", "ph", "args")
+
+
+def segment(run_id: str, limit: int | None = None) -> dict:
+    """Every recorded event stamped with ``run_id`` as a schema-pinned
+    segment; ``limit`` keeps the newest. Empty while disarmed."""
+    events = [
+        {"ts": e["ts"], "name": e["name"], "ph": e["ph"], "args": e["args"]}
+        for e in _recorder.events()
+        if e["run"] == run_id
+    ]
+    if limit is not None and len(events) > int(limit):
+        events = events[-int(limit):]
+    return {"schema": SEGMENT_SCHEMA, "run": run_id, "events": events}
+
+
+def validate_segment(seg: dict) -> list:
+    """Missing or malformed key paths of a segment ([] when valid)."""
+    if not isinstance(seg, dict):
+        return ["segment (not a dict)"]
+    missing = [k for k in _SEGMENT_KEYS if k not in seg]
+    if seg.get("schema") != SEGMENT_SCHEMA:
+        missing.append(f"schema (unknown: {seg.get('schema')!r})")
+    for i, ev in enumerate(seg.get("events", ())):
+        if not isinstance(ev, dict):
+            missing.append(f"events[{i}] (not a dict)")
+            continue
+        missing.extend(f"events[{i}].{k}" for k in _SEGMENT_EVENT_KEYS if k not in ev)
+        if ev.get("ph") not in _PHASES:
+            missing.append(f"events[{i}].ph (unknown: {ev.get('ph')!r})")
+        if ev.get("name") not in EVENTS:
+            missing.append(f"events[{i}].name (unknown: {ev.get('name')!r})")
+    return missing
+
+
+def splice(seg: dict, host: str | None = None) -> int:
+    """Re-emit a remote segment's events into the local recorder under the
+    segment's run, each tagged ``host=`` and carrying the remote timestamp
+    as ``remote_ts`` (local ``ts``/``seq`` are assigned here). Events that
+    fail the schema are skipped, never spliced; returns how many were (0
+    while disarmed or for a malformed envelope)."""
+    if not _recorder or not isinstance(seg, dict):
+        return 0
+    if seg.get("schema") != SEGMENT_SCHEMA:
+        return 0
+    run = seg.get("run")
+    spliced = 0
+    for ev in seg.get("events", ()):
+        if not isinstance(ev, dict) or any(k not in ev for k in _SEGMENT_EVENT_KEYS):
+            continue
+        if ev["ph"] not in _PHASES or ev["name"] not in EVENTS:
+            continue
+        args = dict(ev["args"] if isinstance(ev["args"], dict) else {})
+        if host is not None:
+            args["host"] = str(host)
+        args["remote_ts"] = ev["ts"]
+        _recorder.emit(ev["name"], ev["ph"], run, args)
+        spliced += 1
+    return spliced
 
 
 def _track_of(ev: dict) -> str:

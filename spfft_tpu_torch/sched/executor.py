@@ -50,10 +50,9 @@ _POLL_PATIENCE_S = 0.05
 OUTCOMES = ("completed", "demoted", "failed", "upstream_failed", "host_lost")
 _FAILED_OUTCOMES = ("failed", "upstream_failed", "host_lost")
 
-# The host-loss requeue rung's defaults (the JAX package's
-# SPFFT_TPU_HOSTS_RETRIES / _BACKOFF_S, whose knobs return with serving).
-HOST_RETRIES = 2
-HOST_BACKOFF_S = 0.02
+# The host-loss requeue rung's budget: moves and the backoff between them.
+HOST_RETRIES_ENV = "SPFFT_TPU_HOSTS_RETRIES"
+HOST_BACKOFF_ENV = "SPFFT_TPU_HOSTS_BACKOFF_S"
 
 # Typed execution failures the ladder retries and demotes; parameter errors
 # fail fast.
@@ -98,11 +97,14 @@ class GraphReport:
 
 
 def _record_ready(task) -> None:
-    """The readiness probe of a dispatched task: an event on its device's
-    current stream (None on the CPU, or for a task already resolved)."""
+    """The readiness probe of a dispatched task: a remote call's own handle
+    (it answers ``query()``), else an event on its device's current stream
+    (None on the CPU, or for a task already resolved)."""
     device = getattr(task.plan, "device", None)
     task.ready = None
-    if task.result is None and device is not None and device.type == "cuda":
+    if task.result is None and hasattr(task.pending, "query"):
+        task.ready = task.pending
+    elif task.result is None and device is not None and device.type == "cuda":
         task.ready = torch.cuda.Event()
         task.ready.record(torch.cuda.current_stream(device))
 
@@ -124,9 +126,8 @@ class _Run:
         self.graph = graph
         self.retries = max(0, int(retries))
         self.demote = bool(demote)
-        self.host_retries = HOST_RETRIES if host_retries is None else max(0, int(host_retries))
-        self.host_backoff_s = HOST_BACKOFF_S if host_backoff_s is None else \
-            max(0.0, float(host_backoff_s))
+        self.host_retries = knobs.get_int(HOST_RETRIES_ENV, host_retries)
+        self.host_backoff_s = knobs.get_float(HOST_BACKOFF_ENV, host_backoff_s)
         if on_error not in ("resolve", "raise"):
             raise InvalidParameterError(f"on_error must be 'resolve' or 'raise', got {on_error!r}")
         self.on_error = on_error
