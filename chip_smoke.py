@@ -104,9 +104,13 @@ Phases, one JSON line each:
    peak memory; each configuration's K1 and K2 forms against their plain
    versions, as in phase 3; the per-stage device times of each mesh
    configuration's staged twin under the ``obs.STAGES`` names (the
-   exchange's measured share among them); the 512^3 host staging
-   rates; and a fence with a tiny ``SPFFT_TPU_FENCE_BUDGET_S`` that must
-   raise ``FenceTimeout`` on a long launch;
+   exchange's measured share among them; the profiler's first step is an
+   untraced warm-up); the perf model's balance fitted to those per-stage
+   device ms at ``FIT_CONFIGS`` (``balance_fit``: the fit, and each mesh
+   configuration's exchange share measured beside the model's at the JAX
+   default, at the fit and at ``obs.perf.CUDA_FLOP_PER_BYTE``); the 512^3
+   host staging rates; and a fence with a tiny ``SPFFT_TPU_FENCE_BUDGET_S``
+   that must raise ``FenceTimeout`` on a long launch;
 9. faults and verify (``faults_phase``): on ``c2c-blocked``, ``r2c-blocked``,
    ``dist4-c2c``, ``pencil2x2-c2c`` and the plan of
    ``bench-512-r2c-16-single``, each with guard and verify off, guard on,
@@ -186,7 +190,28 @@ Phases, one JSON line each:
    document valid, ``fleetstat`` of the survivor and its ``--prom`` text);
    and the serving plan's backward K1 and K2 forms against their plain
    versions, as in phase 3, with their launches under serving;
-13. the ``kernels`` line; last, the ``{"ok": true, "device": ...}`` line.
+13. the programs (``programs_phase``), every one through its ``main`` on
+   the card at 256^3, radius 0.659, float32 "highest", ``engine="mxu"``,
+   each with the launch counts set to 0 just before it (a run that
+   launches neither K1 nor K2 fails): ``report``, ``trace`` and ``verify``,
+   local and over 4 shards (the documents valid, no rung; ``verify`` exits
+   0, then 3 under ``--mode strict --inject engine.execute=nan`` and 0,
+   recovered, under ``engine.execute=corrupt:1.0``); ``fbench`` (fused and
+   staged rows, their ratio, B = 1 and 4) and ``perf_gate`` over its rows
+   (against themselves 0, against a doubled copy 3); ``dbench`` strong
+   scaling at 256^3 in the 15 % sphere, slab over 1, 2, 4, 16 shards and
+   pencil 2 x 2 and 4 x 4, each mesh row's ``exchange_fraction`` beside the
+   measured exchange share of its staged twin (profiled in the fresh process
+   below); ``discipline_compare`` at 4
+   and 16 shards with and without ``--imbalance 0.5``, its wire bytes
+   against the plan cards' and one round each; the examples ``example``,
+   ``example_distributed`` and ``poisson`` with ``ProcessingUnit.GPU``;
+   ``profile`` in a fresh process (``--programs-profile``), blocked and
+   dense y, K1 under the z, y and x ranges and K2 under the blocked y range
+   or under ``expand`` and ``pack``; the programs' plan's K1 and K2 forms
+   against their plain versions, with their launches under the programs;
+   the phase within ``PROGRAMS_BUDGET_S``;
+14. the ``kernels`` line; last, the ``{"ok": true, "device": ...}`` line.
 
 Exits non-zero, with no result line, when there is no CUDA device or any
 check fails.
@@ -203,6 +228,7 @@ import contextlib
 import gc
 import io
 import json
+import math
 import os
 import re
 import shutil
@@ -1801,7 +1827,7 @@ def stage_profile(sp, name, t) -> dict:
     wrappers launch, so the device-side range is what is read.)"""
     import torch
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity, profile, schedule
 
     from spfft_tpu_torch.obs import STAGES
 
@@ -1814,19 +1840,26 @@ def stage_profile(sp, name, t) -> dict:
     torch.cuda.synchronize()
     stages = twin._exec._ir.describe()["stages"]
     want = set(stages["backward"]) | set(stages["forward"])
+    runs = {s: stages["backward"].count(s) + stages["forward"].count(s) for s in want}
     if twin._exec.collective:
         # NCCL's kernels run on its own stream, outside the range the
         # collective's node draws on the compute stream: that range holds
         # no device work, and the collective's time is nccl_ms
         want = {s for s in want if not s.startswith("exchange")}
-    # a profile whose device events lost the start of the window (seen
-    # once: the first stage ranges of the backward missing) is taken again,
-    # up to three times; the check below holds the one kept
+    # the profiler loses device events at the start of a window (the first
+    # stage ranges of the backward missing, or late in a long process whole
+    # stages): one pair runs as the schedule's warm-up step, untraced, and the
+    # pair after it is the one read; a profile that still lacks a stage range
+    # is taken again, up to three times; the check below holds the one kept
     for attempt in range(1, 4):
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            twin.backward_pair(*pair)
-            twin.forward_pair(sp.ScalingType.FULL)
-            torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                     schedule=schedule(wait=0, warmup=1, active=1)) as prof:
+            for step in range(2):
+                twin.backward_pair(*pair)
+                twin.forward_pair(sp.ScalingType.FULL)
+                torch.cuda.synchronize()
+                if step == 0:
+                    prof.step()
         kernels = sorted((e.time_range.start, e.time_range.end) for e in device_kernels(prof))
         stage_ms, ranges = {}, {}
         for e in prof.events():
@@ -1835,7 +1868,7 @@ def stage_profile(sp, name, t) -> dict:
                 inside = [(max(a, lo), min(b, hi)) for a, b in kernels if b > lo and a < hi]
                 stage_ms[e.name] = stage_ms.get(e.name, 0.0) + union_us(sorted(inside)) / 1e3
                 ranges[e.name] = ranges.get(e.name, 0) + 1
-        if want <= set(ranges):
+        if want <= set(ranges) and all(ranges[s] == runs[s] for s in want):
             break
     busy = union_us(kernels) / 1e3
     row = {"phase": "obs_stage_profile", "plan": name + STAGED, "busy_ms": busy,
@@ -1843,11 +1876,12 @@ def stage_profile(sp, name, t) -> dict:
            "nccl_ms": sum((e.time_range.end - e.time_range.start) / 1e3
                           for e in device_kernels(prof) if "ncclDevKernel" in e.name),
            "ranges": ranges, "device_ms_by_stage": stage_ms,
-           "stages_cover": sum(stage_ms.values()) / busy, "stages": sorted(want),
+           "stages_cover": sum(stage_ms.values()) / busy if busy else 0.0, "stages": sorted(want),
            "exchange_share": sum(v for k, v in stage_ms.items() if k.startswith("exchange"))
-           / busy}
+           / busy if busy else None}
     emit(row)
-    check(want <= set(ranges), f"{name}: stage ranges {sorted(ranges)}, want {sorted(want)}")
+    check(want <= set(ranges) and all(ranges[s] == runs[s] for s in want),
+          f"{name}: stage ranges {ranges}, want {runs}")
     check(0.5 < row["stages_cover"] <= 1.0 + 1e-9,
           f"{name}: the stage ranges hold {row['stages_cover']} of the busy time")
     del twin
@@ -1952,7 +1986,7 @@ def bench_phase(sp) -> tuple:
 
     from spfft_tpu_torch.programs import bench
 
-    counts, rows, summary = {}, [], {}
+    counts, rows, summary, fit_cases = {}, [], {}, {}
     gen = torch.Generator(device="cuda").manual_seed(SEED + 8)
     os.makedirs(REPORTS, exist_ok=True)
     # the one-line figure: 256^3 C2C in the 0.659 sphere, float32, the plan
@@ -2038,11 +2072,75 @@ def bench_phase(sp) -> tuple:
             krow, key = run_k2(form, src, idx, packed)
             rows.append((krow, name, "row_gather", key))
         if card["kind"] == "distributed":
-            stage_profile(sp, name, t)
+            staged = stage_profile(sp, name, t)
+            fit_cases[name] = (obs.perf.stage_model(t), staged["device_ms_by_stage"],
+                               staged["exchange_share"])
         if name == "bench-512-r2c-16-single":
             staging_phase(sp, name, t)
         del transforms, t, pair, forms, k2
+    balance_fit(obs.perf, fit_cases)
     return counts, rows, summary
+
+
+# the staged twins whose per-stage device ms fit the perf model's balance on the card
+FIT_CONFIGS = ("bench-256-c2c-4", "bench-512-r2c-16-single", "bench-512-r2c-16-double")
+# the model's exchange share should read within this factor of the measured one
+EXCHANGE_BAND = 1.5
+
+
+def exchange_share(perf, rows, balance) -> float:
+    """The model's ``exchange_fraction`` of ``rows`` at ``balance``."""
+    return sum(v for k, v in perf.stage_shares(rows, balance).items()
+               if k in perf.EXCHANGE_STAGES)
+
+
+def exchange_band(perf, rows, measured) -> tuple:
+    """The balances at which the model's exchange share lies within
+    ``EXCHANGE_BAND`` of ``measured`` (the share grows with the balance:
+    bisection on its logarithm)."""
+    def balance_at(target):
+        lo, hi = math.log(1e-3), math.log(1e4)
+        for _ in range(100):
+            mid = (lo + hi) / 2
+            lo, hi = (mid, hi) if exchange_share(perf, rows, math.exp(mid)) < target else (lo, mid)
+        return math.exp((lo + hi) / 2)
+
+    return balance_at(measured / EXCHANGE_BAND), balance_at(measured * EXCHANGE_BAND)
+
+
+def balance_fit(perf, cases) -> dict:
+    """The perf model's balance on the card. ``fit``: the one flop/byte
+    balance that best matches the staged twins' per-stage device ms at
+    ``FIT_CONFIGS`` (``perf.fit_flop_per_byte``); ``band``: the balances at
+    which the model's exchange share reads within ``EXCHANGE_BAND`` of the
+    measured one on every configuration of ``FIT_CONFIGS``; ``chosen``: the
+    fit, or where it lies outside the band the band's nearest end (the
+    per-stage error grows away from the fit: the best fit inside the band),
+    the value for ``perf.CUDA_FLOP_PER_BYTE``. Per mesh configuration the
+    measured exchange share (the exchange ranges' device ms over the busy
+    ms) beside the model's ``exchange_fraction`` (as ``perf_report`` and
+    dbench give it) at the JAX default, the fit, the chosen value and
+    ``perf.CUDA_FLOP_PER_BYTE``."""
+    fitted = [n for n in FIT_CONFIGS if n in cases]
+    fit = perf.fit_flop_per_byte([cases[n][:2] for n in fitted])
+    bands = [exchange_band(perf, cases[n][0], cases[n][2]) for n in fitted]
+    lo, hi = max(b[0] for b in bands), min(b[1] for b in bands)
+    chosen = min(max(fit["flop_per_byte"], lo), hi) if lo <= hi else fit["flop_per_byte"]
+    balances = {"jax_default": perf.DEFAULT_FLOP_PER_BYTE, "fit": fit["flop_per_byte"],
+                "chosen": chosen, "constant": perf.CUDA_FLOP_PER_BYTE}
+
+    row = {"phase": "balance_fit", "fit_configs": fitted, **fit, "band": [lo, hi],
+           "band_exists": lo <= hi, "chosen": chosen,
+           "chosen_residual": perf.share_error([cases[n][:2] for n in fitted], chosen),
+           **{f"{k}_flop_per_byte": v for k, v in balances.items()}, "configs": {}}
+    for name, (rows, ms, measured) in cases.items():
+        model = {k: exchange_share(perf, rows, b) for k, b in balances.items()}
+        row["configs"][name] = {
+            "measured_exchange_share": measured, "exchange_fraction": model,
+            "over_measured": {k: v / measured for k, v in model.items()},
+            "model_rows": rows, "device_ms_by_stage": ms}
+    emit(row)
+    return row
 
 
 
@@ -3558,6 +3656,354 @@ def serve_profile_worker(rate: float) -> int:
         "k2_kernels": sum("row_gather_kernel" in e.name for e in kernels)}), flush=True)
     return 0
 
+# ---- phase 13: the programs ------------------------------------------------------------
+
+PROGRAMS_NAME = "programs-256-c2c"
+PROGRAMS_RADIUS = 0.659  # c2c-blocked's geometry
+PROGRAMS_GRID = ["-d", *map(str, DIMS), "--radius", str(PROGRAMS_RADIUS), "--dtype", "float32"]
+# dbench: strong scaling at 256^3 in the 15 % sphere, slab over 1, 2, 4, 16
+# shards and pencil 2 x 2 and 4 x 4, stacked on the card
+DBENCH_ARGS = ["--devices", "1", "2", "4", "16", "--dim", "256", "--sparsity", "0.15",
+               "--mesh", "slab", "pencil", "--scaling", "strong", "--engine", "mxu",
+               "--repeats", "3", "--chain", "4"]
+# discipline_compare: its --sparsity is the cutoff radius, as in the JAX program
+DISC_ARGS = ["--shards", "4", "16", "--dim", "256", "--sparsity", "0.15", "--repeats", "4"]
+DISC_NAMES = {"BUFFERED": "BUFFERED", "COMPACT": "COMPACT_BUFFERED", "UNBUFFERED": "UNBUFFERED"}
+PROGRAMS_BUDGET_S = 150.0
+EXAMPLE_RTOL = 1e-5  # the float32 bar of the main path at "highest"
+
+
+def program_run(runs, total, name, fn):
+    """``fn()`` (one program through its ``main``, its output kept aside)
+    with the launch counts set to 0 just before it: its result, and in
+    ``runs`` its seconds and K1/K2 launches, added into ``total``. Fails if
+    it launched neither kernel."""
+    import torch
+
+    gc.collect()
+    clear_counts()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(io.StringIO()) as out, \
+            contextlib.redirect_stderr(io.StringIO()):
+        result = fn()
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    counts = launch_counts()
+    for kernel, by_key in counts.items():
+        for key, n in by_key.items():
+            total[kernel][key] = total[kernel].get(key, 0) + n
+    k1, k2 = k_launches(counts)
+    runs[name] = {"seconds": seconds, "k1_launches": k1, "k2_launches": k2}
+    check(k1 + k2 > 0, f"{name}: ran on the card and launched neither K1 nor K2")
+    return result, out.getvalue()
+
+
+def read_json(path):
+    with open(path) as f:
+        return json.load(f)
+
+
+def programs_profile_worker() -> int:
+    """``--programs-profile``: phase 13's profiles in a fresh process (late
+    in the full script the profiler lost K1/K2 records, PERF.md §7). The
+    profile program at 256^3 and radius 0.659, float32 "highest": the JAX
+    choice (blocked sparse-y) and the dense y stage; per stage range the
+    device ms a pair and the K1/K2 kernels inside it, the model's attributed
+    seconds, the launch counts. Then each mesh row of the document that
+    phase 13's dbench run wrote beside its staged twin's measured exchange
+    share (:func:`dbench_shares`). One JSON line."""
+    import torch
+
+    import spfft_tpu_torch as sp
+    from spfft_tpu_torch.obs import perf
+    from spfft_tpu_torch.programs import profile
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    rows = {}
+    for label, env in (("blocked", {}), ("dense", BLOCKS_OFF)):
+        clear_counts()
+        t0 = time.perf_counter()
+        with knobs(env), contextlib.redirect_stdout(io.StringIO()):
+            out = profile.main([*PROGRAMS_GRID[:6], "--engine", "mxu", "-r", "3",
+                                "--repeats", "3", "--chain", "2",
+                                "-o", os.path.join(REPORTS, f"profile-{label}")])
+        seconds = time.perf_counter() - t0
+        report, prof = out["report"], out["profile"]
+        kernels = lambda rng, what: sum(n for k, n in rng["kernels"].items()  # noqa: E731
+                                        if any(w in k for w in what))
+        rows[label] = {
+            "seconds": seconds, "y_plan": out["transform"]._exec.y_plan,
+            "launches": list(k_launches(launch_counts())),
+            "seconds_per_pair": report["seconds_per_pair"],
+            "stages_sum_s": sum(r["seconds"] for r in report["stages"]),
+            "flop_per_byte": report["attribution"]["flop_per_byte"],
+            "perf_report_missing": perf.validate_perf_report(report),
+            "trace_bytes": os.path.getsize(prof["trace"]),
+            "ranges": {s: {"device_ms": v["device_ms"],
+                           "k1_kernels": kernels(v, ("tc_kernel", "dmma_kernel")),
+                           "k2_kernels": kernels(v, ("row_gather_kernel",))}
+                       for s, v in prof["stages"].items()},
+            "model_s": {r["stage"]: r["seconds"] for r in report["stages"]},
+        }
+    # dbench's mesh rows beside their staged twins' measured exchange shares
+    # (the document the parent's dbench run wrote)
+    shares = dbench_shares(sp, read_json(os.path.join(REPORTS, "dbench.json")))
+    print(json.dumps({"phase": "programs_profile", "rows": rows, "dbench_shares": shares}),
+          flush=True)
+    return 0
+
+
+def dbench_shares(sp, doc) -> list:
+    """Each mesh row of a dbench document beside the measured exchange share
+    of the same plan's staged twin (``stage_profile``)."""
+    import argparse
+
+    from spfft_tpu_torch.programs import dbench
+
+    args = argparse.Namespace(sparsity=0.15, r2c=False, dtype="f32", force_mesh=False,
+                              device="gpu", engine="mxu", exchange="DEFAULT")
+    out = []
+    for row in doc["rows"]:
+        if row["kind"] != "distributed":
+            continue
+        kind = "pencil" if row["decomposition"] == "pencil2" else "slab"
+        P = row["device_count"]
+        t = dbench.build_transform(args, sp.ProcessingUnit.GPU, kind, P, tuple(row["dims"]))
+        check(t.exchange_type.name == row["exchange_discipline"],
+              f"dbench {row['key']}: rebuilt as {t.exchange_type.name}")
+        measured = stage_profile(sp, f"dbench-{kind}-P{P}", t)["exchange_share"]
+        out.append({"key": row["key"], "mesh": row["mesh"],
+                    "exchange_fraction": row["exchange_fraction"],
+                    "measured_exchange_share": measured,
+                    "model_over_measured": row["exchange_fraction"] / measured,
+                    "ms_per_pair": 1e3 * row["seconds_per_pair"], "gflops": row["gflops"],
+                    "flop_per_byte": row["attribution"]["flop_per_byte"]})
+        del t
+    return out
+
+
+def disc_cards(sp, imbalance) -> dict:
+    """The plan cards' wire bytes of discipline_compare's plans, built here
+    from the same split: ``{(P, name): bytes}``."""
+    dim = int(DISC_ARGS[DISC_ARGS.index("--dim") + 1])
+    radius = float(DISC_ARGS[DISC_ARGS.index("--sparsity") + 1])
+    triplets = sp.create_spherical_cutoff_triplets(dim, dim, dim, radius)
+    out = {}
+    for P in (4, 16):
+        weights = 1.0 + imbalance * np.arange(P) / max(1, P - 1)
+        per = sp.distribute_triplets(triplets, P, dim, weights=weights)
+        for name, disc in DISC_NAMES.items():
+            t = sp.DistributedTransform(sp.ProcessingUnit.GPU, sp.TransformType.C2C, dim, dim,
+                                        dim, [p.copy() for p in per], mesh=sp.make_fft_mesh(P),
+                                        dtype=F32, exchange_type=sp.ExchangeType[disc])
+            out[P, name] = t.report()["exchange"]["wire_bytes"]
+            del t
+    return out
+
+
+def programs_phase(sp) -> tuple:
+    """Phase 13 (module docstring): every ported program and example on the
+    card, through K1 and K2. Returns the kernel rows of the programs' local
+    plan's forms and their launches under the programs."""
+    import torch
+
+    from spfft_tpu_torch import obs
+    from spfft_tpu_torch.examples import example, example_distributed, poisson
+    from spfft_tpu_torch.programs import (dbench, discipline_compare, fbench, perf_gate, report,
+                                          trace, verify)
+
+    started = time.perf_counter()
+    os.makedirs(REPORTS, exist_ok=True)
+    runs, total = {}, {"complex_matmul": {}, "row_gather": {}}
+    run = lambda name, fn: program_run(runs, total, name, fn)  # noqa: E731
+    path = lambda name: os.path.join(REPORTS, name)  # noqa: E731
+    before = rung_counters()
+
+    # ---- report, trace, verify: local and over 4 shards, clean ----
+    for label, extra in (("", []), ("-shards4", ["--shards", "4"])):
+        rc, _ = run(f"report{label}", lambda: report.main(
+            [*PROGRAMS_GRID, *extra, "--no-compiled", "-o", path(f"report{label}.json")]))
+        doc = read_json(path(f"report{label}.json"))
+        card = doc["plan"]
+        emit({"phase": "programs_report", "run": f"report{label}", "rc": rc,
+              "missing": obs.validate_report(doc), "engine": card["engine"],
+              "platform": card["platform"], "kind": card["kind"],
+              "y_plan": card["execution"].get("sparse_y"), "exchange": card.get("exchange"),
+              "degradations": card["degradations"], **runs[f"report{label}"]})
+        check(rc == 0 and obs.validate_report(doc) == [], f"report{label}: {rc}")
+        check(card["platform"] == "gpu" and card["engine"] == "mxu" and not card["degradations"],
+              f"report{label}: {card['platform']} {card['engine']} {card['degradations']}")
+        obs.trace.disable()  # the program arms a fresh recorder
+        rc, printed = run(f"trace{label}", lambda: trace.main(
+            [*PROGRAMS_GRID, *extra, "--last", "5", "-o", path(f"trace{label}.json"),
+             "--chrome", path(f"trace{label}-chrome.json")]))
+        snap = read_json(path(f"trace{label}.json"))
+        names = sorted({e["name"] for e in snap["events"]})
+        emit({"phase": "programs_trace", "run": f"trace{label}", "rc": rc,
+              "missing": obs.trace.validate_trace(snap), "events": len(snap["events"]),
+              "names": names, "dropped": snap["dropped"], **runs[f"trace{label}"]})
+        check(rc == 0 and obs.trace.validate_trace(snap) == [] and "execute" in names,
+              f"trace{label}: rc {rc}, names {names}")
+        obs.trace.disable()
+        sp.verify.breaker.reset()
+        rc, _ = run(f"verify{label}", lambda: verify.main(
+            [*PROGRAMS_GRID, *extra, "-o", path(f"verify{label}.json")]))
+        doc = read_json(path(f"verify{label}.json"))
+        emit({"phase": "programs_verify", "run": f"verify{label}", "rc": rc,
+              "outcome": doc["outcome"], "residual": doc.get("roundtrip_residual"),
+              "checks": doc["verification"].get("checks"),
+              "degradations": doc["degradations"], **runs[f"verify{label}"]})
+        check(rc == 0 and doc["outcome"] == "verified" and not doc["degradations"]
+              and doc["roundtrip_residual"] <= ORACLE_RTOL["highest"],
+              f"verify{label}: rc {rc}, {doc['outcome']}, {doc['degradations']}")
+    no_rungs("programs (clean runs)", {}, before)
+
+    # ---- verify armed: recovered under corrupt (exit 0), typed under strict nan (exit 3) ----
+    for label, argv, want in (("verify-corrupt", ["--inject", "engine.execute=corrupt:1.0"], 0),
+                              ("verify-strict-nan", ["--mode", "strict", "--inject",
+                                                     "engine.execute=nan"], 3)):
+        sp.verify.breaker.reset()
+        rc, _ = run(label, lambda: verify.main([*PROGRAMS_GRID, *argv,
+                                                 "-o", path(f"{label}.json")]))
+        doc = read_json(path(f"{label}.json"))
+        emit({"phase": "programs_verify", "run": label, "rc": rc, "outcome": doc["outcome"],
+              "residual": doc.get("roundtrip_residual"),
+              "degradations": [d["event"] for d in doc["degradations"]],
+              "metrics": doc["metrics"], **runs[label]})
+        check(rc == want, f"{label}: exit {rc}, want {want}")
+        check(sp.faults.armed() == {}, f"{label}: faults left armed")
+        if want == 0:
+            check(doc["outcome"] == "verified"
+                  and doc["roundtrip_residual"] <= ORACLE_RTOL["highest"]
+                  and doc["degradations"], f"{label}: {doc['outcome']} {doc['degradations']}")
+    sp.verify.breaker.reset()
+    before = rung_counters()
+
+    # ---- fbench, and its rows through perf_gate ----
+    rc, _ = run("fbench", lambda: fbench.main(
+        ["--dim", "256", "--radius", str(PROGRAMS_RADIUS), "--engine", "mxu", "--pairs", "8",
+         "--repeats", "3", "--batches", "1", "4", "-o", path("fbench.json")]))
+    doc = read_json(path("fbench.json"))
+    rows = {r["key"].rsplit(":", 1)[1]: r for r in doc["rows"]}
+    doubled = dict(doc, rows=[dict(r, gflops=2 * r["gflops"]) for r in doc["rows"]])
+    with open(path("fbench-doubled.json"), "w") as f:
+        json.dump(doubled, f)
+    with contextlib.redirect_stdout(io.StringIO()), contextlib.redirect_stderr(io.StringIO()):
+        gate_self = perf_gate.main([path("fbench.json"), path("fbench.json")])
+        gate_doubled = perf_gate.main([path("fbench.json"), path("fbench-doubled.json")])
+    emit({"phase": "programs_fbench", "rc": rc,
+          "fused_ms": 1e3 * rows["fused"]["seconds_per_pair"],
+          "staged_ms": 1e3 * rows["staged"]["seconds_per_pair"],
+          "fused_over_staged": doc["fused_over_staged"],
+          "batch_ms_per_transform": {k: 1e3 * r["seconds_per_transform"]
+                                     for k, r in rows.items() if k.startswith("b")},
+          "batch_over_single": doc.get("batch_over_single"),
+          "noise": {k: r["seconds_noise"] for k, r in rows.items()},
+          "perf_gate_self": gate_self, "perf_gate_doubled": gate_doubled, **runs["fbench"]})
+    check(rc == 0 and rows["fused"]["fused"] and not rows["staged"]["fused"],
+          f"fbench: rc {rc}")
+    check(gate_self == 0 and gate_doubled == 3,
+          f"perf_gate on fbench's rows: {gate_self} (self), {gate_doubled} (doubled)")
+
+    # ---- dbench: strong scaling, slab and pencil, with the card's balance ----
+    rc, _ = run("dbench", lambda: dbench.main([*DBENCH_ARGS, "-o", path("dbench.json")]))
+    dbench_doc = read_json(path("dbench.json"))
+    check(rc == 0 and obs.perf.validate_scaling_doc(dbench_doc) == [], f"dbench: rc {rc}")
+    check(all(r["attribution"]["flop_per_byte"] == obs.perf.CUDA_FLOP_PER_BYTE
+              for r in dbench_doc["rows"]), "dbench: a row without the card's balance")
+    emit({"phase": "programs_dbench", "rc": rc, "device": dbench_doc["device"], "rows": [
+        {"key": r["key"], "mesh": r["mesh"], "ms_per_pair": 1e3 * r["seconds_per_pair"],
+         "gflops": r["gflops"], "noise": r["seconds_noise"],
+         "exchange_fraction": r["exchange_fraction"], "residual": r["roundtrip_residual"]}
+        for r in dbench_doc["rows"]], **runs["dbench"]})
+
+    # ---- discipline_compare: wire bytes equal the plan cards', one round each ----
+    for imbalance in (0.0, 0.5):
+        label = f"discipline_compare-imb{imbalance}"
+        rows, _ = run(label, lambda: discipline_compare.main(
+            [*DISC_ARGS, "--imbalance", str(imbalance)]))
+        cards = disc_cards(sp, imbalance)
+        emit({"phase": "programs_discipline_compare", "imbalance": imbalance, "rows": rows,
+              "card_wire_bytes": {f"{P}:{n}": b for (P, n), b in cards.items()}, **runs[label]})
+        for r in rows:
+            check(r["rounds"] == 1, f"{label}: {r}")
+            if r["discipline"] in DISC_NAMES:
+                check(r["wire_bytes"] == cards[r["P"], r["discipline"]],
+                      f"{label}: {r} against the card's {cards[r['P'], r['discipline']]}")
+
+    # ---- the examples, ProcessingUnit.GPU ----
+    out, printed = run("example", lambda: example.main([]))
+    emit({"phase": "programs_example", "run": "example", "roundtrip_error": out["roundtrip_error"],
+          "last_line": printed.strip().splitlines()[-1], **runs["example"]})
+    check(out["roundtrip_error"] <= EXAMPLE_RTOL, f"example: {out['roundtrip_error']}")
+    out, printed = run("example_distributed", lambda: example_distributed.main([]))
+    emit({"phase": "programs_example", "run": "example_distributed", **out,
+          "lines": printed.strip().splitlines(), **runs["example_distributed"]})
+    check(max(out["roundtrip_errors"].values()) <= EXAMPLE_RTOL,
+          f"example_distributed: {out['roundtrip_errors']}")
+    out, printed = run("poisson", lambda: poisson.main([]))
+    emit({"phase": "programs_example", "run": "poisson", "residual": out["residual"],
+          "lines": printed.strip().splitlines(), **runs["poisson"]})
+    check(printed.strip().splitlines()[-1] == "OK", "poisson did not print OK")
+    no_rungs("programs (fbench, dbench, discipline_compare, examples)", {}, before)
+
+    # ---- profile and dbench's exchange shares, in a fresh process ----
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, os.path.abspath(__file__), "--programs-profile"],
+                          capture_output=True, text=True, timeout=600)
+    check(proc.returncode == 0, f"the profile process failed: {proc.stderr[-3000:]}")
+    *staged, last = proc.stdout.strip().splitlines()
+    print("\n".join(staged), flush=True)  # its obs_stage_profile lines
+    prof = json.loads(last)
+    runs["profile"] = {"seconds": time.perf_counter() - t0, "k1_launches": sum(
+        r["launches"][0] for r in prof["rows"].values()), "k2_launches": sum(
+        r["launches"][1] for r in prof["rows"].values())}
+    shares = prof.pop("dbench_shares")
+    emit({**prof, **runs["profile"]})
+    emit({"phase": "programs_dbench_exchange", "what": "each mesh row's model exchange_fraction "
+          "(obs.perf.CUDA_FLOP_PER_BYTE) beside the exchange range's share of the same plan's "
+          "staged twin's busy time", "rows": shares})
+    check(len(shares) == sum(r["kind"] == "distributed" for r in dbench_doc["rows"]),
+          f"dbench: {len(shares)} mesh rows profiled")
+    for label, row in prof["rows"].items():
+        ranges = row["ranges"]
+        y = "y transform" if row["y_plan"] == "dense" else "y transform " + row["y_plan"]
+        check(not row["perf_report_missing"]
+              and abs(row["stages_sum_s"] - row["seconds_per_pair"])
+              <= 1e-9 * row["seconds_per_pair"], f"profile {label}: the perf report")
+        check(row["flop_per_byte"] == obs.perf.CUDA_FLOP_PER_BYTE, f"profile {label}: balance")
+        for stage in ("z transform", y, "x transform"):
+            check(ranges.get(stage, {}).get("k1_kernels", 0) > 0,
+                  f"profile {label}: no K1 kernel under {stage!r}: {ranges}")
+        k2_ranges = ("expand", "pack") if row["y_plan"] == "dense" else (y,)
+        for stage in k2_ranges:
+            check(ranges.get(stage, {}).get("k2_kernels", 0) > 0,
+                  f"profile {label}: no K2 kernel under {stage!r}: {ranges}")
+        check(row["launches"][0] > 0 and row["launches"][1] > 0,
+              f"profile {label}: launches {row['launches']}")
+
+    # ---- the programs' local plan's kernel forms, their launches under the programs ----
+    t = sp.Transform(sp.ProcessingUnit.GPU, sp.TransformType.C2C, *DIMS,
+                     indices=sp.create_spherical_cutoff_triplets(*DIMS, PROGRAMS_RADIUS),
+                     dtype=F32)
+    check(t._exec.y_plan == "blocked", f"{PROGRAMS_NAME}: {t._exec.y_plan}")
+    krows = []
+    for form, spec, x, w, want_imag, o in k1_forms(PROGRAMS_NAME, t)[:2]:
+        krow, key = run_k1(form, spec, x, w, want_imag, t.precision, o)
+        krows.append((krow, PROGRAMS_NAME, "complex_matmul", key))
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 14)
+    for form, src, idx in k2_forms(PROGRAMS_NAME, t, gen):
+        krow, key = run_k2(form, src, idx)
+        krows.append((krow, PROGRAMS_NAME, "row_gather", key))
+    del t
+    seconds = time.perf_counter() - started
+    emit({"phase": "programs", "seconds": seconds, "budget_s": PROGRAMS_BUDGET_S, "runs": runs,
+          "k1_launches": sum(total["complex_matmul"].values()),
+          "k2_launches": sum(total["row_gather"].values())})
+    check(seconds <= PROGRAMS_BUDGET_S, f"phase 13 took {seconds:.1f} s, over its budget")
+    return krows, {PROGRAMS_NAME: total}
+
+
 def turns_worker(root) -> int:
     """One tree's pair times (``--turns-worker ROOT``): ``spfft_tpu_torch``
     imported from ``ROOT``, every plan of ``TURN_PLANS`` and ``TURN_DIST``
@@ -3882,6 +4328,11 @@ def main() -> int:
     rows += srows
     counts.update(scounts)
 
+    # ---- the programs and the examples on the card ----
+    prows, pcounts = programs_phase(sp)
+    rows += prows
+    counts.update(pcounts)
+
     kernels = []
     for row, name, kernel, key in rows:
         launches = counts[name][kernel].get(key, 0)
@@ -3909,4 +4360,6 @@ if __name__ == "__main__":
         sys.exit(against(sys.argv[2:]))
     if sys.argv[1:2] == ["--serve-profile"]:
         sys.exit(serve_profile_worker(float(sys.argv[2])))
+    if sys.argv[1:2] == ["--programs-profile"]:
+        sys.exit(programs_profile_worker())
     sys.exit(main())

@@ -22,7 +22,7 @@ The layers, coarse to fine, as in the JAX package:
    merged into one host-labeled document (``spfft_tpu.obs.fleet/1``).
 
 The JAX package's HLO statistics (``obs/hlo.py``, which has no counterpart
-without HLO) are not ported (ROADMAP item 8b).
+without HLO) are not ported: what is left of ROADMAP queue A item 8b.
 """
 from . import fleet, perf, trace  # noqa: F401
 from .registry import (  # noqa: F401
@@ -56,3 +56,18 @@ def validate_plan_card(card: dict) -> list:
     from .plancard import validate_plan_card as _validate
 
     return _validate(card)
+
+
+def validate_report(report: dict) -> list:
+    """Validate a ``programs/report.py`` JSON document: a ``plan`` card plus
+    a ``metrics`` snapshot. Returns the combined missing-key paths."""
+    missing = []
+    if "plan" not in report:
+        missing.append("plan")
+    else:
+        missing.extend(f"plan.{m}" for m in validate_plan_card(report["plan"]))
+    if "metrics" not in report:
+        missing.append("metrics")
+    else:
+        missing.extend(f"metrics.{m}" for m in validate_snapshot(report["metrics"]))
+    return missing

@@ -7,11 +7,13 @@ over the canonical :data:`~spfft_tpu_torch.obs.STAGES` by an **analytic cost
 model**: ``5 * n * log2(n)`` flops per 1-D FFT line (the z pass counts only
 the active sticks) and exact byte counts for the data-movement stages, the
 exchange's from the plan's wire accounting. Flops and bytes combine through
-one machine balance, :data:`DEFAULT_FLOP_PER_BYTE` flops per byte
-(``SPFFT_TPU_PERF_FLOP_PER_BYTE``), recorded in ``attribution``: the
-per-stage seconds are model-apportioned, not timed, and sum to the measured
-pair time by construction. The engines' ``stage_accounting()`` gives the
-model's rows.
+one machine balance (:func:`flop_per_byte`: ``SPFFT_TPU_PERF_FLOP_PER_BYTE``
+when set, else :data:`CUDA_FLOP_PER_BYTE` for a plan on a CUDA device,
+measured on an H100, else the JAX package's :data:`DEFAULT_FLOP_PER_BYTE`),
+recorded in ``attribution``: the per-stage seconds are model-apportioned,
+not timed, and sum to the measured pair time by construction. The engines'
+``stage_accounting()`` gives the model's rows; :func:`fit_flop_per_byte`
+fits the balance to measured per-stage device times.
 
 ``gflops`` is the dense model (``2 * 5 N log2 N`` per pair over the whole
 grid) over the measured seconds; ``exchange_fraction`` is the share
@@ -24,18 +26,31 @@ from __future__ import annotations
 
 import math
 
+import torch
+
 from .. import knobs
 from . import trace
 from .registry import gauge, histogram
 from .stages import STAGES
 
 PERF_SCHEMA = "spfft_tpu.obs.perf/1"
+# a programs/dbench.py (or discipline_compare --matrix) document of keyed rows
+SCALING_SCHEMA = "spfft_tpu.obs.perf.scaling/1"
 FLOP_PER_BYTE_ENV = "SPFFT_TPU_PERF_FLOP_PER_BYTE"
 
 # Machine balance used to mix flop-weighted compute stages and byte-weighted
 # movement stages into one attribution scale: flops that cost the same time
-# as moving one byte. The default is the JAX package's.
+# as moving one byte. The default is the JAX package's (a TPU's), and the CPU's.
 DEFAULT_FLOP_PER_BYTE = knobs.default(FLOP_PER_BYTE_ENV)
+# The balance of a plan on a CUDA device, measured by `python3 chip_smoke.py`
+# (its balance_fit line) in two runs on an "NVIDIA H100 80GB HBM3, 700.00 W"
+# (nvidia-smi), torch 2.11.0+cu128, CUDA 12.8: the per-stage least-squares fit
+# to the staged twins' device ms at 256^3 C2C over 4 shards and 512^3 R2C over
+# 16 shards in float32 and float64 was 2.205 and 2.194 flop/byte; the model's
+# exchange share read within 1.5x of the measured one on all three from 1.225
+# to 1.847 in the first run and from 1.202 to 1.794 in the second; the value is
+# the best fit inside both.
+CUDA_FLOP_PER_BYTE = 1.794
 
 # The pipeline-stage vocabulary the perf model covers: exactly the engine
 # stages of obs.STAGES (the autotuner's "tune warmup"/"tune trial" phases are
@@ -110,9 +125,61 @@ STAGE_KEYS = ("stage", "flops", "bytes", "seconds", "fraction", "gflops", "gbps"
 ATTRIBUTION_KEYS = ("method", "flop_per_byte")
 
 
-def flop_per_byte() -> float:
-    """The active flops-per-byte machine balance (env-overridable)."""
-    return knobs.get_float(FLOP_PER_BYTE_ENV)
+def flop_per_byte(device=None) -> float:
+    """The flops-per-byte machine balance of a plan on ``device``:
+    ``SPFFT_TPU_PERF_FLOP_PER_BYTE`` when it is set, on any device; else
+    :data:`CUDA_FLOP_PER_BYTE` on a CUDA device; else
+    :data:`DEFAULT_FLOP_PER_BYTE` (the CPU, and ``device`` None)."""
+    if knobs.raw(FLOP_PER_BYTE_ENV) not in (None, ""):
+        return knobs.get_float(FLOP_PER_BYTE_ENV)
+    if device is not None and torch.device(device).type == "cuda":
+        return CUDA_FLOP_PER_BYTE
+    return DEFAULT_FLOP_PER_BYTE
+
+
+def stage_shares(rows: list, balance: float) -> dict:
+    """Each model row's share of the pair at ``balance`` (the weights of
+    :func:`_attribute`), by stage name."""
+    return {r["stage"]: r["fraction"] for r in _attribute(rows, 1.0, balance)}
+
+
+def share_error(cases: list, balance: float) -> float:
+    """The root mean square difference, over the measured stages of every
+    case, between the model's stage share at ``balance`` and the measured
+    one. ``cases``: ``(model_rows, measured)`` pairs, the :func:`stage_model`
+    rows of a plan and its measured device ms by stage name. A model row
+    without a measured stage is left out (on one device the slab and pencil
+    exchanges pack and unpack inside their one gather, so the model's
+    ``pack``/``unpack`` rows have no time of their own); a measured stage
+    without a model row counts 0 on the model's side."""
+    err, count = 0.0, 0
+    for rows, ms in cases:
+        total = sum(ms.values())
+        got = stage_shares([r for r in rows if r["stage"] in ms], balance)
+        for stage, v in ms.items():
+            err += (got.get(stage, 0.0) - (v / total if total > 0 else 0.0)) ** 2
+            count += 1
+    return math.sqrt(err / max(1, count))
+
+
+def fit_flop_per_byte(cases: list, lo: float = 1e-3, hi: float = 1e4) -> dict:
+    """The one balance that best matches measured per-stage times: the
+    least :func:`share_error` over ``cases`` (a log-spaced scan of
+    ``[lo, hi]``, then a golden-section refinement). Returns
+    ``{"flop_per_byte", "residual"}``, the residual the error at the fit."""
+    loss = lambda log_b: share_error(cases, math.exp(log_b))  # noqa: E731
+    grid = [math.log(lo) + i * (math.log(hi) - math.log(lo)) / 400 for i in range(401)]
+    best = min(range(len(grid)), key=lambda i: loss(grid[i]))
+    a, b = grid[max(0, best - 1)], grid[min(len(grid) - 1, best + 1)]
+    golden = (math.sqrt(5) - 1) / 2
+    for _ in range(60):
+        c, d = b - golden * (b - a), a + golden * (b - a)
+        if loss(c) < loss(d):
+            b = d
+        else:
+            a = c
+    balance = math.exp((a + b) / 2)
+    return {"flop_per_byte": balance, "residual": share_error(cases, balance)}
 
 
 def fft_pass_flops(lines: int, length: int) -> int:
@@ -296,7 +363,8 @@ def perf_report(
             dict(r, flops=r["flops"] * b, bytes=r["bytes"] * b)
             for r in model_rows
         ]
-    rows = _attribute(model_rows, seconds, flop_per_byte())
+    balance = flop_per_byte(transform.device)
+    rows = _attribute(model_rows, seconds, balance)
     dims = [int(transform.dim_x), int(transform.dim_y), int(transform.dim_z)]
     distributed = getattr(transform, "_mesh", None) is not None
     if distributed:
@@ -357,7 +425,7 @@ def perf_report(
         ),
         "attribution": {
             "method": "analytic",
-            "flop_per_byte": flop_per_byte(),
+            "flop_per_byte": balance,
             "batch": b,
         },
         "stages": rows,
@@ -395,7 +463,6 @@ def _stage_inputs(transform):
     ``(V,)`` pair of a local plan, the stacked ``(P_local, V_max)`` pair of a
     distributed one. Staging is not billed to the measurement."""
     import numpy as np
-    import torch
 
     rng = np.random.default_rng(0)
     if getattr(transform, "_mesh", None) is not None:
@@ -429,8 +496,6 @@ def measure_pair_seconds(transform, *, chain: int = 4, repeats: int = 3,
     residual is the C2C chain-identity check over the first 64 values (None
     for R2C, whose round trip projects onto hermitian-consistent spectra)."""
     import time
-
-    import torch
 
     from ..sync import fence
     from ..types import ScalingType, TransformType
@@ -487,4 +552,19 @@ def validate_perf_report(report: dict) -> list:
         name = row.get("stage")
         if name not in STAGES:
             missing.append(f"stages[{i}].stage (unknown: {name!r})")
+    return missing
+
+
+def validate_scaling_doc(doc: dict) -> list:
+    """Missing-key paths of a ``programs/dbench.py`` scaling document
+    (schema :data:`SCALING_SCHEMA`): header keys plus every row's perf-report
+    schema. [] when valid."""
+    missing = [k for k in ("schema", "config", "rows") if k not in doc]
+    if doc.get("schema") not in (None, SCALING_SCHEMA):
+        missing.append(f"schema (unknown: {doc['schema']!r})")
+    for i, row in enumerate(doc.get("rows", ())):
+        for k in ("key", "scaling", "seconds_noise"):
+            if k not in row:
+                missing.append(f"rows[{i}].{k}")
+        missing.extend(f"rows[{i}].{m}" for m in validate_perf_report(row))
     return missing

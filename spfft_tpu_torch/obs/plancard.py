@@ -150,7 +150,7 @@ def plan_card(transform, *, include_compiled: bool = False) -> dict:
     if include_compiled:
         raise InvalidParameterError(
             "include_compiled=True: the port has no compiled-program (HLO) statistics "
-            "to report (ROADMAP queue A item 8b, obs/hlo.py)")
+            "to report (obs/hlo.py, what is left of ROADMAP queue A item 8b)")
     ex = transform._exec
     distributed = getattr(transform, "_mesh", None) is not None
     p = transform._params

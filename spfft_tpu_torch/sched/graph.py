@@ -137,7 +137,6 @@ class TaskGraph:
             prev = self._last_user.get(_obj_id(transform))
             if prev is not None and prev not in deps:
                 deps.append(prev)  # the retained-buffer edge
-            self._last_user[_obj_id(transform)] = tid
         for d in deps:
             if d not in self._tasks:
                 raise InvalidParameterError(
@@ -147,6 +146,11 @@ class TaskGraph:
             tid, direction, payload=payload, scaling=scaling, deps=deps, input_from=input_from,
             transform=transform, spec=spec, deadline=deadline, batch=batch,
             digest=None if spec is None else self._spec_digest(spec))
+        if transform is not None:
+            # recorded only for a task that exists: a refused add leaves no
+            # edge behind (the graph holds each recorded transform, so its
+            # id() is not reused by another object)
+            self._last_user[_obj_id(transform)] = tid
         return tid
 
     def _spec_digest(self, spec: dict) -> str:

@@ -126,6 +126,15 @@ def _stage_inputs(transform):
     return transform._exec.put_pair(as_pair(values, transform.dtype))
 
 
+def _stage_batch_inputs(transform, batch: int):
+    """The plan's exact-shape trial inputs stacked ``batch`` times along the
+    batch axis, staged on the plan's device (local plans: the batch axis the
+    serving layer tunes is a local-plan surface)."""
+    re, im = _stage_inputs(transform)
+    batch = max(1, int(batch))
+    return torch.stack([re] * batch), torch.stack([im] * batch)
+
+
 def _roundtrip(transform, staged):
     """One backward + forward(FULL) over staged inputs, fenced."""
     from ..types import ScalingType
@@ -213,7 +222,7 @@ def measure_batch_seconds(transform, batch: int) -> float:
     from ..types import ScalingType
 
     batch = max(1, int(batch))
-    re, im = (torch.stack([t] * batch) for t in _stage_inputs(transform))
+    re, im = _stage_batch_inputs(transform, batch)
     ex = transform._exec
 
     def roundtrip():
