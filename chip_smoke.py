@@ -211,7 +211,21 @@ Phases, one JSON line each:
    or under ``expand`` and ``pack``; the programs' plan's K1 and K2 forms
    against their plain versions, with their launches under the programs;
    the phase within ``PROGRAMS_BUDGET_S``;
-14. the ``kernels`` line; last, the ``{"ok": true, "device": ...}`` line.
+14. the static-analysis gate and runtime lockdep (``lockdep_phase``): the
+   port's gate (``python spfft_tpu_torch/programs/analyze.py --json -``) on
+   this checkout, which must exit 0 with 19 checkers, no new finding and no
+   stale baseline entry (its wall time printed); four fresh processes in
+   turns, lockdep-armed (``SPFFT_TPU_LOCKDEP=1`` and a report path) and not,
+   each serving phase 12's ``serve-128-c2c`` geometry in process through a
+   ``TransformService``, plain and with ``sched=True``: K1 and K2 launched
+   in every mode, the results of 16 fixed payloads bitwise equal across all
+   four processes, each armed report's locks, edges and blocking waits
+   printed and ``--lockdep-check`` exiting 0 on it, and the transforms a
+   second of a 3 s closed loop per mode, armed against unarmed; then two
+   ``serve_worker`` hosts spawned with ``spawn_workers(lockdep_dir=)``
+   behind a ``ClusterFront``, whose per-host reports, written at their clean
+   shutdown, cross-check alone and merged;
+15. the ``kernels`` line; last, the ``{"ok": true, "device": ...}`` line.
 
 Exits non-zero, with no result line, when there is no CUDA device or any
 check fails.
@@ -4004,6 +4018,192 @@ def programs_phase(sp) -> tuple:
     return krows, {PROGRAMS_NAME: total}
 
 
+# ---- phase 14: the static-analysis gate and runtime lockdep ------------------------------
+
+LOCKDEP_SERVE_S = 3.0  # closed-loop seconds per mode in each serving process
+LOCKDEP_WINDOW = 16  # requests in flight in the closed loop (and the fixed payloads hashed)
+LOCKDEP_TURNS = ("armed", "unarmed", "armed", "unarmed")  # serving processes, in this order
+LOCKDEP_FLEET = 4  # requests through the two lockdep-armed serve_worker hosts
+
+
+def lockdep_serve_worker(out_path: str) -> int:
+    """``--lockdep-serve OUT``: phase 14's serving run in a fresh process,
+    armed or not by the ``SPFFT_TPU_LOCKDEP`` it was started with: phase
+    12's ``serve-128-c2c`` geometry served in process by a
+    ``TransformService`` on the card, plain and with ``sched=True``. Per
+    mode: the SHA-256 of the results of ``LOCKDEP_WINDOW`` fixed payloads,
+    the K1/K2 host launches (the counts set to 0 just before the mode) and
+    the transforms a second of a closed loop of ``LOCKDEP_SERVE_S`` seconds
+    through the card's completion. Writes one JSON document to ``OUT``."""
+    import hashlib
+
+    import torch
+
+    import spfft_tpu_torch as sp
+    from spfft_tpu_torch.analysis import lockdep
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dims = SERVE_DIMS
+    trip, values = serve_problem(sp, dims, SERVE_RADIUS, SEED + 12)
+    payloads = [values * (1.0 + 0.125 * k) for k in range(LOCKDEP_WINDOW)]
+    c2c = sp.TransformType.C2C
+    doc = {"armed": lockdep.installed(), "modes": {}}
+    for mode, sched in (("plain", False), ("sched", True)):
+        svc = sp.serve.TransformService(sp.ProcessingUnit.GPU, dtype=F32, sched=sched,
+                                        queue_capacity=FLEET_QUEUE_CAP)
+        try:
+            clear_counts()
+            submit = lambda: [svc.submit(c2c, dims, trip, p, tenant=f"t{k % SERVE_TENANTS}")
+                              for k, p in enumerate(payloads)]
+            digest = hashlib.sha256()
+            for tk in submit():
+                digest.update(tk.result(timeout=300).cpu().numpy().tobytes())
+            served = 0
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            while time.perf_counter() - t0 < LOCKDEP_SERVE_S:
+                for tk in submit():
+                    tk.result(timeout=300)
+                served += len(payloads)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            k1, k2 = k_launches(launch_counts())
+        finally:
+            svc.close()
+        doc["modes"][mode] = {"digest": digest.hexdigest(), "served": served, "wall_s": wall,
+                              "transforms_per_s": served / wall, "k1_launches": k1,
+                              "k2_launches": k2}
+    with open(out_path, "w") as fh:
+        json.dump(doc, fh)
+    return 0
+
+
+def lockdep_check(analyze, reports) -> str:
+    """Cross-check lockdep report(s) with the gate's ``--lockdep-check``;
+    fails the run unless it exits 0. Returns its summary line."""
+    run = subprocess.run([sys.executable, analyze, "--lockdep-check", *reports],
+                         capture_output=True, text=True, timeout=300)
+    check(run.returncode == 0, f"--lockdep-check {reports} exited {run.returncode}: "
+          f"{run.stdout[-3000:]}{run.stderr[-2000:]}")
+    return run.stdout.strip().splitlines()[-1]
+
+
+def lockdep_rows(path) -> dict:
+    """The locks, edges and blocking waits of one lockdep report."""
+    doc = read_json(path)
+    return {"counts": doc["counts"], "cycles": doc["cycles"],
+            "locks": [f"{r['id']} ({r['kind']}, created {r['created']})" for r in doc["locks"]],
+            "edges": [f"{e['from']} -> {e['to']} x{e['count']}" for e in doc["edges"]],
+            "blocking": doc["blocking"]}
+
+
+def lockdep_phase(sp, card) -> None:
+    """Phase 14 (module docstring): the port's static-analysis gate on this
+    checkout, lockdep-armed serving on the card in fresh processes against
+    unarmed ones (bitwise, and transforms a second in turns), and two
+    lockdep-armed ``serve_worker`` hosts; every report must cross-check."""
+    import torch
+
+    from spfft_tpu_torch import hostmesh
+    from spfft_tpu_torch.serve.cluster import ClusterFront
+
+    started = time.perf_counter()
+    root = os.path.dirname(os.path.abspath(__file__))
+    analyze = os.path.join(root, "spfft_tpu_torch", "programs", "analyze.py")
+
+    # ---- (a) the gate ----
+    t0 = time.perf_counter()
+    run = subprocess.run([sys.executable, analyze, "--json", "-"], capture_output=True,
+                         text=True, timeout=600, cwd=root)
+    gate_s = time.perf_counter() - t0
+    check(run.returncode == 0, f"the static-analysis gate exited {run.returncode}: "
+          f"{run.stdout[-3000:]}{run.stderr[-2000:]}")
+    doc = json.loads(run.stdout)
+    check(doc.get("schema") == "spfft_tpu_torch.analysis/1" and len(doc["checkers"]) == 19,
+          f"the gate's report is not the port's: {doc.get('schema')}, {len(doc['checkers'])}")
+    check(doc["counts"]["new"] == 0 and doc["counts"]["stale_baseline"] == 0,
+          f"the gate found {doc['counts']}")
+    emit({"phase": "analysis_gate", "nvidia_smi": card, "wall_s": gate_s,
+          "checkers": len(doc["checkers"]), "counts": doc["counts"]})
+
+    # ---- (b) and (d): armed and unarmed serving processes, in turns ----
+    out_dir = os.path.abspath(os.path.join(REPORTS, "lockdep"))
+    shutil.rmtree(out_dir, ignore_errors=True)
+    os.makedirs(out_dir)
+    turns = []
+    for i, turn in enumerate(LOCKDEP_TURNS):
+        env = dict(os.environ, SPFFT_TPU_LOCKDEP="1" if turn == "armed" else "0")
+        env.pop("SPFFT_TPU_LOCKDEP_REPORT", None)
+        report = os.path.join(out_dir, f"serve{i}.json")
+        if turn == "armed":
+            env["SPFFT_TPU_LOCKDEP_REPORT"] = report
+        out = os.path.join(out_dir, f"turn{i}.json")
+        t0 = time.perf_counter()
+        run = subprocess.run([sys.executable, os.path.abspath(__file__), "--lockdep-serve", out],
+                             capture_output=True, text=True, timeout=600, env=env, cwd=root)
+        check(run.returncode == 0, f"lockdep serving process {i} ({turn}) failed: "
+              f"{run.stdout[-2000:]}{run.stderr[-3000:]}")
+        res = read_json(out)
+        res.update(turn=turn, process_s=time.perf_counter() - t0)
+        check(res["armed"] == (turn == "armed"), f"process {i}: lockdep armed {res['armed']}")
+        for mode, row in res["modes"].items():
+            check(row["k1_launches"] > 0 and row["k2_launches"] > 0,
+                  f"process {i} ({turn}, {mode}) launched K1 {row['k1_launches']} and "
+                  f"K2 {row['k2_launches']} times")
+        line = {"phase": "lockdep_serve", "nvidia_smi": card, "process": i, **res}
+        if turn == "armed":
+            line["lockdep_check"] = lockdep_check(analyze, [report])
+            line["report"] = lockdep_rows(report)
+            check(line["report"]["locks"], f"process {i}: the armed report records no lock")
+        emit(line)
+        turns.append(res)
+    for mode in ("plain", "sched"):
+        digests = {t["modes"][mode]["digest"] for t in turns}
+        check(len(digests) == 1, f"lockdep {mode}: armed and unarmed results differ ({digests})")
+    rates = {mode: {turn: [t["modes"][mode]["transforms_per_s"] for t in turns
+                           if t["turn"] == turn] for turn in ("armed", "unarmed")}
+             for mode in ("plain", "sched")}
+    emit({"phase": "lockdep_rate", "nvidia_smi": card,
+          "what": "transforms a second served in process (128^3 C2C float32, closed loop of "
+          f"{LOCKDEP_WINDOW}, {LOCKDEP_SERVE_S} s a mode), lockdep-armed and unarmed processes "
+          "in turns; results bitwise equal across all of them",
+          **{mode: {**r, "armed_over_unarmed": statistics.median(r["armed"])
+                    / statistics.median(r["unarmed"])} for mode, r in rates.items()}})
+
+    # ---- (c) two lockdep-armed serve_worker hosts, one report each ----
+    t0 = time.perf_counter()
+    dims = SERVE_DIMS
+    trip, values = serve_problem(sp, dims, SERVE_RADIUS, SEED + 12)
+    host_dir = os.path.join(out_dir, "hosts")
+    workers = hostmesh.spawn_workers(2, dtype="float32", lockdep_dir=host_dir,
+                                     workdir=os.path.join(out_dir, "work"))
+    try:
+        front = ClusterFront([w.address for w in workers], queue_capacity=FLEET_QUEUE_CAP,
+                             platform="gpu")
+        try:
+            payloads = [values * (1.0 + 0.5 * k) for k in range(LOCKDEP_FLEET)]
+            tickets = [front.submit(sp.TransformType.C2C, dims, trip, p) for p in payloads]
+            # the front resolves a ticket to the worker's result on the host
+            errs = [serve_oracle_err(trip, p, dims, torch.as_tensor(tk.result(timeout=300)))
+                    for p, tk in zip(payloads, tickets)]
+        finally:
+            front.close()
+    finally:
+        hostmesh.stop_workers(workers, timeout_s=60.0)
+    check(max(errs) < SERVE_RTOL, f"lockdep fleet: results {errs} from the oracle")
+    reports = [os.path.join(host_dir, f"host{i}.json") for i in range(2)]
+    hosts = {}
+    for i, path in enumerate(reports):
+        check(os.path.exists(path), f"worker host {i} wrote no lockdep report")
+        hosts[f"host{i}"] = {"lockdep_check": lockdep_check(analyze, [path]),
+                             "report": lockdep_rows(path)}
+    emit({"phase": "lockdep_fleet", "nvidia_smi": card, "oracle_err": errs,
+          "requests": LOCKDEP_FLEET,
+          "seconds": time.perf_counter() - t0, "merged_check": lockdep_check(analyze, reports),
+          **hosts})
+    emit({"phase": "lockdep", "nvidia_smi": card, "seconds": time.perf_counter() - started})
+
+
 def turns_worker(root) -> int:
     """One tree's pair times (``--turns-worker ROOT``): ``spfft_tpu_torch``
     imported from ``ROOT``, every plan of ``TURN_PLANS`` and ``TURN_DIST``
@@ -4333,6 +4533,9 @@ def main() -> int:
     rows += prows
     counts.update(pcounts)
 
+    # ---- the static-analysis gate, and lockdep-armed serving on the card ----
+    lockdep_phase(sp, card)
+
     kernels = []
     for row, name, kernel, key in rows:
         launches = counts[name][kernel].get(key, 0)
@@ -4362,4 +4565,6 @@ if __name__ == "__main__":
         sys.exit(serve_profile_worker(float(sys.argv[2])))
     if sys.argv[1:2] == ["--programs-profile"]:
         sys.exit(programs_profile_worker())
+    if sys.argv[1:2] == ["--lockdep-serve"]:
+        sys.exit(lockdep_serve_worker(sys.argv[2]))
     sys.exit(main())

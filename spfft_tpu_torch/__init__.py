@@ -32,6 +32,19 @@ tenants (a bounded queue, coalesced batches, an RPC cluster front) and
     space = t.backward(values)                      # (Z, Y, X) on the card
     back = t.forward(scaling=sp.ScalingType.FULL)   # packed values
 """
+# Runtime lockdep arms FIRST, before any submodule import creates its
+# threading primitives: the wrapper factories must be installed when the
+# module-level locks (obs registry and trace, faults plane, tuning wisdom,
+# verify breaker, the IR's capture lock, ...) are constructed. knobs pulls
+# only errors (stdlib), and analysis.lockdep is stdlib-only: nothing here
+# imports torch.
+from . import knobs as _knobs
+
+if _knobs.get_bool("SPFFT_TPU_LOCKDEP"):
+    from .analysis import lockdep as _lockdep
+
+    _lockdep.install(report_path=_knobs.get_str("SPFFT_TPU_LOCKDEP_REPORT"))
+
 from .errors import (  # noqa: F401
     AllocationError,
     DeadlineExceededError,

@@ -278,11 +278,10 @@ class DistributedTransform(_Observed):
         same typed error on every one."""
         if not self._guard or self._mesh.group is None:
             return super()._guard_input(data, direction)
-        error = faults.execution_error(self._platform)
         mine = None
         try:
             super()._guard_input(data, direction)
-        except error as e:
+        except faults.execution_error(self._platform) as e:
             mine = e
         from .verify.checks import group_scalar
 
@@ -290,8 +289,8 @@ class DistributedTransform(_Observed):
         if mine is not None:
             raise mine
         if failed:
-            raise error(f"guard [{direction} input]: failed on {failed} other process(es) "
-                        "of the group")
+            raise faults.execution_error(self._platform)(
+                f"guard [{direction} input]: failed on {failed} other process(es) of the group")
 
     def _guard_space(self, result) -> None:
         """Guard's check of a backward result: the global slab's values and

@@ -22,8 +22,12 @@ the first N of the cards this process may use: several workers with
 ``devices=1`` share card 0, each with its own CUDA context. The kernels'
 libraries are built into the checkout's ``build/`` by whoever needs them
 first; a build writes a per-process temporary and renames it into place, so
-workers that load them at once never see a partial library. Lockdep
-(``SPFFT_TPU_LOCKDEP``) waits for the port of ``spfft_tpu/analysis/``.
+workers that load them at once never see a partial library. Lockdep is
+included: a worker spawned under ``SPFFT_TPU_LOCKDEP=1`` records its own
+acquisition graph, and ``spawn_workers(lockdep_dir=)`` gives each host its
+own report (``<dir>/host<i>.json``, written when the worker exits cleanly:
+:func:`stop_workers`), which ``spfft_tpu_torch/programs/analyze.py
+--lockdep-check`` merges and cross-checks as one graph.
 """
 from __future__ import annotations
 
@@ -84,9 +88,14 @@ def child_env(overrides=None, *, devices: int | None = None) -> dict:
         "PATH": os.environ.get("PATH", "/usr/bin:/bin:/usr/local/bin"),
         "HOME": os.environ.get("HOME", str(Path.home())),
     }
-    for key in ("PYTHONPATH", "TMPDIR", "CUDA_VISIBLE_DEVICES", "LD_LIBRARY_PATH"):
-        if key in os.environ:
-            env[key] = os.environ[key]
+    if "PYTHONPATH" in os.environ:
+        env["PYTHONPATH"] = os.environ["PYTHONPATH"]
+    if "TMPDIR" in os.environ:
+        env["TMPDIR"] = os.environ["TMPDIR"]
+    if "CUDA_VISIBLE_DEVICES" in os.environ:
+        env["CUDA_VISIBLE_DEVICES"] = os.environ["CUDA_VISIBLE_DEVICES"]
+    if "LD_LIBRARY_PATH" in os.environ:
+        env["LD_LIBRARY_PATH"] = os.environ["LD_LIBRARY_PATH"]
     for key, value in os.environ.items():
         if key.startswith(knobs.PREFIX):
             env[key] = value
@@ -230,6 +239,7 @@ def spawn_workers(
     device: str | None = None,
     dtype: str | None = None,
     wisdom_bundle: str | None = None,
+    lockdep_dir: str | None = None,
     env=None,
     workdir: str | None = None,
     ready_timeout_s: float = 120.0,
@@ -244,7 +254,10 @@ def spawn_workers(
     configure each worker's service. ``mesh=True`` additionally joins the
     workers into ONE ``torch.distributed`` run (a coordinator port is
     allocated here; worker 0 hosts the store). ``wisdom_bundle``
-    warm-starts every worker's store.
+    warm-starts every worker's store; ``lockdep_dir`` arms
+    ``SPFFT_TPU_LOCKDEP=1`` in every worker with a per-host report path
+    ``<dir>/host<i>.json`` (written on clean shutdown —
+    :func:`stop_workers`).
 
     Boot failures are typed: a worker that dies or fails to write its ready
     file within ``ready_timeout_s`` kills the whole fleet and raises
@@ -255,6 +268,10 @@ def spawn_workers(
         raise InvalidParameterError(f"spawn_workers needs n >= 1, got {n}")
     workdir = workdir or tempfile.mkdtemp(prefix="spfft-hostmesh-")
     Path(workdir).mkdir(parents=True, exist_ok=True)
+    if lockdep_dir:
+        # a worker writes its report at exit, where a missing folder would
+        # lose it without a word
+        Path(lockdep_dir).mkdir(parents=True, exist_ok=True)
     coordinator = f"127.0.0.1:{free_port()}" if mesh else None
     procs = []
     for i in range(n):
@@ -279,6 +296,9 @@ def spawn_workers(
         overrides = dict(env or {})
         if wisdom_bundle:
             overrides[WISDOM_BUNDLE_ENV] = str(wisdom_bundle)
+        if lockdep_dir:
+            overrides["SPFFT_TPU_LOCKDEP"] = "1"
+            overrides["SPFFT_TPU_LOCKDEP_REPORT"] = str(Path(lockdep_dir) / f"host{i}.json")
         # a parent trace-dump dir fans out per host (child_env pops the
         # verbatim value): each worker's dumps stay attributable
         trace_dump = knobs.get_str("SPFFT_TPU_TRACE_DUMP")

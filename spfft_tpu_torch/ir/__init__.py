@@ -11,6 +11,7 @@
 """
 from .compile import (  # noqa: F401
     BATCH_FUSE_ENV,
+    BATCH_KEYS,
     FUSE_ENV,
     IR_KEYS,
     EngineIr,

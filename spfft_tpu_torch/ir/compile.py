@@ -66,6 +66,9 @@ FUSE_ENV = "SPFFT_TPU_FUSE"
 BATCH_FUSE_ENV = "SPFFT_TPU_BATCH_FUSE"
 # the keys of ``describe()`` (Transform.describe()["ir"]), as in the JAX package
 IR_KEYS = ("fused", "path", "requested", "stages", "donation")
+# the keys of ``describe_batch()`` (the card's ``batch`` section); the plan
+# card's BATCH_SECTION_KEYS mirrors it (the SA009 checker pins the two equal)
+BATCH_KEYS = ("enabled", "requested", "sizes", "failed")
 
 # Program calls, keyed by (mode, direction); mode is "staged", "fused" or "batched".
 dispatches: collections.Counter = collections.Counter()
@@ -219,7 +222,8 @@ class _Program:
                     self.body(*static_in)
                 current.wait_stream(side)
                 graph = torch.cuda.CUDAGraph()
-                with no_collection(), torch.cuda.graph(graph, pool=self.pool,
+                # held across the capture on purpose: captures take turns
+                with no_collection(), torch.cuda.graph(graph, pool=self.pool,  # noqa: SA011
                                                        capture_error_mode="thread_local"):
                     static_out = self.body(*static_in)
             except Exception as e:  # the class is kept: EngineIr decides the rung
@@ -411,8 +415,8 @@ class EngineIr:
         live, where the knob came from, the distinct batch sizes dispatched
         so far, and whether the axis took the ``batch_fuse_failed`` rung."""
         _, requested = resolve_batch_fuse()
-        return {"enabled": self.batch_available(), "requested": requested,
-                "sizes": sorted(self._batch_sizes), "failed": self._batch_failed}
+        return dict(zip(BATCH_KEYS, (self.batch_available(), requested,
+                                     sorted(self._batch_sizes), self._batch_failed)))
 
     def describe(self) -> dict:
         """The ``ir`` section (:data:`IR_KEYS`): path, where the choice came

@@ -29,6 +29,9 @@ class Knob:
     doc: str
     choices: tuple | None = None
     floor: float | None = None
+    # a knob that only tests, drivers or measurements read: kept out of the
+    # docs' knob table, as the JAX registry's ``internal=True`` rows are
+    internal: bool = False
 
 
 REGISTRY = {k.name: k for k in (
@@ -181,6 +184,24 @@ REGISTRY = {k.name: k for k in (
          "process-global circuit breaker", floor=1),
     Knob("SPFFT_TPU_VERIFY_BREAKER_COOLDOWN_S", "float", 30.0,
          "open -> half-open probe delay of the engine circuit breaker", floor=0.0),
+    # ---- static analysis and runtime lockdep (spfft_tpu_torch.analysis) ----
+    Knob("SPFFT_TPU_LOCKDEP", "bool", False,
+         "`1` arms the runtime lockdep validator at import "
+         "(`spfft_tpu_torch.analysis.lockdep`): every `threading.Lock/RLock/"
+         "Condition/Event` the package creates is wrapped to record the real "
+         "acquisition-order graph (cycles, and waits entered with another lock "
+         "still held), which cross-checks against the SA011 static model "
+         "(`spfft_tpu_torch/programs/analyze.py --lockdep-check`)"),
+    Knob("SPFFT_TPU_LOCKDEP_REPORT", "str", None,
+         "path the armed lockdep validator writes its "
+         "`spfft_tpu_torch.analysis.lockdep/1` JSON report to at process exit; "
+         "unset = in-process only (`lockdep.report()`); not propagated to "
+         "spawned workers (`hostmesh.spawn_workers(lockdep_dir=)` gives each its "
+         "own)"),
+    # ---- test-only ----
+    Knob("SPFFT_TPU_FUZZ_SEED", "int", 0,
+         "test-only: seed offset of the scheduler's fuzzed task graphs "
+         "(tests/test_torch_sched.py)", internal=True),
 )}
 
 _TRUE_WORDS = ("1", "true", "on")

@@ -9,8 +9,6 @@ table: data movement that stays plain PyTorch in this slice.
 """
 from __future__ import annotations
 
-import torch
-
 
 def decompress(values, value_indices, num_rows: int, dim_z: int):
     """Scatter packed values into a zeroed (num_rows, dim_z) stick table.

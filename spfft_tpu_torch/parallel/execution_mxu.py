@@ -27,7 +27,7 @@ an unpack gather.
 Not ported: the lane-copy value plans and their phase rotations (the TPU's
 lane alignment of the same decompress/compress; here one index copy over
 the stacked ``(P_local, V_max)`` values) and the JAX engine's bucket-matrix
-budget veto (``SPFFT_TPU_SPARSE_Y_MATRIX_MB``: PyTorch embeds no constants).
+budget veto (its ``SPARSE_Y_MATRIX_MB`` knob: PyTorch embeds no constants).
 """
 from __future__ import annotations
 

@@ -55,7 +55,7 @@ from .mesh import is_pencil2_mesh
 from .ragged import BlockExchange, flipped
 
 # The JAX package's default latency of one collective round in byte
-# equivalents (spfft_tpu/parallel/policy.py, SPFFT_TPU_EXCH_ROUND_COST_KB):
+# equivalents (spfft_tpu/parallel/policy.py, its EXCH_ROUND_COST_KB knob):
 # the cost model DEFAULT is resolved by, without the knob.
 ROUND_COST_BYTES = 128 << 10
 

@@ -11,4 +11,9 @@ recorder), :mod:`.verify` (a verified round trip under fault injection),
 against staged), :mod:`.dbench` (scaling over shard counts),
 :mod:`.perf_gate` (the regression gate) and :mod:`.discipline_compare`
 (the exchange disciplines). They run on the card unless ``--device cpu``
-is given."""
+is given. The static-analysis gate and its companions are run by their
+paths, so that neither this package's ``__init__`` nor torch is imported:
+``analyze.py`` (the gate and ``--lockdep-check``), ``lint.py`` (checkers
+SA001-SA009), ``api_surface.py`` (the C and Fortran surface parsers) and
+``gen_api_docs.py`` (``docs/torch/api`` and the tables of
+``docs/torch/details.md``)."""

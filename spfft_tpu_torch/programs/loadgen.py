@@ -54,6 +54,8 @@ from pathlib import Path
 import numpy as np
 
 LOADGEN_SCHEMA = "spfft_tpu.serve.loadgen/1"
+# how long past the arrival window the submitters and the kill timer may run
+JOIN_GRACE_S = 30.0
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -255,10 +257,18 @@ def run_step(service, *, key, rate, duration, tenants, trip, values, dims,
         timer.start()
     for th in threads:
         th.start()
-    for th in threads:
-        th.join()
-    if timer is not None:
-        timer.join()
+    # every submitter returns once the window closes (its last steps are a
+    # sleep of at most one arrival spacing and a non-blocking submit), and
+    # the kill fires inside the window: a thread alive past the grace hung
+    join_by = time.monotonic() + duration + JOIN_GRACE_S
+    for th in threads + ([timer] if timer is not None else []):
+        th.join(max(0.0, join_by - time.monotonic()))
+        if th.is_alive():
+            settle["deadline"] = time.time()  # the collector drains and ends
+            inbox.put(None)
+            raise DeadlineExceededError(
+                f"loadgen: {th.name} still running {JOIN_GRACE_S} s after the "
+                "arrival window closed")
     offered_wall = time.perf_counter() - t0
     settle["deadline"] = time.time() + settle_s
     inbox.put(None)
@@ -468,8 +478,6 @@ def main(argv=None, *, hooks=None) -> int:
         topology = [w.describe() for w in workers] or None
         service.close()
         if workers:
-            from spfft_tpu_torch import hostmesh
-
             hostmesh.stop_workers(workers)
 
     doc = {

@@ -82,16 +82,19 @@ def env_overrides(overrides: dict):
     if not overrides:
         yield
         return
-    saved = {k: os.environ.get(k) for k in overrides}
+    # The trial isolation scope is the package's ONE deliberate raw env
+    # path (noqa: SA014): it saves/restores ambient values VERBATIM — typed
+    # parsing here would destroy the "unset stays unset" round-trip.
+    saved = {k: os.environ.get(k) for k in overrides}  # noqa: SA014
     try:
         os.environ.update({k: str(v) for k, v in overrides.items()})
         yield
     finally:
         for k, old in saved.items():
             if old is None:
-                os.environ.pop(k, None)
+                os.environ.pop(k, None)  # noqa: SA014 — verbatim restore
             else:
-                os.environ[k] = old
+                os.environ[k] = old  # noqa: SA014 — verbatim restore
 
 
 def platform_of(device) -> str:

@@ -87,7 +87,8 @@ def _run_deadlined(fn, budget_s: float, label: str):
         try:
             with obs.trace.with_run(run), obs.trace.suppressed_dumps():
                 result.append(fn())
-        except BaseException as e:  # re-raised in the caller's thread
+        except BaseException as e:  # noqa: SA010 — re-raised in the caller
+            # thread (cross-thread re-raise, nothing swallowed)
             err.append(e)
         finally:
             done.set()

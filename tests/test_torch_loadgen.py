@@ -186,3 +186,42 @@ def test_a_slow_generator_leaves_arrivals_unoffered():
     assert 0 < row["offered"] < 60 and row["unoffered"] == 60 - row["offered"]
     assert row["offered_rate"] < 100
     assert row["completed"] == row["offered"] and _identity(row)
+
+
+@pytest.mark.parametrize("stuck", ["submitter", "kill timer"])
+def test_a_thread_hung_past_the_window_raises_instead_of_hanging(monkeypatch, stuck):
+    """A submitter, or the kill timer, still running ``JOIN_GRACE_S`` after
+    the arrival window closed is a hang: the step raises
+    ``DeadlineExceededError`` naming the thread, and does not wait for it."""
+    import threading
+    import time
+
+    from spfft_tpu_torch.errors import DeadlineExceededError
+    from spfft_tpu_torch.serve.queue import Ticket
+
+    monkeypatch.setattr(loadgen, "JOIN_GRACE_S", 0.2)
+    release = threading.Event()
+
+    def block():
+        release.wait(10.0)
+
+    class _Stub:
+        def submit(self, *a, **kw):
+            if stuck == "submitter":
+                block()
+            t = Ticket("t")
+            t.resolve(torch.zeros(1))
+            return t
+
+    kill = {"kill_fn": block, "kill_at_s": 0.05} if stuck == "kill timer" else {}
+    t0 = time.perf_counter()
+    try:
+        with pytest.raises(DeadlineExceededError, match="still running"):
+            loadgen.run_step(
+                _Stub(), key="hung", rate=20.0, duration=0.2, tenants=1, trip=None,
+                values=np.ones(3), dims=(4, 4, 4), transform_type=0, timeout_s=0.0,
+                flops_per_transform=1.0, settle_s=5.0, rng=np.random.default_rng(0),
+                **kill)
+        assert time.perf_counter() - t0 < 5.0
+    finally:
+        release.set()

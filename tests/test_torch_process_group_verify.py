@@ -247,13 +247,15 @@ def _fault_worker(rank, port, queue):
             bad_vals[min(mine)][0] = np.nan
         else:
             bad_space[min(mine)][0, 0, 0] = float("nan")
-        out["guard"] = []
+        out["guard"], out["guard_msg"] = [], []
         for call in (lambda: t.backward(bad_vals), lambda: t.forward(bad_space)):
             try:
                 call()
                 out["guard"].append(None)
+                out["guard_msg"].append(None)
             except tp.GenericError as e:
                 out["guard"].append(type(e).__name__)
+                out["guard_msg"].append(str(e))
         out["guard_after"] = [r for r, b in enumerate(t.backward(mine_vals)) if b is not None]
 
         # the engine's own breaker entry, opened in rank 0 by a plan of its
@@ -415,6 +417,10 @@ def test_the_breakers_of_a_group_move_in_step(faulted):
 def test_a_non_finite_input_in_one_process_raises_in_every_process(faulted):
     for rank, out in faulted.items():
         assert out["guard"] == ["HostExecutionError"] * 2, (rank, out["guard"])
+        # the process whose own input was finite raises for the other one:
+        # rank 1 in the backward call, rank 0 in the forward call
+        remote = out["guard_msg"][1 - rank]
+        assert "input]: failed on 1 other process(es) of the group" in remote, (rank, remote)
         assert out["guard_after"] == [2 * rank, 2 * rank + 1]
 
 

@@ -13,7 +13,6 @@ its outcome is the JAX package's. Placement on the CPU names the CPU device
 (``devices=[torch.device("cpu")]``); the default device list is every
 visible CUDA device.
 """
-import os
 
 import numpy as np
 import pytest
@@ -26,12 +25,12 @@ from spfft_tpu import obs as jobs
 from spfft_tpu import sched as jsched
 from spfft_tpu import tuning as jtuning
 from spfft_tpu import verify as jverify
-from spfft_tpu_torch import errors, faults, obs, sched, tuning, verify
+from spfft_tpu_torch import errors, faults, knobs, obs, sched, tuning, verify
 
 DIM = 8
 BAR = 1e-11
 CPU = [torch.device("cpu")]
-FUZZ_SEED = int(os.environ.get("SPFFT_TPU_FUZZ_SEED", "0"))
+FUZZ_SEED = knobs.get_int("SPFFT_TPU_FUZZ_SEED")
 
 
 @pytest.fixture(autouse=True)

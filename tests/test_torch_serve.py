@@ -750,3 +750,41 @@ def test_geometry_memo_is_keyed_by_content():
         w, c, sticks, order = svc.geometries.resolve(trip, DIMS)
         assert np.array_equal(c, serve.canonical_triplets(trip, DIMS))
         assert np.array_equal(w, serve.wrap_triplets(trip, DIMS))
+
+
+def test_serve_admit_fault_is_a_typed_overload_refusal():
+    """The ``serve.admit`` site: admission machinery that fails refuses the
+    request as an overload (typed ``ServiceOverloadError``), queues nothing,
+    and the service admits and serves again once the site is disarmed."""
+    trip = _triplets()
+    values = _values(trip)
+    svc = _service()
+    with faults.inject("serve.admit=raise"):
+        for _ in range(3):
+            with pytest.raises(errors.ServiceOverloadError, match="admission machinery failed"):
+                svc.submit(TransformType.C2C, DIMS, trip, values)
+    assert svc.queue.high_water == 0
+    tk = svc.submit(TransformType.C2C, DIMS, trip, values)
+    svc.pump()
+    assert_close(tk.result(timeout=30), _expect_backward(trip, values))
+    svc.close()
+
+
+def test_serve_batch_fault_fails_its_batch_typed_and_the_next_batch_serves():
+    """The ``serve.batch`` site: a coalesced batch whose stage fails resolves
+    every one of its tickets with a typed error (none is left pending), and
+    the next batch, with the site disarmed, serves the right result."""
+    trip = _triplets()
+    values = _values(trip)
+    svc = _service(retries=0)
+    with faults.inject("serve.batch=raise"):
+        tickets = [svc.submit(TransformType.C2C, DIMS, trip, values) for _ in range(2)]
+        svc.pump()
+    for tk in tickets:
+        assert tk.done()
+        with pytest.raises(errors.GenericError):
+            tk.result(timeout=0)
+    tk = svc.submit(TransformType.C2C, DIMS, trip, values)
+    svc.pump()
+    assert_close(tk.result(timeout=30), _expect_backward(trip, values))
+    svc.close()
