@@ -83,6 +83,21 @@ Phases, one JSON line each:
    (z, the dense y over the stacked y-pencil grid, the x stage over the
    slot columns) and the K2 gathers of exchanges A and B against their
    plain versions, as in phase 3;
+6c. the OVERLAPPED exchange (``overlap_phase``, ``OVERLAP_PLANS``): four
+   shards stacked on the card at 256^3, radius 0.659: slab C2C ``mxu``
+   BUFFERED at overlap 4, R2C at 2, C2C on the ``torch.fft`` engine at 4,
+   the 2 x 2 pencil C2C in float64 over a float32 wire at 4, all fused, and
+   slab C2C at 4 over the one-rank NCCL group (staged, each chunk's
+   collective asynchronous). Each is held against its ``overlap=1`` twin
+   built beside it (bitwise expected on the ``mxu`` engines, else the
+   dtype's bar), the dense oracle and its round trip, its staged twin
+   (bitwise), the NCCL plan bitwise against the stacked one; no rung; its
+   new K1 forms (the batched z windows, the pencil's windowed y and x) and
+   K2 gathers (each chunk's, the one unpack) against their plain versions;
+   under torch.profiler the streams its K1 and exchange kernels ran on (the
+   staged twin's: the exchange off K1's stream) and the device ms during
+   which an exchange kernel and a K1 kernel ran at once; pair and busy ms
+   against the twin, the two taking turns;
 7. one pair of every plan and twin under ``torch.profiler``: the device's
    busy share and the kernels that take its time; then the pair times, all
    plans taking turns, for comparisons within the run; each pencil plan's
@@ -138,8 +153,10 @@ Phases, one JSON line each:
    ``xla`` and ``xla/staged`` candidates, each built and timed on the card),
    the chosen plan against the dense oracle (a bfloat16-matrix plan at the
    "default" bar), and a second construction a wisdom hit with no trial; the same
-   for the exchange of ``dist4-c2c`` and ``pencil2x2-c2c`` (BUFFERED,
-   COMPACT_BUFFERED and UNBUFFERED timed in one call); the gbench graph
+   for the exchange of ``dist4-c2c`` and ``pencil2x2-c2c`` at ``overlap=1``
+   (BUFFERED, COMPACT_BUFFERED and UNBUFFERED timed in one call) and of
+   ``dist4-c2c-ovtuned`` with no ``overlap`` (those and the tuner's
+   ``BUFFERED/ov2`` and ``BUFFERED/ov4``: the row names the winner); the gbench graph
    (``spfft_tpu_torch.programs.gbench``, ``GBENCH_ARGS``: two geometries,
    independent backwards and backward -> forward chains) run serially and
    scheduled, each task's result bitwise its solo plan's, both rates
@@ -834,11 +851,13 @@ def k2_vector_bytes(src, out) -> int:
     return next(v for v in (16, 8, 4) if bits % v == 0)
 
 
-def run_k2(name, src, idx, packed=False):
+def run_k2(name, src, idx, packed=False, out_ld=None):
     """K2 at one form against its plain version. ``packed``: the planes'
     rows go side by side into one ``(rows, planes * W)`` buffer, as the
     exchange's pack writes them (its unpack reads such a buffer's column
-    blocks, which ``src`` then is). ``ms``, ``plain_ms`` and ``library_ms``
+    blocks, which ``src`` then is); ``out_ld``: each plane's rows go into
+    the first ``W`` columns of an ``out_ld``-wide buffer (a window of the
+    OVERLAPPED exchange). ``ms``, ``plain_ms`` and ``library_ms``
     on :func:`graph_ms`'s clock, over :func:`l2_copies` copies of the
     operands, the kernel's and ``index_select``'s outputs among them (the
     plain version allocates its own); ``replay_ms`` on :func:`device_ms`'s,
@@ -851,6 +870,8 @@ def run_k2(name, src, idx, packed=False):
     n_rows, item = idx.numel(), src[0].element_size()
 
     def outputs():
+        if out_ld is not None:
+            return [src[0].new_empty((n_rows, out_ld))[:, :width] for _ in src]
         if not packed:
             return [src[0].new_empty((n_rows, width)) for _ in src]
         buf = src[0].new_empty((n_rows, len(src) * width))
@@ -891,7 +912,7 @@ def run_k2(name, src, idx, packed=False):
         "replaces": "programs/microbench_pallas_dma.py:140",
         "shape": {"rows": n_rows, "n_src": n_src, "width": width, "planes": len(src),
                   "dtype": str(src[0].dtype).split(".")[1], "ld_src": src[0].stride(0),
-                  "packed_out": packed},
+                  "packed_out": packed, "ld_out": got[0].stride(0)},
         "vector_bytes": k2_vector_bytes(src, got),
         "max_abs_err": err, "bitwise_equal": exact,
         "ms": graph_ms([lambda st=st: kernel(*st) for st in sets]),
@@ -1353,32 +1374,59 @@ def union_us(spans) -> float:
     return busy_us
 
 
-def profile_pair(sp, name, t, values_dev) -> dict:
-    """One backward+forward(FULL) pair under torch.profiler: the share of the
-    window the device is busy, and the kernels by device time."""
+def traced_pair(sp, t, values_dev, attempts: int = 3) -> tuple:
+    """The device events (kernels, copies, memsets: dicts with ``name``,
+    ``ts``, ``dur`` in µs and ``args.stream``) of one backward+forward(FULL)
+    pair of ``t`` under torch.profiler, read from its Chrome trace, the ms
+    the pair took on the host's clock, and the attempts taken. As in
+    :func:`stage_profile`, one pair runs first as the schedule's untraced
+    warm-up step (late in a long process the profiler loses the events at
+    the start of a window; the trace holds the last cycle alone), and a
+    trace with no device event is taken again, up to ``attempts`` times."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity, profile, schedule
 
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        t.backward(values_dev)
-        t.forward(scaling=sp.ScalingType.FULL)
+    os.makedirs(REPORTS, exist_ok=True)
+    path = os.path.join(REPORTS, f"trace-{os.getpid()}.json")
+    for attempt in range(1, attempts + 1):
         torch.cuda.synchronize()
-        window_ms = 1e3 * (time.perf_counter() - t0)
-    kernels = device_kernels(prof)
-    spans = sorted((e.time_range.start, e.time_range.end) for e in kernels)
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                     schedule=schedule(wait=0, warmup=1, active=1)) as prof:
+            for step in range(2):
+                t0 = time.perf_counter()
+                t.backward(values_dev)
+                t.forward(scaling=sp.ScalingType.FULL)
+                torch.cuda.synchronize()
+                window_ms = 1e3 * (time.perf_counter() - t0)
+                if step == 0:
+                    prof.step()
+        prof.export_chrome_trace(path)
+        with open(path) as f:
+            trace = json.load(f)
+        os.remove(path)
+        events = [e for e in trace.get("traceEvents", []) if e.get("ph") == "X"
+                  and e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")]
+        if events:
+            break
+    return events, window_ms, attempt
+
+
+def profile_pair(sp, name, t, values_dev) -> dict:
+    """One backward+forward(FULL) pair under torch.profiler
+    (:func:`traced_pair`): the share of the window the device is busy, and
+    the kernels by device time."""
+    kernels, window_ms, attempt = traced_pair(sp, t, values_dev)
+    spans = sorted((e["ts"], e["ts"] + e["dur"]) for e in kernels)
     busy_us = union_us(spans)
     by_name = {}
     for e in kernels:
-        short = e.name if len(e.name) <= 90 else e.name[:87] + "..."
+        short = e["name"] if len(e["name"]) <= 90 else e["name"][:87] + "..."
         ms, n = by_name.get(short, (0.0, 0))
-        by_name[short] = (ms + (e.time_range.end - e.time_range.start) / 1e3, n + 1)
+        by_name[short] = (ms + e["dur"] / 1e3, n + 1)
     top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:12]
-    of = lambda *keys: sum((e.time_range.end - e.time_range.start) / 1e3 for e in kernels
-                           if any(k in e.name for k in keys))
+    of = lambda *keys: sum(e["dur"] / 1e3 for e in kernels if any(k in e["name"] for k in keys))
     row = {
-        "phase": "profile", "plan": name, "window_ms": window_ms,
+        "phase": "profile", "plan": name, "window_ms": window_ms, "attempts": attempt,
         "device_busy_ms": busy_us / 1e3 if spans else None,
         "device_busy_share": busy_us / 1e3 / window_ms if spans else None,
         "k1_ms": of("tc_kernel", "dmma_kernel"), "k2_ms": of("row_gather_kernel"),
@@ -1742,6 +1790,269 @@ def pencil_phase(sp, data, plans, values, group, slab_results):
             slab=(slab_space, slab_back))
         out[name], pvalues[name] = (t, None if over_group else twin), vals
     return out, counts, rows, pvalues
+
+# ---- phase 6c: the OVERLAPPED exchange ----------------------------------------------
+
+# (name, transform, mesh, engine, exchange, dtype, overlap, over the process
+# group); four shards stacked on the card at 256^3, radius 0.659, each held
+# against its overlap=1 twin built here, and a stacked plan against its
+# staged twin, whose trace shows the streams as issued
+OVERLAP_PLANS = [
+    ("dist4-c2c-buffered-ov4", "c2c", "slab", "mxu", "BUFFERED", F32, 4, False),
+    ("dist4-r2c-buffered-ov2", "r2c", "slab", "mxu", "BUFFERED", F32, 2, False),
+    ("dist4-c2c-xla-buffered-ov4", "c2c", "slab", "xla", "BUFFERED", F32, 4, False),
+    ("pencil2x2-c2c-f64-float-ov4", "c2c", "pencil", "mxu", "BUFFERED_FLOAT", F64, 4, False),
+    ("dist4-c2c-nccl1-ov4", "c2c", "slab", "mxu", "BUFFERED", F32, 4, True),
+]
+# the plan the one-rank NCCL plan is held bitwise against
+OVERLAP_STACKED = {"dist4-c2c-nccl1-ov4": "dist4-c2c-buffered-ov4"}
+# the dtype's bar where a form is not bitwise its overlap=1 twin's
+OVERLAP_TWIN_RTOL = {"float32": 1e-5, "float64": 1e-12}
+# the kernel names of the profile
+K1_KERNELS, EXCHANGE_KERNELS = ("tc_kernel", "dmma_kernel"), ("row_gather_kernel",
+                                                              "ncclDevKernel")
+
+
+def widths(chunks) -> dict:
+    """One chunk ``(c0, c1)`` per distinct chunk width."""
+    return {c1 - c0: (c0, c1) for c0, c1 in chunks}
+
+
+def overlap_k1_forms(name, t):
+    """The K1 forms that an OVERLAPPED plan adds: on a slab mesh the z stage
+    over the stick rows [c0, c1) of the four stacked shards, a batch of four
+    strided windows (backward reads them, forward writes them), one row per
+    chunk width; on a pencil mesh the y stage of a z window and the x stage
+    reading (forward) or writing (backward) its window of the native space."""
+    import torch
+    from spfft_tpu_torch import ScalingType
+
+    ex, p = t._exec, t.params
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 8)
+    dt = ex.torch_dtype
+    rnd = lambda *shape: torch.randn(shape, generator=gen, device="cuda", dtype=dt)
+    pair = lambda *shape: (rnd(*shape), rnd(*shape))
+    Pl, forms = ex.num_local, []
+    if not t.engine.startswith("pencil2"):
+        S, PL, Z = ex._S, p.num_shards * ex._L, p.dim_z
+        for W, (c0, c1) in widths(ex._chunks).items():
+            win = lambda parts: tuple(q.view(Pl, S, -1)[:, c0:c1] for q in parts)
+            if PL == Z:  # both directions at one shape: one launch key, one row
+                forms.append((f"{name}/z_window{W}_backward+forward", "bsz,zk->bsk",
+                              win(pair(Pl * S, Z)), ex._wz_b, True, None))
+            else:
+                forms += [(f"{name}/z_window{W}_backward", "bsz,zk->bsk", win(pair(Pl * S, Z)),
+                           ex._wz_b, True, None),
+                          (f"{name}/z_window{W}_forward", "bsz,zk->bsk", pair(Pl, W, PL),
+                           ex._wz_f[ScalingType.FULL], True, win(pair(Pl * S, Z)))]
+        return forms
+    Y, X, Lz, Ly, Ax, C = p.dim_y, p.dim_x, ex._Lz, ex._Ly, ex._Ax, ex._C
+    slab = Pl * Ly
+    for W, (c0, c1) in widths(ex._chunks).items():
+        space = lambda: tuple(q.view(slab, X, Lz)[:, :, c0:c1] for q in pair(slab, X, Lz))
+        forms += [(f"{name}/y_window{W}_backward+forward", "yxz,yk->kxz", pair(Y, Pl * Ax, W),
+                   ex._wy_b, True, None),
+                  (f"{name}/x_window{W}_backward", "kxz,xl->klz", pair(slab, C, W), ex._wx_b,
+                   True, space()),
+                  (f"{name}/x_window{W}_forward", "yxz,xk->ykz", space(), ex._wx_f, True, None)]
+    return forms
+
+
+def overlap_k2_forms(name, t, gen):
+    """The K2 gathers of an OVERLAPPED plan, one row per chunk width: on a
+    slab mesh each backward chunk's gather into its rows of the receive
+    buffer (over a group: its pack), the one unpack, and each forward chunk's
+    gather (its pack and unpack); on a pencil mesh exchange A backward
+    reading the window's columns of the z stage's rows, exchange B both ways
+    and exchange A forward writing the window's columns of the stick rows."""
+    import torch
+
+    ex = t._exec
+    planes = 1 if t.engine in ("xla", "pencil2") else 2
+    dt = ex.torch_dtype
+    rnd = lambda rows, cols: [torch.randn((rows, cols), generator=gen, device="cuda", dtype=dt)
+                              for _ in range(planes)]
+    forms = []
+    if not t.engine.startswith("pencil2"):
+        xc = ex._exchange
+        width = xc.L * (2 if planes == 1 else 1)
+        bc = xc.backward_chunks
+        for W, (c0, c1) in widths(xc.chunks).items():
+            k = xc.chunks.index((c0, c1))
+            pack = bc._chunks[k][0]
+            forms.append((f"{name}/exchange_backward_chunk{W}" + ("_pack" if bc.collective
+                                                                   else ""),
+                          rnd(ex.num_local * W * ex.params.num_shards, width), pack, True))
+            forms += route_k2_forms(f"{name}/exchange_forward_chunk{W}", xc.forward_chunks[k],
+                                    planes, width, dt, gen)
+        buf = torch.randn((bc.total, planes * width), generator=gen, device="cuda", dtype=dt)
+        forms.append((f"{name}/exchange_backward_unpack",
+                      [buf[:, q * width:(q + 1) * width] for q in range(planes)], bc._unpack,
+                      False))
+        return forms
+    u, Lz = ex._zunit, ex._Lz
+    for W, (c0, c1) in widths(ex._chunks).items():
+        for tag, direction in (("A", "backward"), ("B", "backward"), ("B", "forward"),
+                               ("A", "forward")):
+            bx = ex._exchanges[tag, direction]
+            src = rnd(bx.n_src, u * (Lz if (tag, direction) == ("A", "backward") else W))
+            if (tag, direction) == ("A", "backward"):
+                src = [s[:, c0 * u:c1 * u] for s in src]
+            out_ld = u * Lz if (tag, direction) == ("A", "forward") else None
+            forms.append((f"{name}/exchange_{tag}_{direction}_window{W}", src, bx._index, False,
+                          out_ld))
+    return forms
+
+
+def stream_profile(sp, t, values_dev) -> dict:
+    """One pair of ``t`` under torch.profiler (:func:`traced_pair`): the
+    streams its K1 and exchange kernels (K2, NCCL) ran on, and the device ms
+    during which an exchange kernel and a K1 kernel ran at once (the
+    overlap won)."""
+    events, _, attempt = traced_pair(sp, t, values_dev)
+    kernels = [e for e in events if e.get("cat") == "kernel"]
+    of = lambda keys: [e for e in kernels if any(k in e["name"] for k in keys)]
+    k1, xk = of(K1_KERNELS), of(EXCHANGE_KERNELS)
+    rest = [e for e in kernels if e not in xk]  # K1, cuFFT and the plain tensor code
+    k1_streams = sorted({e["args"].get("stream") for e in k1})
+    side = [e for e in xk if e["args"].get("stream") not in k1_streams]
+    spans = lambda es: sorted((e["ts"], e["ts"] + e["dur"]) for e in es)
+    # the device time during which kernels of both sets ran: |A| + |B| - |A u B|
+    both = lambda a, b: (union_us(spans(a)) + union_us(spans(b))
+                         - union_us(sorted(spans(a) + spans(b)))) / 1e3
+    return {"attempts": attempt, "k1_streams": k1_streams,
+            "exchange_streams": sorted({e["args"].get("stream") for e in xk}),
+            "k1_kernels": len(k1), "exchange_kernels": len(xk),
+            "exchange_kernels_off_k1_streams": len(side),
+            "exchange_ms": union_us(spans(xk)) / 1e3, "k1_ms": union_us(spans(k1)) / 1e3,
+            # an exchange kernel (K2, NCCL) and a K1 kernel at once, on any
+            # streams: the overlap won (a replayed CUDA graph's kernels are
+            # reported on its own streams)
+            "overlapped_ms": both(xk, k1),
+            # the same against any other kernel (the torch.fft engine has no K1)
+            "overlapped_any_ms": both(xk, rest),
+            # kernels, copies and memsets, as profile_pair counts busy time
+            "device_busy_ms": union_us(spans(events)) / 1e3}
+
+
+def overlap_phase(sp, data, group) -> tuple:
+    """Phase 6c (module docstring): each plan of ``OVERLAP_PLANS`` and its
+    overlap=1 twin, against each other (bitwise on the matrix-product
+    engines), the dense oracle and the round trip; the NCCL plan bitwise
+    against the stacked one; no rung; the new K1 and K2 forms against their
+    plain versions; the streams and the overlap won under torch.profiler;
+    pair and busy ms against the twin, the two taking turns. Returns the
+    kernel rows and the launch counts of each plan's first pair."""
+    import torch
+
+    t0 = time.perf_counter()
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 9)
+    rows, counts, results, built = [], {}, {}, {}
+    X, Y = DIMS[0], DIMS[1]
+    for name, kind, layout, engine, exchange, dtype, ov, over_group in OVERLAP_PLANS:
+        t1 = time.perf_counter()
+        triplets, vals_global, want = data[kind, 0.659]
+        if layout == "pencil":
+            per = sp.distribute_triplets(triplets, 4, Y, layout=(2, 2), dim_x=X)
+            mesh = sp.make_fft_mesh2(2, 2, group=group if over_group else None)
+        else:
+            per = sp.distribute_triplets(triplets, 4, Y)
+            mesh = sp.make_fft_mesh(4, group=group if over_group else None)
+        cdt = np.complex64 if dtype == F32 else np.complex128
+        vals = [torch.as_tensor(vals_global[i].astype(cdt), device="cuda")
+                for i in shard_index(triplets, per)]
+        make = lambda overlap, **kw: sp.DistributedTransform(
+            sp.ProcessingUnit.GPU, getattr(sp.TransformType, kind.upper()), *DIMS, per,
+            mesh=mesh, engine=engine, exchange_type=getattr(sp.ExchangeType, exchange),
+            dtype=dtype, overlap=overlap, **kw)
+        t, twin = make(ov), make(1)
+        # a replayed CUDA graph's kernels are reported on the graph's own streams
+        st = None if over_group else make(ov, fuse=False)
+        check(t.overlap_chunks == ov and t.exchange_rounds() == ov * (
+            2 if layout == "pencil" else 1), f"{name}: {t.overlap_chunks} chunks, "
+              f"{t.exchange_rounds()} rounds")
+        check(t.fused == (not over_group), f"{name}: fused {t.fused}")
+        # the kernels at the forms this plan adds, against their plain versions
+        if engine == "mxu" and not over_group:
+            for form, spec, x, w, want_imag, o in overlap_k1_forms(name, t):
+                row, key = run_k1(form, spec, x, w, want_imag, t._exec.k1_precision, o)
+                rows.append((row, name, "complex_matmul", key))
+        for form, src, idx, packed, out_ld in (
+                (*f, None)[:5] for f in overlap_k2_forms(name, t, gen)):
+            row, key = run_k2(form, src, idx, packed, out_ld=out_ld)
+            rows.append((row, name, "row_gather", key))
+        # the main path: the overlapped plan's pair counted from 0, its twin's
+        first = run_pair(sp, t, vals)
+        second = run_pair(sp, t, vals)
+        ref = run_pair(sp, twin, vals)
+        ref_peak = run_pair(sp, twin, vals)["peak_extra_bytes"]  # a replayed pair's
+        counts[name] = first["counts"]
+        same = lambda a, b: torch.equal(a["space"], b["space"]) and all(
+            torch.equal(x, y) for x, y in zip(a["back"], b["back"]))
+        rel = lambda a, b: max(
+            float((a["space"] - b["space"]).abs().max() / b["space"].abs().max()),
+            max(float((x - y).abs().max()) for x, y in zip(a["back"], b["back"]))
+            / max(float(y.abs().max()) for y in b["back"]))
+        space_h = first["space"].cpu().numpy()
+        oracle_err = float(np.abs(space_h - want).max() / np.abs(want).max())
+        scale = max(float(v.abs().max()) for v in vals)
+        rt_err = max(float((b - v).abs().max()) for b, v in zip(first["back"], vals)) / scale
+        bar = DIST_F64_RTOL if dtype == F64 else ORACLE_RTOL["highest"]
+        twin_bar = OVERLAP_TWIN_RTOL[np.dtype(dtype).name]
+        row = {"phase": "overlap_plan", "plan": name, "engine": t.engine, "dims": list(DIMS),
+               "transform": kind, "dtype": np.dtype(dtype).name, "exchange": exchange,
+               "overlap_requested": ov, "overlap_chunks": t.overlap_chunks,
+               "chunks": [list(c) for c in t._exec._chunks],
+               "exchange_rounds": t.exchange_rounds(),
+               "transport": t._exec.exchange_transport(), "fused": t.fused,
+               "stages_backward": t.describe()["ir"]["stages"]["backward"],
+               "bitwise_equal_to_overlap1_twin": same(first, ref),
+               "overlap1_twin_rel_err": rel(first, ref), "twin_bar": twin_bar,
+               "oracle_rel_err": oracle_err, "roundtrip_rel_err": rt_err, "bar": bar,
+               "launches_first_pair": {k: sum(c.values()) for k, c in first["counts"].items()},
+               "launches_second_pair": total(second["counts"]),
+               "dispatches_second_pair": second["dispatches"],
+               "peak_extra_bytes": {"overlapped": second["peak_extra_bytes"],
+                                    "overlap1_twin": ref_peak}}
+        if st is not None:
+            staged_pair = run_pair(sp, st, vals)
+            row["fused_equals_staged"] = same(first, staged_pair)
+            check(row["fused_equals_staged"], f"{name}: fused and staged results differ")
+        if name in OVERLAP_STACKED:
+            row["bitwise_equal_to_" + OVERLAP_STACKED[name]] = same(
+                first, results[OVERLAP_STACKED[name]])
+            check(row["bitwise_equal_to_" + OVERLAP_STACKED[name]],
+                  f"{name}: not bitwise the stacked {OVERLAP_STACKED[name]}")
+        prof = stream_profile(sp, t, vals)
+        row["profile"] = prof
+        streams = stream_profile(sp, st, vals) if st is not None else prof
+        row["profile_staged"] = streams if st is not None else None
+        turns = interleaved_pair_ms(sp, {name: t, "ov1": twin}, {name: vals, "ov1": vals},
+                                    rounds=4, pairs=3)
+        busy = profile_pair(sp, "ov1:" + name, twin, vals)
+        row.update({"pair_ms_in_turns": turns[name], "overlap1_pair_ms_in_turns": turns["ov1"],
+                    "device_busy_ms": prof["device_busy_ms"],
+                    "overlap1_device_busy_ms": busy["device_busy_ms"],
+                    "pair_vs_overlap1": turns[name] / turns["ov1"],
+                    "seconds": time.perf_counter() - t1})
+        emit(row)
+        check(oracle_err <= bar and rt_err <= bar, f"{name}: oracle {oracle_err}, round trip "
+              f"{rt_err} (bar {bar})")
+        check(row["overlap1_twin_rel_err"] <= twin_bar,
+              f"{name}: {row['overlap1_twin_rel_err']} from its overlap=1 twin")
+        check(streams["exchange_kernels_off_k1_streams"] > 0,
+              f"{name}: no exchange kernel ran off K1's streams {streams}")
+        if not over_group:
+            check(total(second["counts"]) == 0, f"{name}: a replayed pair launched on the host")
+        results[name] = first
+        built[name], built[name + "~ov1"] = t, twin
+        if st is not None:
+            built[name + STAGED] = st
+        del first, second, ref
+    no_rungs("overlap phase", built)
+    emit({"phase": "overlap", "seconds": time.perf_counter() - t0})
+    return rows, counts
+
 
 # ---- the obs phase ---------------------------------------------------------------
 
@@ -2589,7 +2900,9 @@ def faults_phase(sp, data) -> None:
 # the tuned local plans: (name, transform); the tuned and legacy mesh plans:
 # (name, mesh shape); the gbench workload (mixed geometries on the card)
 TUNE_PLANS = [("c2c-blocked", "c2c"), ("r2c-blocked", "r2c")]
-TUNE_MESHES = [("dist4-c2c", (4,)), ("pencil2x2-c2c", (2, 2))]
+# (name, mesh shape, overlap: the count pinned, or None for the tuner's)
+TUNE_MESHES = [("dist4-c2c", (4,), 1), ("pencil2x2-c2c", (2, 2), 1),
+               ("dist4-c2c-ovtuned", (4,), None)]
 GBENCH_ARGS = ["--dims", "128", "192", "--sparsity", "0.659", "0.5", "--tasks", "6",
                "--chain", "1", "--repeats", "3", "--dtype", "float32"]
 # a legacy plan against its staged twin: the same kernels in the same order,
@@ -2747,21 +3060,22 @@ def tuning_phase(sp, data) -> tuple:
         # mesh plans: the exchange discipline
         bar = ORACLE_RTOL["highest"]
         triplets, vals_global, want = data["c2c", 0.659]
-        for name, shape in TUNE_MESHES:
+        for name, shape, overlap in TUNE_MESHES:
             t1 = time.perf_counter()
             make, vals = mesh_maker(sp, name, shape, triplets, vals_global)
             clear_counts()
-            t = make(policy="tuned")
+            t = make(policy="tuned", overlap=overlap)
             tuned_counts = launch_counts()
             pair = run_pair(sp, t, vals)
             label = f"tuned:{name}"
             counts[label] = add_counts(tuned_counts, pair["counts"])
             oracle_err, rt_err = oracle_errs(pair["space"], pair["back"], vals, want)
             ran = trials_run(sp)
-            again = make(policy="tuned")
+            again = make(policy="tuned", overlap=overlap)
             rec = t.report()["tuning"]
             row = {"phase": "tune", "plan": name, "engine": t.engine,
-                   "exchange": t.exchange_type.name, "choice": rec["choice"],
+                   "exchange": t.exchange_type.name, "overlap_pinned": overlap,
+                   "overlap_chunks": t.overlap_chunks, "choice": rec["choice"],
                    "provenance": rec["provenance"], "hit": rec["hit"],
                    "trials": trial_table(rec), "oracle_rel_err": oracle_err,
                    "roundtrip_rel_err": rt_err, "bar": bar,
@@ -2769,9 +3083,21 @@ def tuning_phase(sp, data) -> tuple:
                               "exchange": again.exchange_type.name,
                               "trials_run": trials_run(sp) - ran},
                    "seconds": time.perf_counter() - t1}
+            if overlap is None:
+                # the tuner owns the chunk count: which BUFFERED variant won
+                ms = {r["label"]: r.get("ms") for r in rec["trials"]}
+                row["overlap_trials_ms"] = {k: v for k, v in ms.items() if k.startswith("BUFFERED")}
+                row["won"] = rec["trials"][0]["label"]
+                row["overlap_won"] = min((k for k in ms if "/ov" in k and ms[k] is not None),
+                                         key=lambda k: ms[k], default=None)
             emit(row)
-            check(rec["provenance"] == "wisdom" and len(rec["trials"]) == 3
+            want_labels = {"BUFFERED", "COMPACT_BUFFERED", "UNBUFFERED"} | (
+                {"BUFFERED/ov2", "BUFFERED/ov4"} if overlap is None else set())
+            check(rec["provenance"] == "wisdom"
+                  and {r["label"] for r in rec["trials"]} == want_labels
                   and all("ms" in r for r in rec["trials"]), f"{label}: trials {rec}")
+            check(t.overlap_chunks == int(rec["choice"]["overlap"]),
+                  f"{label}: {t.overlap_chunks} chunks, chose {rec['choice']}")
             check(oracle_err <= bar and rt_err <= bar, f"{label}: {oracle_err}, {rt_err}")
             check(row["second"] == {"hit": True, "exchange": t.exchange_type.name,
                                     "trials_run": 0}, f"{label}: second {row['second']}")
@@ -2824,7 +3150,9 @@ def tuning_phase(sp, data) -> tuple:
         check(ok, f"the empty {kind} plan on cuFFT")
 
     # the mesh plans' legacy path (ir_lower_failed), against the staged twin
-    for name, shape in TUNE_MESHES:
+    for name, shape, overlap in TUNE_MESHES:
+        if overlap is None:  # the legacy path of dist4-c2c's geometry is held once
+            continue
         make, vals = mesh_maker(sp, name, shape, triplets, vals_global)
         with faults.inject("ir.lower=raise"):
             leg = make()
@@ -4424,6 +4752,12 @@ def main() -> int:
     # ---- the pencil phase: a 2 x 2 pencil mesh on the card, and over the process group ----
     t0 = time.perf_counter()
     pplans, pcounts, prows, pvalues = pencil_phase(sp, data, plans, values, group, slab_results)
+    emit({"phase": "pencil", "seconds": time.perf_counter() - t0})
+    # ---- phase 6c: the OVERLAPPED exchange, stacked and over the process group ----
+    orows, ocounts = overlap_phase(sp, data, group)
+    rows += orows
+    counts.update(ocounts)
+    t0 = time.perf_counter()
     fdata = {key: data[key] for key in (("c2c", 0.659), ("r2c", 0.659))}  # for phase 9
     del data, slab_results
     rows += prows
@@ -4434,7 +4768,6 @@ def main() -> int:
     dvalues.update(pvalues)
     no_rungs("mesh phases", {**{n: t for n, (t, _) in dplans.items()},
                              **{n + STAGED: tw for n, (_, tw) in dplans.items() if tw is not None}})
-    emit({"phase": "pencil", "seconds": time.perf_counter() - t0})
 
     # ---- the profile, and the pair times with every plan and twin taking turns ----
     every = {**{n: v[0] for n, v in plans.items()}, **{n + STAGED: t for n, t in twins.items()},

@@ -71,9 +71,15 @@ class DistributedTransform(_Observed):
     mesh, inside the engine on a pencil mesh (the JAX package's cost model).
     ``local_z_lengths`` cut the slabs of a slab mesh; a pencil mesh splits
     z and y evenly.
-    ``overlap`` takes only 1: the OVERLAPPED exchange is not ported and
-    raises. ``policy="tuned"`` (None reads ``SPFFT_TPU_POLICY``) resolves a
-    DEFAULT exchange by measurement on a slab or pencil mesh
+    ``overlap``: the OVERLAPPED exchange's chunk count (None reads
+    ``SPFFT_TPU_OVERLAP_CHUNKS``, default 1): a padded discipline's exchange
+    splits into C chunk collectives along the sticks (slab mesh) or the
+    local z window (pencil mesh), each run on a side stream against its
+    neighbour chunks' DFT stages; the engine clamps it to what the geometry
+    chunks (``overlap_chunks``), and the exact-count disciplines to 1.
+    ``policy="tuned"`` (None reads ``SPFFT_TPU_POLICY``) resolves a
+    DEFAULT exchange by measurement on a slab or pencil mesh, and with no
+    ``overlap`` given also the chunk count (the ``BUFFERED/ovC`` candidates)
     (:mod:`spfft_tpu_torch.tuning`; the model over more than one process),
     its record in ``report()["tuning"]``.
     A process group that fails while the exchange is built raises
@@ -150,7 +156,7 @@ class DistributedTransform(_Observed):
             raise InvalidParameterError("dtype must be float32 or float64")
         self._policy = resolve_policy(policy)
         self._tuning = None  # the tuned decision's record (tuning._record)
-        resolve_overlap_chunks(overlap)
+        overlap_chunks = resolve_overlap_chunks(overlap)
         self._requested_exchange = exchange_type
         self._precision = resolve_precision(precision)
         self._guard = faults.guard_enabled(guard)
@@ -166,11 +172,13 @@ class DistributedTransform(_Observed):
                         self._processing_unit, p, mesh=mesh,
                         exchange_type=ExchangeType[cand["exchange_type"]],
                         dtype=self._real_dtype, engine=engine, precision=self._precision,
-                        policy="default", fuse=fuse, guard=False, verify=False)
+                        policy="default", overlap=cand.get("overlap", 1), fuse=fuse,
+                        guard=False, verify=False)
 
                 with faults.collecting(self._degradations):
-                    exchange_type, self._tuning = tuning.tuned_exchange(
-                        p, mesh, self._real_dtype, engine, self._precision, pencil, trial)
+                    exchange_type, overlap_chunks, self._tuning = tuning.tuned_exchange(
+                        p, mesh, self._real_dtype, engine, self._precision, pencil, trial,
+                        overlap=overlap)
             if exchange_type == ExchangeType.DEFAULT and not pencil:
                 exchange_type = resolve_default_for_plan(p)
             if engine == "auto":  # the JAX package's rule (spfft_tpu/distributed.py:208-209)
@@ -192,7 +200,8 @@ class DistributedTransform(_Observed):
                                 ("mxu", True): MxuPencil2Execution,
                                 ("xla", True): Pencil2Execution}[which, pencil]
                 args = (self._precision,) if which == "mxu" else ()
-                return engine_class(p, self._real_dtype, mesh, exchange_type, *args, fuse=fuse)
+                return engine_class(p, self._real_dtype, mesh, exchange_type, *args,
+                                    overlap=overlap_chunks, fuse=fuse)
 
             # Ladder rung 1: an mxu engine that fails to build falls back to
             # torch.fft over the same mesh and discipline; a failure with no
@@ -693,7 +702,7 @@ class DistributedTransform(_Observed):
         exchange = {
             "type": self.exchange_type.name, "requested": self._requested_exchange.name,
             "wire_bytes": self.exchange_wire_bytes(), "rounds": self.exchange_rounds(),
-            "transport": self._exec.exchange_transport(), "overlap_chunks": 1,
+            "transport": self._exec.exchange_transport(), "overlap_chunks": self.overlap_chunks,
         }
         if self._pencil:
             tables = self._exec.geometry.policy_tables
@@ -799,7 +808,9 @@ class DistributedTransform(_Observed):
 
     @property
     def overlap_chunks(self) -> int:
-        return 1
+        """The OVERLAPPED exchange's effective chunk count (1: one collective
+        a direction)."""
+        return int(self._exec._overlap)
 
     def exchange_wire_bytes(self) -> int:
         """Off-shard bytes of one exchange direction, over the mesh (the JAX
@@ -810,7 +821,8 @@ class DistributedTransform(_Observed):
         """Collective rounds per direction: 1 for every discipline here (2 on
         a pencil mesh, exchanges A and B), where the JAX package's COMPACT
         chain (and its UNBUFFERED fallback off the TPU) takes P-1:
-        ``all_to_all_single`` takes uneven split sizes."""
+        ``all_to_all_single`` takes uneven split sizes. The OVERLAPPED
+        exchange takes C (2C on a pencil mesh)."""
         return self._exec.exchange_rounds()
 
     @property

@@ -122,18 +122,130 @@ def _results(graph, env):
     return outs[0] if len(outs) == 1 else outs
 
 
-def compose(graph):
+# ---- the stream schedule of the OVERLAPPED exchange ---------------------------------
+# What the JAX package gets from XLA's asynchronous collectives, written out:
+# on a CUDA plan every node of these stages runs on a side stream of the
+# plan's device, so that a chunk's exchange (K2 gathers without a process
+# group, NCCL's kernel with one) runs while the compute stream runs the
+# neighbour chunks' DFT stages (K1).
+
+OVERLAPPED_STAGES = ("exchange overlapped", "exchange A overlapped", "exchange B overlapped")
+
+
+def schedule(graph) -> list:
+    """The nodes in issue order: a topological order that, among the ready
+    nodes, issues an overlapped exchange first, then a node that feeds one,
+    then the rest, each in the graph's order. A chunk's exchange is so
+    queued on the side stream as soon as its producer is, ahead of the
+    compute stages it can hide behind. A graph with no overlapped node keeps
+    :meth:`~.graph.StageGraph.toposort`'s order."""
+    nodes = graph.toposort()
+    if not any(n.stage in OVERLAPPED_STAGES for n in nodes):
+        return nodes
+    feeds = {e for n in nodes if n.stage in OVERLAPPED_STAGES for e in n.inputs}
+    rank = {n.name: (0 if n.stage in OVERLAPPED_STAGES else
+                     1 if any(e in feeds for e in n.outputs) else 2, i)
+            for i, n in enumerate(nodes)}
+    ready, remaining, order = set(graph.inputs), list(nodes), []
+    while remaining:
+        node = min((n for n in remaining if all(e in ready for e in n.inputs)),
+                   key=lambda n: rank[n.name])
+        order.append(node)
+        ready.update(node.outputs)
+        remaining.remove(node)
+    return order
+
+
+class _Streams:
+    """One call's two streams: the caller's current (compute) stream and
+    the plan's side stream. A side node waits on the events its inputs'
+    producers recorded on the compute stream (a graph input: on everything
+    the compute stream has queued); a compute node waits on the event its
+    side-stream producer recorded. :meth:`join` makes the compute stream
+    wait on the side stream at the end of the call, and every edge of the
+    call is held until then (the caching allocator then cannot hand a
+    tensor that one stream still reads to the other). Inside a CUDA-graph
+    capture the first wait forks the side stream into the capture and the
+    join brings it back, so the graph holds parallel branches."""
+
+    def __init__(self, side, marked):
+        self.compute = torch.cuda.current_stream(side.device)
+        self.side = side
+        self.marked = marked  # the compute nodes whose outputs a side node reads
+        self.events = {}  # edge -> the event recorded after its producer
+        self.on_side = set()  # edges produced on the side stream
+        self.used = False
+
+    def run(self, env, node):
+        if node.stage in OVERLAPPED_STAGES:
+            waited = set()
+            for e in node.inputs:
+                if e in self.on_side:
+                    continue  # the side stream's own order
+                ev = self.events.get(e)
+                if ev is None:
+                    self.side.wait_stream(self.compute)
+                elif id(ev) not in waited:
+                    self.side.wait_event(ev)
+                    waited.add(id(ev))
+            self.used = True
+            with torch.cuda.stream(self.side):
+                _run_node(env, node)
+            ev = torch.cuda.Event()
+            ev.record(self.side)
+            for e in node.outputs:
+                self.events[e] = ev
+                self.on_side.add(e)
+            return
+        for ev in {id(self.events[e]): self.events[e] for e in node.inputs
+                   if e in self.on_side}.values():
+            self.compute.wait_event(ev)
+        _run_node(env, node)
+        if node.name in self.marked:
+            ev = torch.cuda.Event()
+            ev.record(self.compute)
+            for e in node.outputs:
+                self.events[e] = ev
+
+    def join(self):
+        if self.used:
+            self.compute.wait_stream(self.side)
+
+
+def _runner(graph, side):
+    """A function giving each call's ``(run(env, node), join())``: plain in
+    order, or the stream schedule where ``side`` (a callable giving the
+    plan's side stream, None on the CPU) is given and the graph has
+    overlapped nodes."""
+    if side is None or not any(n.stage in OVERLAPPED_STAGES for n in graph.nodes):
+        return lambda: (_run_node, lambda: None)
+    side_inputs = {e for n in graph.nodes if n.stage in OVERLAPPED_STAGES for e in n.inputs}
+    marked = {n.name for n in graph.nodes if n.stage not in OVERLAPPED_STAGES
+              and any(e in side_inputs for e in n.outputs)}
+
+    def streams():
+        s = _Streams(side(), marked)
+        return s.run, s.join
+
+    return streams
+
+
+def compose(graph, side=None):
     """The graph as one function: ``fn(*args)`` binds ``args`` to the input
-    edges in order, runs the nodes in topological order and returns the
-    output edges (a bare value for one output, else a tuple).
-    ``fn.stage`` names the node that ran last, for error reports."""
-    order = graph.toposort()
+    edges in order, runs the nodes in :func:`schedule`'s order (the
+    overlapped exchanges on the side stream that ``side()`` gives, on a
+    CUDA plan) and returns the output edges (a bare value for one output,
+    else a tuple). ``fn.stage`` names the node that ran last, for error
+    reports."""
+    order, runner = schedule(graph), _runner(graph, side)
 
     def fn(*args):
         env = _bind(graph, args)
+        run, join = runner()
         for node in order:
             fn.stage = node.stage
-            _run_node(env, node)
+            run(env, node)
+        join()
         return _results(graph, env)
 
     fn.stage = None
@@ -141,17 +253,20 @@ def compose(graph):
 
 
 class StagedProgram:
-    """The per-node reference executor: each node is its own eager call."""
+    """The per-node reference executor: each node is its own eager call
+    (the overlapped exchanges on the side stream ``side()``, as fused)."""
 
-    def __init__(self, graph):
+    def __init__(self, graph, side=None):
         self.graph = graph
-        self.order = graph.toposort()
+        self.order, self.runner = schedule(graph), _runner(graph, side)
 
     def __call__(self, *args):
         env = _bind(self.graph, args)
+        run, join = self.runner()
         for node in self.order:
             with timing.trace_annotation(node.stage):
-                _run_node(env, node)
+                run(env, node)
+        join()
         direction, n = self.graph.direction, len(self.order)
         dispatches["staged", direction] += n
         obs.counter("ir_dispatches_total", mode="staged", direction=direction).inc(n)
@@ -275,6 +390,9 @@ class EngineIr:
         # out of it right after its replay, on the same stream, so a graph
         # may reuse what another one freed
         self._pool = torch.cuda.graph_pool_handle() if self.device.type == "cuda" else None
+        # the side stream of the OVERLAPPED exchange (made at its first use)
+        self._side = None
+        self.side = self._side_stream if self.device.type == "cuda" else None
         self._programs = {}  # (direction, scaling or None, B or None) -> program
         self._compiled = set()  # keys of the programs whose first call succeeded
         self._batch_keys = set()  # (direction, scaling) whose batched build passed ir.batch
@@ -283,10 +401,16 @@ class EngineIr:
         if path == "staged":
             self._install_staged()
 
+    def _side_stream(self):
+        if self._side is None:
+            self._side = torch.cuda.Stream(self.device)
+        return self._side
+
     def _install_staged(self) -> None:
-        self._programs = {("backward", None, None): StagedProgram(self.graphs["backward"])}
+        self._programs = {("backward", None, None): StagedProgram(self.graphs["backward"],
+                                                                  self.side)}
         for s, g in self.graphs["forward"].items():
-            self._programs["forward", s, None] = StagedProgram(g)
+            self._programs["forward", s, None] = StagedProgram(g, self.side)
 
     @property
     def fused(self) -> bool:
@@ -314,7 +438,7 @@ class EngineIr:
         prog = self._programs.get(key)
         if prog is None:
             graph = self._graph(direction, scaling)
-            fn = compose(graph)
+            fn = compose(graph, self.side)
             what = f"ir[{direction}{'' if scaling is None else ', ' + scaling.name}" + (
                 "]" if batch is None else f", batch {batch}]")
             if batch is None:

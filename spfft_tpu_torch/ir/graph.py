@@ -25,8 +25,8 @@ from ..errors import InvalidParameterError
 
 # The canonical node vocabulary, the same literal as the JAX package's
 # (spfft_tpu/ir/graph.py NODES); the exchange labels belong to the mesh
-# engines ("A"/"B" to the pencil engines; the "overlapped" ones to a part
-# not ported yet).
+# engines ("A"/"B" to the pencil engines, the "overlapped" ones to the
+# OVERLAPPED exchange's chunk collectives).
 NODES = (
     "compression",
     "stick symmetry",
@@ -117,6 +117,16 @@ class StageGraph:
             m = (out_meta or {}).get(e)
             self.meta[e] = m if m is not None else EdgeMeta()
         self.nodes.append(Node(name, stage, fn, inputs, outputs))
+
+    def remove(self, name: str) -> None:
+        """Drop node ``name`` and the edges it produced (a graph rewrite:
+        the OVERLAPPED exchange's, :mod:`spfft_tpu_torch.ir.lower`)."""
+        node = next((n for n in self.nodes if n.name == name), None)
+        if node is None:
+            raise InvalidParameterError(f"ir: no node {name!r} to remove")
+        self.nodes.remove(node)
+        for e in node.outputs:
+            self.meta.pop(e, None)
 
     def set_outputs(self, names) -> None:
         self.outputs = list(names)

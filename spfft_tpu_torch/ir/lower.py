@@ -13,6 +13,8 @@ edge that no other node reads, so fused and staged runs see the same values.
 """
 from __future__ import annotations
 
+from functools import partial
+
 import numpy as np
 
 from ..errors import InvalidParameterError
@@ -194,6 +196,7 @@ def _lower_slab(e):
         if e.is_r2c and e._zero_stick_id is not None:
             g.add("stick symmetry", e._st_stick_symmetry, cur, edge("sh"))
             cur = edge("sh")
+        cur_sticks = cur
         g.add("z transform", e._st_z_backward, cur, edge("z"))
         exchange(g, "backward", edge("z"), edge("g"))
         cur = edge("g")
@@ -212,6 +215,8 @@ def _lower_slab(e):
         outputs = ("space",) if e.is_r2c else ("space_re", "space_im")
         g.add("x transform", e._st_x_backward, edge("y"), outputs)
         g.set_outputs(list(outputs))
+        if e._overlap > 1:
+            _split_slab_backward(g, e, edge, cur_sticks, collective)
         return g
 
     def forward(s):
@@ -235,9 +240,94 @@ def _lower_slab(e):
         g.add("compression", compress, edge("z"), ("out_re", "out_im"),
               out_meta={"out_re": EdgeMeta(rt, (Pl, V)), "out_im": EdgeMeta(rt, (Pl, V))})
         g.set_outputs(["out_re", "out_im"])
+        if e._overlap > 1:
+            _split_slab_forward(g, e, edge, s, collective)
         return g
 
     return {"backward": backward(), "forward": {s: forward(s) for s in SCALINGS}}
+
+
+# ---- the OVERLAPPED exchange, as graph rewrites ---------------------------------
+# The bulk graph is built first; the rewrite removes its z-stage-and-exchange
+# segment and adds C chunk chains with the JAX package's node names
+# (spfft_tpu/ir/lower.py _split_slab_backward, _split_slab_forward, the pencil
+# tails): the ``exchange* overlapped@k`` nodes are the ones ir.compile runs on
+# a side stream. A node that writes its chunk into a tensor shared by the
+# chunks (a receive buffer, a stick table, the native space) takes the
+# previous chunk's edge of it and passes it on; the first one makes it.
+
+
+def _chained(fn, lead, n_prev):
+    """``fn(lead, prev, *rest)`` as a node body whose first ``n_prev``
+    inputs are the previous chunk's edges of the shared tensor (``prev``
+    None for chunk 0, the tensor, or the tuple of its parts)."""
+    def body(*args):
+        prev = None if n_prev == 0 else (args[0] if n_prev == 1 else args[:n_prev])
+        return fn(lead, prev, *args[n_prev:])
+    return body
+
+
+def _split_slab_backward(g, e, edge, sticks, collective):
+    """[z transform -> (pack ->) exchange (-> unpack)] becomes C chains
+    ``z transform@k -> (pack@k ->) exchange overlapped@k``, all reaching one
+    receive buffer, and one ``unpack`` that reads it."""
+    for name in ("z transform", "pack", "exchange", "unpack") if collective else (
+            "z transform", "exchange"):
+        g.remove(name)
+    recv = ()
+    for k, (c0, c1) in enumerate(e._chunks):
+        sfx = f"@{k}"
+        z = edge(f"z{sfx}")
+        g.add("z transform", partial(e._st_z_backward_window, c0, c1), sticks, z,
+              name=f"z transform{sfx}")
+        if collective:
+            g.add("pack", partial(e._st_pack_chunk_backward, k), z, (f"send{sfx}",),
+                  name=f"pack{sfx}")
+            g.add("exchange overlapped",
+                  _chained(e._st_exchange_rows_chunk_backward, k, len(recv)),
+                  (*recv, f"send{sfx}"), (f"recv{sfx}",), name=f"exchange overlapped{sfx}")
+        else:
+            g.add("exchange overlapped", _chained(e._st_exchange_chunk_backward, k, len(recv)),
+                  (*recv, *z), (f"recv{sfx}",), name=f"exchange overlapped{sfx}")
+        recv = (f"recv{sfx}",)
+    g.add("unpack", e._st_unpack_chunks_backward, recv, edge("g"))
+    g.nodes = g.toposort()
+
+
+def _split_slab_forward(g, e, edge, scaling, collective):
+    """[(pack ->) exchange (-> unpack) -> z transform] becomes C chains
+    ``(pack@k ->) exchange overlapped@k (-> unpack@k) -> z transform@k`` off
+    the y stage's result, each z stage writing its chunk's rows of the stick
+    table that compression reads."""
+    pair = hasattr(e, "y_plan")
+    for name in ("pack", "exchange", "unpack", "z transform") if collective else (
+            "exchange", "z transform"):
+        g.remove(name)
+    table = ()
+    last = len(e._chunks) - 1
+    for k, (c0, c1) in enumerate(e._chunks):
+        sfx = f"@{k}"
+        c = edge(f"c{sfx}")
+        if collective:
+            g.add("pack", partial(e._st_pack_chunk_forward, k), edge("y"), (f"send{sfx}",),
+                  name=f"pack{sfx}")
+            g.add("exchange overlapped", partial(e._st_exchange_rows_chunk_forward, k),
+                  (f"send{sfx}",), (f"recv{sfx}",), name=f"exchange overlapped{sfx}")
+            g.add("unpack", partial(e._st_unpack_chunk_forward, k), (f"recv{sfx}",), c,
+                  name=f"unpack{sfx}")
+        else:
+            g.add("exchange overlapped", partial(e._st_exchange_chunk_forward, k), edge("y"), c,
+                  name=f"exchange overlapped{sfx}")
+        if pair:
+            z = lambda c0, prev, *parts, c1=c1: e._st_z_forward_window(c0, c1, scaling, prev,
+                                                                         *parts)
+        else:
+            z = lambda c0, prev, *parts, c1=c1: e._st_z_forward_window(c0, c1, prev, *parts)
+        out = edge("z") if k == last else edge(f"t{sfx}")
+        g.add("z transform", _chained(z, c0, len(table)), (*table, *c), out,
+              name=f"z transform{sfx}")
+        table = out
+    g.nodes = g.toposort()
 
 
 def _lower_pencil(e):
@@ -255,11 +345,12 @@ def _lower_pencil(e):
     edge = (lambda name: (name + "re", name + "im")) if pair else (lambda name: (name,))
 
     def exchange(g, tag, direction, src, dst):
+        zwin = e._zwin(tag, direction)
         if not e.collective:
-            g.add(f"exchange {tag}", partial(e._st_exchange, tag, direction), src, dst)
+            g.add(f"exchange {tag}", partial(e._st_exchange, tag, direction, zwin), src, dst)
             return
         send, recv = f"send{tag}", f"recv{tag}"
-        g.add(f"pack {tag}", partial(e._st_pack, tag, direction), src, (send,))
+        g.add(f"pack {tag}", partial(e._st_pack, tag, direction, zwin), src, (send,))
         g.add(f"exchange {tag}", partial(e._st_collective, tag, direction), (send,), (recv,))
         g.add(f"unpack {tag}", partial(e._st_unpack, tag, direction), (recv,), dst)
 
@@ -285,6 +376,8 @@ def _lower_pencil(e):
         outputs = ("space",) if e.is_r2c else ("space_re", "space_im")
         g.add("x transform", e._st_x_backward, edge("b"), outputs)
         g.set_outputs(list(outputs))
+        if e._overlap > 1:
+            _split_pencil_backward(g, e, edge, pair)
         return g
 
     def forward(s):
@@ -303,9 +396,121 @@ def _lower_pencil(e):
         g.add("compression", compress, edge("z"), ("out_re", "out_im"),
               out_meta={"out_re": EdgeMeta(rt, (Pl, V)), "out_im": EdgeMeta(rt, (Pl, V))})
         g.set_outputs(["out_re", "out_im"])
+        if e._overlap > 1:
+            _split_pencil_forward(g, e, edge, pair)
         return g
 
     return {"backward": backward(), "forward": {s: forward(s) for s in SCALINGS}}
+
+
+def _pencil_exchange_names(tag, collective):
+    return ([f"pack {tag}", f"exchange {tag}", f"unpack {tag}"] if collective
+            else [f"exchange {tag}"])
+
+
+def _split_pencil_backward(g, e, edge, pair):
+    """The post-z pipeline becomes one chain per z window ``[c0, c1)``:
+    ``(pack A@k ->) exchange A overlapped@k (-> unpack A@k) -> (plane
+    symmetry@k ->) y transform@k -> (pack B@k ->) exchange B overlapped@k
+    (-> unpack B@k) -> x transform@k``, each x stage writing its window of
+    the native space."""
+    collective = e.collective
+    plane = e.is_r2c and e._x0_cols is not None
+    for name in (_pencil_exchange_names("A", collective) + ["plane symmetry"] * plane
+                 + ["y transform"] + _pencil_exchange_names("B", collective)
+                 + ["x transform"]):
+        g.remove(name)
+    y = e._st_y_dense_backward if pair else e._st_y_backward
+    space = ()
+    last = len(e._chunks) - 1
+    outputs = ("space",) if e.is_r2c else ("space_re", "space_im")
+    for k, (c0, c1) in enumerate(e._chunks):
+        sfx = f"@{k}"
+        grid = edge(f"g{sfx}")
+        if collective:
+            g.add("pack A", partial(e._st_pack, "A", "backward", (c0, c1)), edge("z"),
+                  (f"sendA{sfx}",), name=f"pack A{sfx}")
+            g.add("exchange A overlapped",
+                  partial(e._st_collective, "A", "backward", async_op=True), (f"sendA{sfx}",),
+                  (f"recvA{sfx}",), name=f"exchange A overlapped{sfx}")
+            g.add("unpack A", partial(e._st_unpack, "A", "backward"), (f"recvA{sfx}",),
+                  grid, name=f"unpack A{sfx}")
+        else:
+            g.add("exchange A overlapped", partial(e._st_exchange, "A", "backward",
+                                                   (c0, c1)), edge("z"), grid,
+                  name=f"exchange A overlapped{sfx}")
+        if plane:
+            g.add("plane symmetry", e._st_plane_symmetry, grid, edge(f"p{sfx}"),
+                  name=f"plane symmetry{sfx}")
+            grid = edge(f"p{sfx}")
+        g.add("y transform", y, grid, edge(f"y{sfx}"), name=f"y transform{sfx}")
+        slab = edge(f"b{sfx}")
+        if collective:
+            g.add("pack B", partial(e._st_pack, "B", "backward", None), edge(f"y{sfx}"),
+                  (f"sendB{sfx}",), name=f"pack B{sfx}")
+            g.add("exchange B overlapped",
+                  partial(e._st_collective, "B", "backward", async_op=True), (f"sendB{sfx}",),
+                  (f"recvB{sfx}",), name=f"exchange B overlapped{sfx}")
+            g.add("unpack B", partial(e._st_unpack, "B", "backward"), (f"recvB{sfx}",),
+                  slab, name=f"unpack B{sfx}")
+        else:
+            g.add("exchange B overlapped", partial(e._st_exchange, "B", "backward", None),
+                  edge(f"y{sfx}"), slab, name=f"exchange B overlapped{sfx}")
+        out = outputs if k == last else tuple(f"{o}{sfx}" for o in outputs)
+        x = lambda c0, prev, *parts, c1=c1: e._st_x_backward_window(c0, c1, prev, *parts)
+        g.add("x transform", _chained(x, c0, len(space)), (*space, *slab), out,
+              name=f"x transform{sfx}")
+        space = out
+    g.nodes = g.toposort()
+
+
+def _split_pencil_forward(g, e, edge, pair):
+    """The pipeline up to the z stage becomes one chain per z window:
+    ``x transform@k -> (pack B@k ->) exchange B overlapped@k (-> unpack
+    B@k) -> y transform@k -> (pack A@k ->) exchange A overlapped@k``, each
+    window's rows reaching its columns of the stick table (over a group
+    through one ``unpack A`` of every window's receive)."""
+    collective = e.collective
+    for name in (["x transform"] + _pencil_exchange_names("B", collective) + ["y transform"]
+                 + _pencil_exchange_names("A", collective)):
+        g.remove(name)
+    y = e._st_y_dense_forward if pair else e._st_y_forward
+    table, pending = (), []
+    last = len(e._chunks) - 1
+    for k, (c0, c1) in enumerate(e._chunks):
+        sfx = f"@{k}"
+        g.add("x transform", lambda sre, sim, w=(c0, c1): e._st_x_forward(sre, sim, zwin=w),
+              ("space_re", "space_im"), edge(f"x{sfx}"), name=f"x transform{sfx}")
+        grid = edge(f"g{sfx}")
+        if collective:
+            g.add("pack B", partial(e._st_pack, "B", "forward", None), edge(f"x{sfx}"),
+                  (f"sendB{sfx}",), name=f"pack B{sfx}")
+            g.add("exchange B overlapped",
+                  partial(e._st_collective, "B", "forward", async_op=True), (f"sendB{sfx}",),
+                  (f"recvB{sfx}",), name=f"exchange B overlapped{sfx}")
+            g.add("unpack B", partial(e._st_unpack, "B", "forward"), (f"recvB{sfx}",),
+                  grid, name=f"unpack B{sfx}")
+        else:
+            g.add("exchange B overlapped", partial(e._st_exchange, "B", "forward", None),
+                  edge(f"x{sfx}"), grid, name=f"exchange B overlapped{sfx}")
+        g.add("y transform", y, grid, edge(f"y{sfx}"), name=f"y transform{sfx}")
+        if collective:
+            g.add("pack A", partial(e._st_pack, "A", "forward", None), edge(f"y{sfx}"),
+                  (f"sendA{sfx}",), name=f"pack A{sfx}")
+            g.add("exchange A overlapped",
+                  partial(e._st_collective, "A", "forward", async_op=True), (f"sendA{sfx}",),
+                  (f"recvA{sfx}",), name=f"exchange A overlapped{sfx}")
+            pending.append(f"recvA{sfx}")
+        else:
+            out = edge("s") if k == last else edge(f"t{sfx}")
+            a = lambda c0, prev, *parts, c1=c1, done=k == last: e._st_exchange_window_into(
+                c0, c1, done, prev, *parts)
+            g.add("exchange A overlapped", _chained(a, c0, len(table)),
+                  (*table, *edge(f"y{sfx}")), out, name=f"exchange A overlapped{sfx}")
+            table = out
+    if collective:
+        g.add("unpack A", e._st_unpacks, tuple(pending), edge("s"))
+    g.nodes = g.toposort()
 
 
 _BUILDERS = {

@@ -63,6 +63,12 @@ REGISTRY = {k.name: k for k in (
          "plan-decision policy: `tuned` resolves `ExchangeType.DEFAULT` and "
          "`engine=\"auto\"` by measurement through `spfft_tpu_torch.tuning` (a "
          "plan's `policy=` argument wins)", choices=("default", "tuned")),
+    Knob("SPFFT_TPU_OVERLAP_CHUNKS", "int", 1,
+         "OVERLAPPED-discipline chunk count: padded exchanges split into C "
+         "double-buffered chunk collectives pipelined against the neighbor "
+         "chunks' FFTs (per-plan `overlap=` argument wins; under `policy=\"tuned\"` "
+         "an unset knob is resolved by the autotuner — see \"Hiding the "
+         "exchange\")"),
     Knob("SPFFT_TPU_WISDOM", "str", None,
          "path of the wisdom JSON file that the tuned policy reads and writes; "
          "unset = a store in process memory"),

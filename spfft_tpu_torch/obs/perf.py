@@ -274,13 +274,34 @@ def dense_pair_flops(dims) -> int:
     return int(round(2 * 5.0 * n * math.log2(n)))
 
 
+def _exposed_weight(row: dict, base: dict, balance: float) -> float:
+    """Attribution weight of one stage row (the JAX package's
+    ``_exposed_weight``, ``spfft_tpu/obs/perf.py:248-271``).
+
+    Plain rows weigh ``flops + bytes * balance``. An OVERLAPPED exchange row
+    (an ``overlap`` record from the engine's ``stage_accounting``) weighs its
+    **exposed** time alone: with C chunks pipelined against the stage it
+    hides behind, at most ``(C-1)/C`` of ``min(exchange, compute)``
+    overlaps, so ``exposed = full - min(full, hidden) * (C-1)/C``. The row's
+    ``bytes`` stay the exact wire volume; the hiding stage keeps its full
+    weight."""
+    w = row["flops"] + row["bytes"] * balance
+    ov = row.get("overlap")
+    chunks = max(1, int(ov.get("chunks", 1))) if ov else 1
+    if chunks == 1:
+        return w
+    hide_w = base.get(ov.get("hides"), 0.0)
+    return max(w - min(w, hide_w) * (chunks - 1) / chunks, 0.0)
+
+
 def _attribute(rows: list, seconds: float, balance: float) -> list:
     """Distribute ``seconds`` over the stage rows by model weight
-    (``flops + bytes * balance``); equal split when the model is all-zero.
-    The attributed stage seconds sum to ``seconds`` by construction. (The
-    JAX package also weighs OVERLAPPED exchange rows by their exposed share;
-    the port has no overlapped exchange, ROADMAP item 5b.)"""
-    weights = [r["flops"] + r["bytes"] * balance for r in rows]
+    (``flops + bytes * balance``; OVERLAPPED exchange rows by their exposed
+    share, :func:`_exposed_weight`); equal split when the model is
+    all-zero. The attributed stage seconds sum to ``seconds`` by
+    construction."""
+    base = {r["stage"]: r["flops"] + r["bytes"] * balance for r in rows}
+    weights = [_exposed_weight(r, base, balance) for r in rows]
     total_w = sum(weights)
     out = []
     for r, w in zip(rows, weights):
@@ -295,13 +316,16 @@ def _attribute(rows: list, seconds: float, balance: float) -> list:
             "gflops": (r["flops"] / sec / 1e9) if sec > 0 else 0.0,
             "gbps": (r["bytes"] / sec / 1e9) if sec > 0 else 0.0,
         }
+        if r.get("overlap"):
+            row["overlap"] = dict(r["overlap"])
         out.append(row)
     return out
 
 
 def _merge_rows(rows: list) -> list:
     """Aggregate duplicate stage names (an engine hook may emit a stage once
-    per direction) into one row each, preserving first-seen order."""
+    per direction) into one row each, preserving first-seen order and an
+    ``overlap`` record (the first)."""
     order, table = [], {}
     for r in rows:
         name = r["stage"]
@@ -310,6 +334,8 @@ def _merge_rows(rows: list) -> list:
             order.append(name)
         table[name]["flops"] += int(r.get("flops", 0))
         table[name]["bytes"] += int(r.get("bytes", 0))
+        if r.get("overlap") and "overlap" not in table[name]:
+            table[name]["overlap"] = dict(r["overlap"])
     return [table[n] for n in order]
 
 

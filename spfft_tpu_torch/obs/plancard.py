@@ -100,16 +100,22 @@ def _exchange_policy(transform) -> dict:
     width = 2 * wire_scalar_bytes(transform.exchange_type, transform.dtype)
     chosen = base_discipline(transform.exchange_type)
     volumes = discipline_volumes(p.num_sticks_per_shard, p.local_z_lengths)
-    return {
-        "round_cost_bytes": 0,
-        "one_shot_supported": True,
-        "chosen": transform.exchange_type.name,
-        "alternatives": [
-            {"discipline": d.name, "wire_bytes": int(v * width), "rounds": 1,
-             "cost_bytes": int(v * width), "chosen": d == chosen}
-            for d, v in volumes.items()
-        ],
-    }
+    ov = int(transform.overlap_chunks)
+    alternatives = [
+        {"discipline": d.name, "wire_bytes": int(v * width), "rounds": 1,
+         "cost_bytes": int(v * width), "chosen": d == chosen and ov == 1}
+        for d, v in volumes.items()
+    ]
+    name = transform.exchange_type.name
+    if ov > 1:
+        # the OVERLAPPED variant the plan runs: its base discipline's exact
+        # wire bytes in C chunk collectives
+        name = f"{name}/ov{ov}"
+        base = next(a for a in alternatives if a["discipline"] == chosen.name)
+        alternatives.append({"discipline": name, "wire_bytes": base["wire_bytes"],
+                             "rounds": ov, "cost_bytes": base["wire_bytes"], "chosen": True})
+    return {"round_cost_bytes": 0, "one_shot_supported": True, "chosen": name,
+            "alternatives": alternatives}
 
 
 def _exchange_policy_pencil(transform):
@@ -123,8 +129,18 @@ def _exchange_policy_pencil(transform):
         return None
     costs = dict(tables[True])
     chosen = transform.exchange_type.name
-    costs["alternatives"] = [dict(alt, chosen=alt["discipline"] == chosen)
+    ov = int(transform.overlap_chunks)
+    costs["alternatives"] = [dict(alt, chosen=alt["discipline"] == chosen and ov == 1)
                              for alt in costs["alternatives"]]
+    if ov > 1:
+        # the OVERLAPPED variant the plan runs: the padded base's exact wire
+        # bytes in 2C chunk collectives (A and B per z window)
+        base = next(a for a in costs["alternatives"] if a["discipline"] == chosen)
+        chosen = f"{chosen}/ov{ov}"
+        costs["alternatives"].append({
+            "discipline": chosen, "wire_bytes": int(base["wire_bytes"]), "rounds": 2 * ov,
+            "cost_bytes": int(base["wire_bytes"]) + 2 * ov * int(costs["round_cost_bytes"]),
+            "chosen": True})
     costs["chosen"] = chosen
     return costs
 

@@ -8,8 +8,8 @@ names per-stage device time as a ``jax.profiler`` trace of the JAX package
 does; and the perf report (:mod:`.perf`) attributes pair time to them. The
 "A"/"B" labels are the pencil engines' two exchanges; the tuning phases
 range a trial's round trips (:mod:`spfft_tpu_torch.tuning.runner`); the
-"overlapped" exchange labels belong to a part of the JAX package not
-ported yet.
+"overlapped" exchange labels are the OVERLAPPED exchange's chunk
+collectives, which run on a side stream (:mod:`spfft_tpu_torch.ir.compile`).
 """
 from __future__ import annotations
 

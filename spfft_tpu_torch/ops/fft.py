@@ -368,6 +368,9 @@ def plan_sparse_y_blocked(xslot, ys, dim_y: int, real_dtype, num_sticks: int,
 #                                from column a of the grid
 
 _ROWS = ("sz,zk->sk",)
+# rows of a batch of strided windows (the OVERLAPPED exchange's z stage over
+# the stick rows [c0, c1) of every stacked shard), one matrix for the batch
+_BATCHED_ROWS = "bsz,zk->bsk"
 _LEFT = ("yxz,yk->kxz", "ykz,yl->lkz")
 _BATCHED_LEFT = ("kxz,xl->klz", "yxz,xk->ykz")
 _SLOTS_OUT = "ajz,ajk->kaz"
@@ -381,6 +384,10 @@ def operands(spec: str, xr, xi, wr, wi):
     if spec in _ROWS:
         ops = (xr[None], opt(xi, lambda t: t[None]), wr[None], opt(wi, lambda t: t[None]))
         return ops, (xr.shape[0], wr.shape[1])
+    if spec == _BATCHED_ROWS:
+        nb = xr.shape[0]
+        shared = lambda t: t.expand(nb, -1, -1)
+        return (xr, xi, shared(wr), opt(wi, shared)), (nb, xr.shape[1], wr.shape[1])
     if spec in _LEFT:
         y = xr.shape[0]
         flat = lambda t: t.reshape(y, -1)[None]

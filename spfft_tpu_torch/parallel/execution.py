@@ -54,7 +54,7 @@ class PaddingHelpers(ExecutionBase):
 
     NATIVE_LAYOUT = "yxz"
 
-    def _setup(self, params, real_dtype, mesh, exchange_type) -> None:
+    def _setup(self, params, real_dtype, mesh, exchange_type, overlap=1) -> None:
         if not isinstance(mesh, ShardMesh):
             raise InvalidParameterError(
                 f"expected a ShardMesh (make_fft_mesh), got {type(mesh).__name__}")
@@ -69,6 +69,16 @@ class PaddingHelpers(ExecutionBase):
         self.exchange_type = exchange_type
         p = params
         self._S, self._L, self._V = p.max_num_sticks, max(1, p.max_local_z_length), p.max_num_values
+        # The OVERLAPPED exchange (spfft_tpu/parallel/execution.py:625-634):
+        # the padded exchange split into C chunk collectives along the stick
+        # axis, chunk k's exchange pipelined against chunk k+1's z stage.
+        # Padded disciplines only (the exact-count ones clamp to 1), clamped
+        # to the stick extent; one shard has no exchange.
+        if exchange_type in RAGGED_EXCHANGES or p.num_shards <= 1:
+            self._overlap = 1
+        else:
+            self._overlap = max(1, min(int(overlap), self._S))
+        self._chunks = chunk_ranges(self._S, self._overlap)
         self._local = list(mesh.local_shards)
         Pl, S, Z, V = mesh.num_local, self._S, p.dim_z, self._V
         # the (0, 0) stick's row in this process's stick table, R2C's stick symmetry
@@ -222,7 +232,9 @@ class PaddingHelpers(ExecutionBase):
         tail rows, and the slab exchange between them: ``pack``/``unpack``
         rows for the padded disciplines, only the slab ``unpack`` for the
         exact-count ones, and the ``exchange`` row of the wire bytes that
-        the plan card reports (forward and backward)."""
+        the plan card reports (forward and backward). An OVERLAPPED plan's
+        exchange row is ``exchange overlapped``, with an ``overlap`` record
+        naming the stage its chunks hide behind (the z stage)."""
         from ..obs.perf import pipeline_head_rows, pipeline_tail_rows
 
         p = self.params
@@ -241,8 +253,13 @@ class PaddingHelpers(ExecutionBase):
                     rows.append({"stage": stage, "flops": 0, "bytes": (2 * buf + ends) * c_item})
             else:
                 rows.append({"stage": "unpack", "flops": 0, "bytes": Z * Y * Xf * c_item})
-            rows.append({"stage": "exchange", "flops": 0,
-                         "bytes": 2 * self.exchange_wire_bytes()})
+            # the exact wire bytes under both labels: overlap changes the
+            # exposure (obs.perf), never the volume
+            row = {"stage": "exchange" if self._overlap == 1 else "exchange overlapped",
+                   "flops": 0, "bytes": 2 * self.exchange_wire_bytes()}
+            if self._overlap > 1:
+                row["overlap"] = {"chunks": int(self._overlap), "hides": "z transform"}
+            rows.append(row)
         return rows + pipeline_tail_rows(Z, Y, X, Z * int(self.num_x_active), c_item,
                                          plane_symmetry=self.is_r2c,
                                          y_scope=self._y_stage_scope())
@@ -257,15 +274,19 @@ class PaddingHelpers(ExecutionBase):
             self.exchange_type, self.real_dtype)
 
     def exchange_rounds(self) -> int:
+        """Collective rounds a direction: one, or the OVERLAPPED exchange's C."""
         return self._exchange.rounds()
 
     def exchange_transport(self) -> str:
         """How the exchange moves: a K2 gather on this device (no group), or
-        the named collective."""
+        the named collective; ``chunked`` for the OVERLAPPED exchange."""
+        if self._overlap > 1:
+            return "chunked all_to_all" if self.collective else "chunked device gather"
         return self._exchange.name if self._exchange.collective else "device gather"
 
     def _geometry(self) -> dict:
-        return {"padded_geometry": {"s_max": int(self._S), "l_max": int(self._L),
+        return {"overlap_chunks": int(self._overlap),
+                "padded_geometry": {"s_max": int(self._S), "l_max": int(self._L),
                                     "v_max": int(self._V)},
                 "num_local_shards": self.num_local, "transport": self.exchange_transport()}
 
@@ -298,6 +319,35 @@ class PaddingHelpers(ExecutionBase):
     def _st_unpack_forward(self, recv):
         return self._stick_side(self._exchange.forward.unpack(recv))
 
+    # the OVERLAPPED exchange's nodes (ir.lower._split_slab_*): chunk k of
+    # the exchange, the stick rows [c0, c1) of every local shard. Backward:
+    # each chunk's rows reach one receive buffer, which one unpack reads;
+    # forward: each chunk's own stick rows, and its own unpack over a group.
+
+    def _st_exchange_chunk_backward(self, k, recv, *z):
+        return self._exchange.backward_chunks.gather(k, self._rows(*z), recv)
+
+    def _st_pack_chunk_backward(self, k, *z):
+        return self._exchange.backward_chunks.pack_chunk(k, self._rows(*z))
+
+    def _st_exchange_rows_chunk_backward(self, k, pending, send):
+        return self._exchange.backward_chunks.exchange_chunk(k, send, pending)
+
+    def _st_unpack_chunks_backward(self, recv):
+        return self._slab_side(self._exchange.backward_chunks.unpack(recv))
+
+    def _st_exchange_chunk_forward(self, k, *y):
+        return self._chunk_stick_side(self._exchange.forward_chunks[k].run(self._rows(*y)))
+
+    def _st_pack_chunk_forward(self, k, *y):
+        return self._exchange.forward_chunks[k].pack(self._rows(*y))
+
+    def _st_exchange_rows_chunk_forward(self, k, send):
+        return self._exchange.forward_chunks[k].exchange(send, async_op=True)
+
+    def _st_unpack_chunk_forward(self, k, pending):
+        return self._chunk_stick_side(self._exchange.forward_chunks[k].unpack(pending))
+
     def _legacy_exchange(self, direction, *parts):
         """The legacy path's exchange: ``_lower_slab``'s exchange nodes of
         ``direction`` called in order (one gather, or pack, the collective
@@ -316,8 +366,8 @@ class DistributedExecution(PaddingHelpers):
     the FULL scaling applied in compress. Complex data; the exchange moves
     its ``(re, im)`` interleaved rows."""
 
-    def __init__(self, params, real_dtype, mesh, exchange_type, fuse=None):
-        self._setup(params, real_dtype, mesh, exchange_type)
+    def __init__(self, params, real_dtype, mesh, exchange_type, overlap=1, fuse=None):
+        self._setup(params, real_dtype, mesh, exchange_type, overlap)
         p = params
         Y, Xf = p.dim_y, p.dim_x_freq
         self.num_x_active = Xf
@@ -325,7 +375,7 @@ class DistributedExecution(PaddingHelpers):
         sx, sy = (a.reshape(-1).astype(np.int64) for a in (p.stick_x_all, p.stick_y_all))
         stick_slot = np.where(sx < Xf, sy * Xf + sx, -1)
         self._exchange = make_exchange(mesh, p, stick_slot, Y * Xf, exchange_type, real_dtype,
-                                       planes=1)
+                                       planes=1, chunks=self._chunks)
         pack_z = p.pack_z_map().astype(np.int64)  # dim_z: the zero column appended
         self._pack_z = self.put(pack_z, torch.int64)
         self._unpack_z = self.put(p.unpack_z_map(), torch.int64)
@@ -352,6 +402,28 @@ class DistributedExecution(PaddingHelpers):
         ``(P_local * S_max, P * L_max)``."""
         z = torch.fft.ifft(sticks, dim=1, norm="forward")
         return torch.nn.functional.pad(z, (0, 1)).index_select(1, self._pack_z)
+
+    def _st_z_backward_window(self, c0, c1, sticks):
+        """The z stage of the stick rows ``[c0, c1)`` of every local shard
+        (an OVERLAPPED chunk): ``(P_local, W, P * L_max)``."""
+        win = sticks.view(self.num_local, self._S, -1)[:, c0:c1]
+        z = torch.fft.ifft(win, dim=2, norm="forward")
+        return torch.nn.functional.pad(z, (0, 1)).index_select(2, self._pack_z)
+
+    def _chunk_stick_side(self, rows):
+        """A chunk's stick rows -> its complex ``(P_local, W, Z)`` sticks."""
+        c = torch.view_as_complex(rows[0].view(self.num_local, -1,
+                                               self.params.num_shards * self._L, 2))
+        return c.index_select(2, self._unpack_z)
+
+    def _st_z_forward_window(self, c0, c1, table, sticks):
+        """The z stage of an OVERLAPPED chunk's sticks into its rows of the
+        ``(P_local * S_max, Z)`` table (None: a new one), which it returns."""
+        z = torch.fft.fft(sticks, dim=2)
+        if table is None:
+            table = z.new_empty((self.num_local * self._S, self.params.dim_z))
+        table.view(self.num_local, self._S, -1)[:, c0:c1] = z
+        return table
 
     def _rows(self, c):
         """A complex table -> its real ``(rows, 2 L_max)`` exchange rows."""

@@ -24,9 +24,17 @@ into the y stage's table (it replaces the local engine's expand, bucket
 gather, pack or regather); with one it is a pack gather, the collective and
 an unpack gather.
 
+The OVERLAPPED exchange's z stage (``_st_z_backward_window``,
+``_st_z_forward_window``; the JAX engine's ``zwin``) runs K1 on the stick
+rows ``[c0, c1)`` of every local shard as one batched launch over strided
+windows of the stick table (a batch a shard, no copy); forward, K1 writes
+the chunk straight into its rows of the table.
+
 Not ported: the lane-copy value plans and their phase rotations (the TPU's
 lane alignment of the same decompress/compress; here one index copy over
-the stacked ``(P_local, V_max)`` values) and the JAX engine's bucket-matrix
+the stacked ``(P_local, V_max)`` values), with them the alignment-phase
+edges of the JAX z windows (``_phase_edges``: K1 reads a window at any row
+offset, so the card needs none), and the JAX engine's bucket-matrix
 budget veto (its ``SPARSE_Y_MATRIX_MB`` knob: PyTorch embeds no constants).
 """
 from __future__ import annotations
@@ -45,8 +53,8 @@ class MxuDistributedExecution(PaddingHelpers, MxuLocalExecution):
     :class:`~.execution.DistributedExecution`, pair data throughout."""
 
     def __init__(self, params, real_dtype, mesh, exchange_type, precision="highest",
-                 fuse=None):
-        self._setup(params, real_dtype, mesh, exchange_type)
+                 overlap=1, fuse=None):
+        self._setup(params, real_dtype, mesh, exchange_type, overlap)
         self.precision = offt.resolve_precision(precision)
         self.k1_precision = offt.k1_form(self.precision, self.real_dtype)
         self.twiddle_dtype = offt.twiddle_dtype(self.real_dtype)
@@ -83,7 +91,7 @@ class MxuDistributedExecution(PaddingHelpers, MxuLocalExecution):
         stick_slot[vrows] = slot_of_valid
         self._num_slots = num_slots
         self._exchange = make_exchange(mesh, p, stick_slot, num_slots, exchange_type,
-                                       real_dtype, planes=2)
+                                       real_dtype, planes=2, chunks=self._chunks)
 
         # the z stages with the slab split folded in: (Z, P * L) and (P * L, Z)
         pack_z = p.pack_z_map().astype(np.int64)
@@ -123,6 +131,32 @@ class MxuDistributedExecution(PaddingHelpers, MxuLocalExecution):
 
     def _stick_side(self, parts):
         return tuple(t.view(-1, self.params.num_shards * self._L) for t in parts)
+
+    # ---- the OVERLAPPED exchange's z stage: K1 on the stick rows [c0, c1) of
+    # every local shard, a batch of strided windows (no copy) ----
+
+    def _window(self, t, c0, c1):
+        return t.view(self.num_local, self._S, -1)[:, c0:c1]
+
+    def _st_z_backward_window(self, c0, c1, sre, sim):
+        """``(P_local, W, P * L_max)``: K1 batched over the local shards."""
+        return self._mm(self._window(sre, c0, c1), self._window(sim, c0, c1), self._wz_b,
+                        "bsz,zk->bsk")
+
+    def _chunk_stick_side(self, parts):
+        """A chunk's stick rows -> its ``(P_local, W, P * L_max)`` tables."""
+        return tuple(t.view(self.num_local, -1, self.params.num_shards * self._L)
+                     for t in parts)
+
+    def _st_z_forward_window(self, c0, c1, scaling, table, cre, cim):
+        """K1 writes the chunk's z stage straight into its rows of the
+        ``(P_local * S_max, Z)`` table pair (None: a new one), returned."""
+        if table is None:
+            shape = (self.num_local * self._S, self.params.dim_z)
+            table = (cre.new_empty(shape), cim.new_empty(shape))
+        out = tuple(self._window(t, c0, c1) for t in table)
+        self._mm(cre, cim, self._wz_f[ScalingType(scaling)], "bsz,zk->bsk", out=out)
+        return table
 
     def _st_x_backward(self, gre, gim):
         """The local x stage, its ``(Y, X, Zs)`` result seen as the stacked slabs."""

@@ -41,11 +41,12 @@ class MxuPencil2Execution(Pencil2Helpers, MxuDistributedExecution):
     bodies at the pencil's shapes."""
 
     def __init__(self, params, real_dtype, mesh, exchange_type, precision="highest",
-                 fuse=None):
+                 overlap=1, fuse=None):
         def columns(g):  # the slab side holds the (group, slot) columns
             return np.arange(g.P1 * g.Ax), g.P1 * g.Ax
 
-        self._setup_pencil(params, real_dtype, mesh, exchange_type, columns, planes=2)
+        self._setup_pencil(params, real_dtype, mesh, exchange_type, columns, planes=2,
+                           overlap=overlap)
         self.precision = offt.resolve_precision(precision)
         self.k1_precision = offt.k1_form(self.precision, self.real_dtype)
         self.twiddle_dtype = offt.twiddle_dtype(self.real_dtype)
@@ -73,8 +74,8 @@ class MxuPencil2Execution(Pencil2Helpers, MxuDistributedExecution):
                 "matmul_precision": self.precision.upper(), "k1_form": self.k1_precision,
                 "twiddle_dtype": self.twiddle_dtype, **self._geometry()}
 
-    def _rows(self, *parts):
-        return [t.reshape(-1, self._Lz) for t in parts]
+    def _rows(self, *parts, width=None):
+        return [t.reshape(-1, width or self._Lz) for t in parts]
 
     def _shaped(self, rows, shape, tag, direction):
         return tuple(t.view(shape) for t in rows)
@@ -96,9 +97,31 @@ class MxuPencil2Execution(Pencil2Helpers, MxuDistributedExecution):
         shape = (self.num_local, self._Ly, self.params.dim_x, self._Lz)
         return out.view(shape) if self.is_r2c else tuple(t.view(shape) for t in out)
 
-    def _st_x_forward(self, space_re, space_im):
-        flat = lambda t: None if t is None else t.reshape(-1, self.params.dim_x, self._Lz)
+    def _st_x_forward(self, space_re, space_im, zwin=None):
+        """Each shard's ``(Ly, X, Lz)`` block, or its z window ``zwin`` (a
+        strided view: K1 reads it in place), -> the slab side."""
+        c0, c1 = (0, self._Lz) if zwin is None else zwin
+        flat = lambda t: None if t is None else t.reshape(-1, self.params.dim_x, self._Lz)[
+            :, :, c0:c1]
         return MxuLocalExecution._st_x_forward(self, flat(space_re), flat(space_im))
+
+    def _st_x_backward_window(self, c0, c1, space, gre, gim):
+        """An OVERLAPPED chunk's x stage: K1 writes straight into its z
+        window of the native space (None: a new one), which it returns."""
+        p = self.params
+        if space is None:
+            shape = (self.num_local, self._Ly, p.dim_x, self._Lz)
+            space = gre.new_empty(shape) if self.is_r2c else (gre.new_empty(shape),
+                                                                gim.new_empty(shape))
+        parts = (space,) if self.is_r2c else space
+        out = tuple(t.view(-1, p.dim_x, self._Lz)[:, :, c0:c1] for t in parts)
+        w = self._wx_b
+        if self.is_r2c:
+            offt.contract("kxz,xl->klz", gre, gim, *w.pair, want_imag=False, constant=w,
+                          precision=self.k1_precision, out=(out[0], None))
+        else:
+            self._mm(gre, gim, w, "kxz,xl->klz", out=out)
+        return space
 
     # ---- the legacy path (ir_lower_failed): _lower_pencil's nodes in order, no graph ----
 

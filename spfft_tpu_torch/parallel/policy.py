@@ -35,6 +35,9 @@ from ..types import ExchangeType
 #            cannot run.
 POLICY_ENV = "SPFFT_TPU_POLICY"
 POLICIES = ("default", "tuned")
+# The OVERLAPPED exchange: a padded exchange split into C chunk collectives,
+# each pipelined against its neighbour chunks' DFT stages (parallel/execution.py).
+OVERLAP_ENV = "SPFFT_TPU_OVERLAP_CHUNKS"
 
 
 def resolve_policy(policy=None) -> str:
@@ -47,16 +50,15 @@ def resolve_policy(policy=None) -> str:
 
 
 def resolve_overlap_chunks(overlap=None) -> int:
-    """The exchange-overlap chunk count: 1 (also for None). The OVERLAPPED
-    chunking belongs with a multi-card NCCL run (ROADMAP queue A item 5b),
-    so a larger count raises rather than being clamped."""
-    overlap = 1 if overlap is None else int(overlap)
+    """The requested exchange-overlap chunk count (the OVERLAPPED
+    discipline): the explicit argument, else ``SPFFT_TPU_OVERLAP_CHUNKS``,
+    else 1. The engines clamp it to what their geometry can chunk (the
+    stick extent on a slab mesh, the local z window on a pencil mesh; 1 for
+    the exact-count disciplines and for one shard): this resolves intent,
+    not feasibility."""
+    overlap = knobs.get_int(OVERLAP_ENV) if overlap is None else int(overlap)
     if overlap < 1:
         raise InvalidParameterError(f"overlap chunk count must be >= 1, got {overlap}")
-    if overlap > 1:
-        raise InvalidParameterError(
-            f"overlap={overlap}: the OVERLAPPED exchange is not ported yet "
-            "(ROADMAP queue A item 5b); use 1")
     return overlap
 
 

@@ -15,13 +15,15 @@ the JAX program takes 2 x P/2. P = 1 on the slab mesh is the local plan.
 Strong-scaling rows keep the grid fixed; weak-scaling rows grow ``dim_z``
 with P. The document (schema ``spfft_tpu.obs.perf.scaling/1``,
 ``obs.perf.validate_scaling_doc``) is what ``perf_gate`` gates against a
-baseline. ``--overlap`` takes 1 only: the OVERLAPPED exchange is not ported
-and a larger count raises. Plans run on the card unless ``--device cpu`` (or
-the JAX program's ``--cpu``) is given.
+baseline. ``--overlap`` measures each cell once per requested OVERLAPPED
+chunk count (keys carry an ``ovC`` token; a request the engine clamps onto a
+count already measured is skipped). Plans run on the card unless ``--device
+cpu`` (or the JAX program's ``--cpu``) is given.
 
     python -m spfft_tpu_torch.programs.dbench --devices 1 2 4 16 --dim 256 \\
         --sparsity 0.15 --scaling strong -o scaling.json
     python -m spfft_tpu_torch.programs.dbench --devices 2 4 --dim 8 --device cpu
+    python -m spfft_tpu_torch.programs.dbench --devices 4 --overlap 1 4   # OVERLAPPED rows
 """
 from __future__ import annotations
 
@@ -116,8 +118,9 @@ def main(argv=None) -> int:
     ap.add_argument("--r2c", action="store_true")
     ap.add_argument("--dtype", default="f32", choices=["f32", "f64"])
     ap.add_argument("--overlap", type=int, nargs="+", default=[1],
-                    help="OVERLAPPED chunk counts: 1 only (the OVERLAPPED exchange is not "
-                    "ported; a larger count raises)")
+                    help="OVERLAPPED-discipline chunk counts to measure per "
+                    "cell (1 = bulk-synchronous; engines clamp infeasible "
+                    "requests and duplicate-clamped cells are skipped)")
     ap.add_argument("--repeats", type=int, default=3)
     ap.add_argument("--chain", type=int, default=4)
     ap.add_argument("--warmup", type=int, default=1)
@@ -148,8 +151,15 @@ def main(argv=None) -> int:
                     print(f"note: skipping pencil at P={P} "
                           "(needs an even device count >= 4)", file=sys.stderr)
                     continue
+                seen = set()
                 for overlap in overlaps:
                     t = build_transform(args, pu, mesh_kind, P, dims, overlap=overlap)
+                    effective = int(getattr(t, "overlap_chunks", 1))
+                    if effective in seen:
+                        # clamped onto a count already measured (the P = 1
+                        # local plan, a small extent): its key would repeat
+                        continue
+                    seen.add(effective)
                     row = measure_row(t, args, scaling)
                     rows.append(row)
                     shape = "x".join(map(str, pencil_shape(P))) if mesh_kind == "pencil" else P

@@ -17,9 +17,10 @@ time per backward+forward pair, the shards stacked on the one device.
 ``--matrix-sparsity`` x ``--matrix-types`` x ``--matrix-dtypes`` x both wire
 disciplines x the overlap axis): each cell a keyed ``spfft_tpu.obs.perf/1``
 row (``dbench.measure_row``), the document one ``perf_gate`` reads. The
-overlap axis takes ``1`` (a larger count raises: the OVERLAPPED exchange is
-not ported) and ``tuned`` (one cell a scenario whose DEFAULT the port's
-exchange trials resolve; they have no ``BUFFERED/ovC`` candidates).
+overlap axis takes integer OVERLAPPED chunk counts for the padded
+discipline (UNBUFFERED clamps the knob, so it carries the ``1`` cell only)
+and ``tuned`` (one cell a scenario whose DEFAULT, and chunk count, the
+port's exchange trials resolve, ``BUFFERED/ovC`` among them).
 ``--matrix-batch B`` adds the ``batchB:serial`` and ``batchB:sched`` rows: B
 local plans one at a time, and through ``spfft_tpu_torch.sched``. Plans run
 on the card unless ``--device cpu`` is given.
@@ -185,8 +186,10 @@ def main(argv=None):
                     help="batched multi-transform rows per scenario (serial vs sched; 0 "
                     "disables)")
     ap.add_argument("--matrix-overlap", nargs="+", default=["1", "tuned"],
-                    help="overlap axis of the matrix: 1 (a larger count raises) and "
-                    "'tuned' for a cell resolved by the exchange trials")
+                    help="overlap axis of the matrix: integer OVERLAPPED "
+                    "chunk counts for the padded discipline, plus the "
+                    "literal 'tuned' for an autotuner-resolved cell per "
+                    "scenario (see run_matrix)")
     ap.add_argument("--chain", type=int, default=2,
                     help="chained round trips per timed repeat (matrix mode)")
     ap.add_argument("--warmup", type=int, default=1)

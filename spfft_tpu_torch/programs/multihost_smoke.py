@@ -10,8 +10,8 @@ slab against a dense oracle and the value round trip. Prints
 
 NCCL refuses two ranks on one card, so this program runs on the CPU; on the
 card it needs as many cards as ranks (ROADMAP item 5b). ``overlap_chunks >
-1`` raises :class:`~spfft_tpu_torch.errors.InvalidParameterError`, as the
-port's ``overlap > 1`` does.
+1`` runs the OVERLAPPED exchange: C chunk collectives a direction, each
+issued asynchronously and waited on by its unpack.
 
     python -m spfft_tpu_torch.programs.multihost_smoke <rank> <port> <engine>
         [c2c|r2c] [buffered|compact|unbuffered] [nprocs] [overlap_chunks]

@@ -166,8 +166,6 @@ def exchange_key(params, mesh, dtype, engine, precision, pencil2) -> dict:
         "sticks_per_shard": [int(n) for n in params.num_sticks_per_shard],
         "local_z_lengths": [int(n) for n in params.local_z_lengths],
         "values_per_shard": [int(n) for n in params.num_values_per_shard],
-        # the port has no OVERLAPPED axis: every candidate runs at overlap 1
-        "overlap": 1,
     })
     return key
 
@@ -232,23 +230,30 @@ def _resolve(key, store, platform, run, model_choice, fields, unavailable=None):
         reason=store.fallback_reason or "measured", key=key)
 
 
-def tuned_exchange(params, mesh, dtype, engine, precision, pencil2, build):
+def tuned_exchange(params, mesh, dtype, engine, precision, pencil2, build, overlap=None):
     """``ExchangeType.DEFAULT`` under the tuned policy: returns
-    ``(ExchangeType, record)``. ``build(candidate)`` makes an explicit
-    discipline's trial plan with the model policy. The model fallback is the
-    slab rule (``parallel/policy.py``), or DEFAULT itself on a pencil mesh,
-    which its engine resolves with its cost model."""
-    from ..parallel.policy import resolve_default_for_plan
+    ``(ExchangeType, overlap_chunks, record)``. ``build(candidate)`` makes
+    an explicit discipline's trial plan at the candidate's chunk count with
+    the model policy. ``overlap``: the caller's explicit chunk count, or None
+    to hand the knob to the tuner (the ``BUFFERED/ovC`` candidates join the
+    trials and wisdom keeps the measured count); the key keeps the two
+    apart, so a tuner-owned entry never answers a pinned plan. The model
+    fallback is the slab rule (``parallel/policy.py``), or DEFAULT itself on
+    a pencil mesh, which its engine resolves with its cost model, at the
+    chunk count ``resolve_overlap_chunks`` gives (the knob's)."""
+    from ..parallel.policy import resolve_default_for_plan, resolve_overlap_chunks
     from ..types import ExchangeType, wire_scalar_bytes
 
     key = exchange_key(params, mesh, dtype, engine, precision, pencil2)
+    key["overlap"] = "tuned" if overlap is None else int(overlap)
     store = active_store()
     pick = ExchangeType.DEFAULT if pencil2 else resolve_default_for_plan(params)
-    model_choice = {"exchange_type": pick.name, "overlap": 1}
+    fallback = resolve_overlap_chunks(overlap)
+    model_choice = {"exchange_type": pick.name, "overlap": fallback}
 
     def model(reason):
-        return pick, _record("model", hit=False, store=store, choice=model_choice, trials=[],
-                             reason=reason, key=key)
+        return pick, fallback, _record("model", hit=False, store=store, choice=model_choice,
+                                       trials=[], reason=reason, key=key)
 
     if params.num_shards <= 1:
         # no exchange happens: the decision has no effect, so no trial
@@ -259,11 +264,14 @@ def tuned_exchange(params, mesh, dtype, engine, precision, pencil2, build):
         return model("multi-host mesh: tuning requires cross-process agreement")
     cands = exchange_candidates(
         params.num_sticks_per_shard, params.local_z_lengths,
-        wire_scalar_bytes=wire_scalar_bytes(ExchangeType.DEFAULT, dtype), pencil2=pencil2)
+        wire_scalar_bytes=wire_scalar_bytes(ExchangeType.DEFAULT, dtype), pencil2=pencil2,
+        overlap=overlap)
     choice, record = _resolve(key, store, platform_of(mesh.device),
                               lambda: run_trials(build, cands), model_choice,
                               ("exchange_type", "overlap"))
-    return ExchangeType[choice["exchange_type"]], record
+    # an explicit pin wins over a stored count
+    chunks = int(choice.get("overlap", 1)) if overlap is None else fallback
+    return ExchangeType[choice["exchange_type"]], chunks, record
 
 
 def _model_engine(platform: str) -> dict:

@@ -4,43 +4,59 @@ Every candidate is a JSON-plain dict: a ``label`` (what wisdom and the trial
 tables store) and the constructor facts a trial builder needs
 (``exchange_type`` and ``overlap`` on a mesh; ``engine`` and ``env``
 overrides locally; ``width`` for scheduler placement; ``batch`` for the
-fused batch size). Labels and order are the JAX package's, less the
-OVERLAPPED ``BUFFERED/ovC`` exchange variants: ``overlap > 1`` is not ported
-(the OVERLAPPED discipline waits for several cards), so every exchange
-candidate runs at overlap 1.
+fused batch size). Labels and order are the JAX package's, the OVERLAPPED
+``BUFFERED/ovC`` exchange variants included: the tuner, not a constant,
+owns the exchange's chunk count unless the caller pins it.
 """
 from __future__ import annotations
 
 import numpy as np
 
+# Chunk counts of the OVERLAPPED exchange that the tuner tries when the
+# caller leaves the knob to it (overlap=None): past a handful of chunks the
+# hideable exchange time saturates at (C-1)/C of min(exchange, compute).
+OVERLAP_CANDIDATE_CHUNKS = (2, 4)
+
 
 def exchange_candidates(num_sticks_per_shard=None, local_z_lengths=None, *,
-                        wire_scalar_bytes: int = 4, pencil2: bool = False) -> list:
+                        wire_scalar_bytes: int = 4, pencil2: bool = False,
+                        overlap=None) -> list:
     """Exchange-discipline candidates of a mesh plan.
 
-    On a slab mesh each carries ``model_cost_bytes``, the wire bytes of the
-    port's DEFAULT rule (``parallel/policy.py``: one round each, so no round
-    term), and the list is ordered by it; COMPACT_BUFFERED, which the JAX
-    package costs at ``P - 1`` rounds, sorts behind an equal BUFFERED or
-    UNBUFFERED, so the order is the JAX package's with its one-shot exchange.
-    A pencil mesh's candidates come in enum order (its cost model lives in
-    the engine, ``parallel/pencil2.py``)."""
+    On a slab mesh each carries ``model_cost_bytes``, the JAX package's
+    model cost with its one-shot exchange: the wire bytes plus one collective
+    round's latency (``ROUND_COST_BYTES``) for each of the discipline's
+    rounds in the JAX package (COMPACT_BUFFERED's chain ``P - 1``, the
+    others one, ``BUFFERED/ovC`` C), and the list is ordered by it. The
+    port's own DEFAULT rule weighs wire bytes alone (``parallel/policy.py``);
+    the costs here only order the trials. A pencil mesh's candidates come in
+    enum order (its cost model lives in the engine, ``parallel/pencil2.py``).
+    ``overlap=None`` adds the OVERLAPPED variants of the padded discipline
+    (``BUFFERED/ovC`` for C in :data:`OVERLAP_CANDIDATE_CHUNKS`); an integer
+    pins every candidate at that chunk count and drops them."""
+    from ..parallel.pencil2 import ROUND_COST_BYTES
     from ..parallel.policy import discipline_volumes
     from ..types import ExchangeType
 
     disciplines = (ExchangeType.BUFFERED, ExchangeType.COMPACT_BUFFERED,
                    ExchangeType.UNBUFFERED)
+    pinned = None if overlap is None else int(overlap)
+    chunked = [] if pinned is not None else [
+        {"label": f"BUFFERED/ov{c}", "exchange_type": ExchangeType.BUFFERED.name,
+         "overlap": int(c)} for c in OVERLAP_CANDIDATE_CHUNKS]
     if pencil2 or num_sticks_per_shard is None:
-        return [{"label": d.name, "exchange_type": d.name, "overlap": 1} for d in disciplines]
+        return [{"label": d.name, "exchange_type": d.name, "overlap": pinned or 1}
+                for d in disciplines] + chunked
     volumes = discipline_volumes(num_sticks_per_shard, local_z_lengths)
     P = len(num_sticks_per_shard)
-    jax_rounds = {d: max(1, P - 1) if d == ExchangeType.COMPACT_BUFFERED else 1
-                  for d in disciplines}
-    cands = [{"label": d.name, "exchange_type": d.name, "overlap": 1,
-              "model_cost_bytes": int(volumes[d] * 2 * wire_scalar_bytes)}
-             for d in disciplines]
-    return sorted(cands, key=lambda c: (c["model_cost_bytes"],
-                                        jax_rounds[ExchangeType[c["exchange_type"]]]))
+    rounds = {d: max(1, P - 1) if d == ExchangeType.COMPACT_BUFFERED else 1
+              for d in disciplines}
+    cost = lambda d, n: int(volumes[d] * 2 * wire_scalar_bytes + n * ROUND_COST_BYTES)
+    cands = [{"label": d.name, "exchange_type": d.name, "overlap": pinned or 1,
+              "model_cost_bytes": cost(d, rounds[d])} for d in disciplines]
+    cands += [dict(c, model_cost_bytes=cost(ExchangeType.BUFFERED, c["overlap"]))
+              for c in chunked]
+    return sorted(cands, key=lambda c: c["model_cost_bytes"])
 
 
 def sched_candidates(num_devices: int) -> list:

@@ -658,14 +658,14 @@ def test_real_port_tree_is_green():
 
 def test_baseline_holds_only_the_documented_waits():
     """Every accepted finding waits for a part of the JAX package that the
-    port does not have yet: the overlapped exchange (SA004, SA008) and the
-    compiled-HLO statistics site, which no port code reaches and so no
-    chaos test can pin (SA005, SA018)."""
+    port does not have yet: the compiled-HLO statistics site, which no port
+    code reaches and so no chaos test can pin (SA005, SA018). The
+    overlapped exchange's stages run, so their SA004/SA008 entries went."""
     entries = port.load_baseline(ROOT / "analysis_baseline_torch.json")
     for key in entries:
-        assert "overlapped" in key or "'hlo.stats'" in key, key
-    assert sorted(k.split(":")[0] for k in entries if "'hlo.stats'" in k) == ["SA005", "SA018"]
-    assert len(entries) <= 8
+        assert "'hlo.stats'" in key, key
+    assert sorted(k.split(":")[0] for k in entries) == ["SA005", "SA018"]
+    assert len(entries) == 2
 
 
 def test_parallel_run_matches_serial_on_the_real_tree():

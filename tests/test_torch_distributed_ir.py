@@ -1,8 +1,8 @@
 """The distributed transform's execution layer on the CPU: fused against
 staged (bitwise: the same stage bodies in the same order), batches against
 single calls, a multi-transform batch of local and distributed members,
-clone, the Grid that hands out distributed plans, and what is not ported
-(overlap > 1) raising."""
+clone, the Grid that hands out distributed plans, the OVERLAPPED exchange
+(fused against staged too), and what raises."""
 import numpy as np
 import pytest
 import torch
@@ -37,6 +37,60 @@ def test_fused_equals_staged(r2c, engine):
     stages = staged.describe()["ir"]["stages"]
     assert "exchange" in stages["backward"] and "exchange" in stages["forward"]
     assert ir.dispatches["staged", "backward"] == len(stages["backward"])
+
+
+@pytest.mark.parametrize("overlap", [1, 4])
+@pytest.mark.parametrize("dtype", [np.float32, np.float64])
+@pytest.mark.parametrize("r2c", [False, True], ids=["c2c", "r2c"])
+def test_fused_equals_staged_slab_overlap(r2c, dtype, overlap):
+    """The JAX package's ``test_parity_fused_vs_staged_slab`` (tests/test_ir.py):
+    fused and staged bitwise at overlap 1 and 4, both engines, and the
+    overlapped graphs carry the JAX node names and validate."""
+    per, vals = problem(r2c, 4, 6, dims=DIMS, radius=0.6)
+    for engine in ENGINES:
+        plans = [port_plan(r2c, 4, per, dtype, tp.ExchangeType.BUFFERED, dims=DIMS,
+                           engine=engine, overlap=overlap, fuse=fuse) for fuse in (True, False)]
+        assert [t.fused for t in plans] == [True, False]
+        assert 1 <= plans[0].overlap_chunks <= overlap
+        outs = [(t.backward(vals), t.forward(scaling=tp.ScalingType.FULL)) for t in plans]
+        assert torch.equal(outs[0][0], outs[1][0]) and _equal(outs[0][1], outs[1][1])
+        graphs = plans[1]._exec._ir.graphs
+        names = {n.name for n in graphs["backward"].nodes}
+        if overlap > 1:
+            C = plans[1].overlap_chunks
+            assert {f"z transform@{k}" for k in range(C)} <= names
+            assert {f"exchange overlapped@{k}" for k in range(C)} <= names
+            assert "unpack" in names and "exchange" not in names
+            fnames = {n.name for n in graphs["forward"][tp.ScalingType.NONE].nodes}
+            assert {f"exchange overlapped@{k}" for k in range(C)} <= fnames
+            assert {f"z transform@{k}" for k in range(C)} <= fnames
+        for g in (graphs["backward"], *graphs["forward"].values()):
+            g.validate()
+
+
+@pytest.mark.parametrize("overlap", [1, 4])
+@pytest.mark.parametrize("dtype", [np.float32, np.float64])
+def test_fused_equals_staged_pencil_overlap(dtype, overlap):
+    """The JAX package's ``test_parity_fused_vs_staged_pencil``: the pencil
+    engines fused and staged bitwise at overlap 1 and 4."""
+    trip = tp.create_spherical_cutoff_triplets(8, 9, 10, 0.8)
+    per = [np.asarray(t) for t in tp.distribute_triplets(trip, 4, 9, layout=(2, 2), dim_x=8)]
+    rng = np.random.default_rng(7)
+    vals = [rng.standard_normal(len(t)) + 1j * rng.standard_normal(len(t)) for t in per]
+    for engine in ENGINES:
+        plans = [tp.DistributedTransform(tp.ProcessingUnit.HOST, 0, 8, 9, 10, per,
+                                         mesh=tp.make_fft_mesh2(2, 2, device="cpu"),
+                                         dtype=dtype, engine=engine, overlap=overlap,
+                                         exchange_type=tp.ExchangeType.BUFFERED, fuse=fuse)
+                 for fuse in (True, False)]
+        assert plans[0].overlap_chunks == min(overlap, 5)
+        assert plans[0].exchange_rounds() == 2 * plans[0].overlap_chunks
+        outs = [(t.backward(vals), t.forward(scaling=tp.ScalingType.FULL)) for t in plans]
+        assert torch.equal(outs[0][0], outs[1][0]) and _equal(outs[0][1], outs[1][1])
+        if overlap > 1:
+            stages = plans[1].describe()["ir"]["stages"]
+            assert stages["backward"].count("exchange A overlapped") == plans[1].overlap_chunks
+            assert stages["forward"].count("exchange B overlapped") == plans[1].overlap_chunks
 
 
 @pytest.mark.parametrize("engine", ENGINES)
@@ -118,10 +172,19 @@ def test_grid_hands_out_distributed_plans():
 
 
 def test_what_is_not_ported_raises():
-    per, _ = problem(False, 2, 1, dims=DIMS, radius=0.6)
+    per, vals = problem(False, 2, 1, dims=DIMS, radius=0.6)
+    # overlap > 1 is the OVERLAPPED exchange, as in the JAX package: C chunk
+    # collectives on a padded discipline (clamped to S_max), 1 on the
+    # exact-count ones, the same numbers as the one-collective twin
+    bulk = port_plan(False, 2, per, np.float64, tp.ExchangeType.BUFFERED, dims=DIMS)
     for overlap in (2, 4):
-        with pytest.raises(tp.InvalidParameterError, match="5b"):
-            port_plan(False, 2, per, np.float64, dims=DIMS, overlap=overlap)
+        t = port_plan(False, 2, per, np.float64, tp.ExchangeType.BUFFERED, dims=DIMS,
+                      overlap=overlap)
+        assert t.overlap_chunks == min(overlap, t.params.max_num_sticks) == t.exchange_rounds()
+        assert torch.equal(t.backward(vals), bulk.backward(vals))
+        for ragged in (tp.ExchangeType.UNBUFFERED, tp.ExchangeType.COMPACT_BUFFERED):
+            assert port_plan(False, 2, per, np.float64, ragged, dims=DIMS,
+                             overlap=overlap).overlap_chunks == 1
     # policy="tuned" is ported: on the CPU without trials it takes the model
     tuned = port_plan(False, 2, per, np.float64, dims=DIMS, policy="tuned")
     assert tuned._tuning["provenance"] == "model"

@@ -151,9 +151,16 @@ def test_policy_and_overlap_take_only_their_defaults(monkeypatch):
     monkeypatch.delenv("SPFFT_TPU_POLICY")
     with pytest.raises(tp.InvalidParameterError):
         tpolicy.resolve_policy("fastest")
+    # the overlap count reads as the JAX package's: the argument, else the
+    # knob, else 1; below 1 raises
+    monkeypatch.delenv(tpolicy.OVERLAP_ENV, raising=False)
     assert tpolicy.resolve_overlap_chunks() == tpolicy.resolve_overlap_chunks(1) == 1
-    with pytest.raises(tp.InvalidParameterError, match="5b"):
-        tpolicy.resolve_overlap_chunks(2)
+    for n in (2, 7):
+        assert tpolicy.resolve_overlap_chunks(n) == spfft_tpu.parallel.policy.resolve_overlap_chunks(n) == n
+    monkeypatch.setenv(tpolicy.OVERLAP_ENV, "3")
+    assert tpolicy.resolve_overlap_chunks() == spfft_tpu.parallel.policy.resolve_overlap_chunks() == 3
+    assert tpolicy.resolve_overlap_chunks(2) == 2
+    monkeypatch.delenv(tpolicy.OVERLAP_ENV)
     with pytest.raises(tp.InvalidParameterError):
         tpolicy.resolve_overlap_chunks(0)
     assert spfft_tpu.parallel.policy.resolve_overlap_chunks(1) == tpolicy.resolve_overlap_chunks(1)

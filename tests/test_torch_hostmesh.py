@@ -282,12 +282,31 @@ def test_two_process_roundtrip(engine, ttype, exchange):
         assert f"RANK {rank} PASS" in out
 
 
-def test_multihost_smoke_refuses_overlapped_exchange(monkeypatch):
-    """overlap_chunks > 1 raises typed, as the port's overlap > 1 does (one
-    in-process rank of a one-process group: no spawn)."""
-    from spfft_tpu_torch.programs import multihost_smoke
-
-    with pytest.raises(InvalidParameterError, match="overlap"):
-        multihost_smoke.main(["0", str(hostmesh.free_port()), "xla", "c2c", "buffered", "1",
-                              "4"])
-
+def test_multihost_smoke_refuses_overlapped_exchange():
+    """overlap_chunks > 1 runs the OVERLAPPED exchange over the group, as the
+    JAX program's does: two ranks, four chunk collectives a direction, each
+    issued asynchronously (gloo) and waited on by its unpack."""
+    port = hostmesh.free_port()
+    env = hostmesh.child_env()
+    procs = [
+        subprocess.Popen(
+            [sys.executable, "-m", "spfft_tpu_torch.programs.multihost_smoke", str(rank),
+             str(port), "mxu", "c2c", "buffered", "2", "4"],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, env=env, text=True,
+            cwd=str(hostmesh._ROOT),
+        )
+        for rank in range(2)
+    ]
+    outs = []
+    try:
+        for p in procs:
+            out, _ = p.communicate(timeout=JOIN_SECONDS)
+            outs.append(out)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait(10)
+    for rank, (p, out) in enumerate(zip(procs, outs)):
+        assert p.returncode == 0, f"rank {rank} failed:\n{out[-2000:]}"
+        assert f"RANK {rank} PASS" in out

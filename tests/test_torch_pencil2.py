@@ -323,8 +323,12 @@ def test_mesh_errors():
     mesh = tp.make_fft_mesh2(2, 2, device="cpu")
     assert tp.is_pencil2_mesh(mesh) and not tp.is_pencil2_mesh(tp.make_fft_mesh(4, device="cpu"))
     assert mesh.shape == (2, 2) and mesh.num_shards == 4
+    # overlap > 1 is the OVERLAPPED exchange: chunks of the local z window
+    t = tp.DistributedTransform(tp.ProcessingUnit.HOST, 0, *DIMS, per, mesh=mesh, overlap=2,
+                                exchange_type=tp.ExchangeType.BUFFERED)
+    assert t.overlap_chunks == min(2, t._exec._Lz) and t.exchange_rounds() == 2 * t.overlap_chunks
     with pytest.raises(tp.InvalidParameterError):
-        tp.DistributedTransform(tp.ProcessingUnit.HOST, 0, *DIMS, per, mesh=mesh, overlap=2)
+        tp.DistributedTransform(tp.ProcessingUnit.HOST, 0, *DIMS, per, mesh=mesh, overlap=0)
     if not torch.cuda.is_available():
         with pytest.raises(tp.GPUNoDeviceError):
             tp.make_fft_mesh2(2, 2)

@@ -397,10 +397,22 @@ def test_dbench_rows_match_the_jax_program(tmp_path, capsys):
     assert {r["decomposition"] for r in got["rows"]} == {"local", "slab", "pencil2"}
 
 
-def test_dbench_pencil_shapes_and_overlap():
+def test_dbench_pencil_shapes_and_overlap(tmp_path, capsys):
     assert [dbench.pencil_shape(p) for p in (4, 6, 8, 16)] == [(2, 2), (2, 3), (2, 4), (4, 4)]
-    with pytest.raises(tp.InvalidParameterError, match="OVERLAPPED"):
-        dbench.main(["--devices", "2", "--dim", "8", "--overlap", "1", "4", *CPU])
+    # --overlap measures each cell per OVERLAPPED chunk count, as the JAX
+    # program's; the P = 1 local rung clamps to 1 and is measured once
+    out = tmp_path / "ov.json"
+    assert dbench.main(["--devices", "1", "2", "4", "--dim", "8", "--overlap", "1", "4",
+                        "--scaling", "strong", "--repeats", "1", "--chain", "1",
+                        "--engine", "xla", "--exchange", "BUFFERED", "-o", str(out), *CPU]) == 0
+    capsys.readouterr()
+    rows = json.loads(out.read_text())["rows"]
+    cells = sorted((r["decomposition"], r["device_count"], r["overlap_chunks"]) for r in rows)
+    assert cells == [("local", 1, 1), ("pencil2", 4, 1), ("pencil2", 4, 4), ("slab", 2, 1),
+                     ("slab", 2, 4), ("slab", 4, 1), ("slab", 4, 4)]
+    assert all(r["key"].endswith(f":ov{r['overlap_chunks']}") for r in rows)
+    overlapped = [r for r in rows if r["overlap_chunks"] > 1]
+    assert all(any(s["stage"].endswith("overlapped") for s in r["stages"]) for r in overlapped)
 
 
 # ---- discipline_compare ------------------------------------------------------------------
@@ -450,9 +462,18 @@ def test_discipline_compare_matrix_rows_gate(tmp_path, capsys, monkeypatch):
     assert sum(k.endswith(":batch2:sched") for k in keys) == 2
     assert perf_gate.main([str(out), str(out)]) == 0
     tp.tuning.clear_memory()
-    with pytest.raises(tp.InvalidParameterError, match="OVERLAPPED"):
-        discipline_compare.main(["--shards", "2", "--matrix", "--matrix-overlap", "2",
-                                 "--matrix-dims", "8", *CPU])
+    # an integer overlap count is an OVERLAPPED cell of the padded discipline
+    out2 = tmp_path / "m2.json"
+    assert discipline_compare.main([
+        "--shards", "2", "--matrix", "--matrix-overlap", "2", "--matrix-dims", "8",
+        "--matrix-sparsity", "0.6", "--matrix-types", "c2c", "--matrix-dtypes", "f32",
+        "--matrix-batch", "0", "--repeats", "1", "--engine", "xla", "--json", str(out2),
+        *CPU]) == 0
+    capsys.readouterr()
+    rows = json.loads(out2.read_text())["rows"]
+    assert sorted(r["overlap_chunks"] for r in rows) == [1, 2]
+    assert perf.validate_scaling_doc({"schema": perf.SCALING_SCHEMA,
+                                      **json.loads(out2.read_text())}) == []
 
 
 # ---- the perf model's balance ------------------------------------------------------------

@@ -179,7 +179,7 @@ def test_cache_hit_runs_zero_trials(tmp_path, monkeypatch):
     rec1 = t1._tuning
     assert rec1["provenance"] == "wisdom" and rec1["hit"] is False
     n1 = _trial_count()
-    assert n1 == 3  # one trial per discipline (no OVERLAPPED variants here)
+    assert n1 == 5  # one trial per discipline, and BUFFERED/ov2 and BUFFERED/ov4
     t2 = _distributed()
     rec2 = t2._tuning
     assert rec2["provenance"] == "wisdom" and rec2["hit"] is True
@@ -266,9 +266,8 @@ def test_failed_candidate_is_isolated(tmp_path, monkeypatch):
     assert rec["provenance"] == "wisdom" and rec["hit"] is False
     assert t.exchange_type != tp.ExchangeType.BUFFERED
     errors = [row for row in rec["trials"] if "error" in row]
-    # the JAX package's BUFFERED family also holds BUFFERED/ov2 and /ov4,
-    # which the port leaves out (the OVERLAPPED discipline is not ported)
-    assert {row["label"] for row in errors} == {"BUFFERED"}
+    # the BUFFERED family holds BUFFERED/ov2 and /ov4 too, as the JAX package's
+    assert {row["label"] for row in errors} == {"BUFFERED", "BUFFERED/ov2", "BUFFERED/ov4"}
     assert rec["trials"][-1]["error"] == "RuntimeError: synthetic trial failure"
     assert obs.validate_plan_card(t.report()) == []
 
@@ -502,19 +501,24 @@ def test_bundle_memory_store_parity(tmp_path):
 
 @pytest.mark.parametrize("sticks", [(10, 10, 10, 10), (12, 9, 10, 10), (7, 7), (9, 4),
                                     (3, 3, 3)])
-def test_exchange_candidates_are_jax_less_the_overlapped_variants(sticks):
+def test_exchange_candidates_are_jax_less_the_overlapped_variants(sticks, monkeypatch):
+    """The candidates equal the JAX package's with its one-shot exchange,
+    the OVERLAPPED ``BUFFERED/ovC`` variants included: labels, order, chunk
+    counts and model costs (the JAX default round cost); a pinned count
+    drops the variants in both."""
+    monkeypatch.delenv("SPFFT_TPU_EXCH_ROUND_COST_KB", raising=False)
     lz = [2] * len(sticks)
     port = tuning.exchange_candidates(sticks, lz, wire_scalar_bytes=8)
-    want = [c for c in jtuning.exchange_candidates(sticks, lz, one_shot_supported=True,
-                                                   wire_scalar_bytes=8)
-            if "/ov" not in c["label"]]
-    assert [c["label"] for c in port] == [c["label"] for c in want]
-    # model cost: the wire bytes alone (one round each on all_to_all_single)
-    vols = tp.parallel.policy.discipline_volumes(sticks, lz)
-    assert {c["label"]: c["model_cost_bytes"] for c in port} == {
-        d.name: v * 16 for d, v in vols.items()}
-    assert [c["label"] for c in tuning.exchange_candidates(pencil2=True)] == [
-        c["label"] for c in jtuning.exchange_candidates(pencil2=True, overlap=1)]
+    want = jtuning.exchange_candidates(sticks, lz, one_shot_supported=True,
+                                       wire_scalar_bytes=8)
+    assert port == want
+    assert [c["label"] for c in port if "/ov" in c["label"]] == ["BUFFERED/ov2", "BUFFERED/ov4"]
+    pinned = tuning.exchange_candidates(sticks, lz, wire_scalar_bytes=8, overlap=3)
+    assert pinned == jtuning.exchange_candidates(sticks, lz, one_shot_supported=True,
+                                                 wire_scalar_bytes=8, overlap=3)
+    for pencil_overlap in (None, 1):
+        assert tuning.exchange_candidates(pencil2=True, overlap=pencil_overlap) == \
+            jtuning.exchange_candidates(pencil2=True, overlap=pencil_overlap)
 
 
 @pytest.mark.parametrize("platform", ["cpu", "gpu"])
@@ -764,6 +768,7 @@ def test_a_warm_store_answers_both_mesh_packages_with_no_trial(discipline, penci
                                           engine="xla")
     choice = {"exchange_type": discipline, "overlap": 1}
     pkey = tuning.exchange_key(port0.params, pmesh, port0.dtype, "auto", "highest", pencil)
+    pkey["overlap"] = "tuned"
     tuning.active_store().record(pkey, tuning.make_entry(pkey, choice, [{"label": discipline,
                                                                          "ms": 1.0}]))
     jkey = jtuning.exchange_key(jax0._params, jmesh, jax0.dtype, "xla", "highest", pencil)
@@ -817,8 +822,9 @@ def test_a_mesh_across_processes_takes_the_model(monkeypatch):
     mesh = ShardMesh(torch.device("cpu"), 2, group=object())
     p = tp.DistributedTransform(tp.ProcessingUnit.HOST, 0, DIM, DIM, DIM, _triplets(),
                                 mesh=tp.make_fft_mesh(2, device="cpu")).params
-    choice, rec = tuning.tuned_exchange(p, mesh, np.float64, "auto", "highest", False,
-                                        lambda cand: pytest.fail("a trial ran"))
+    choice, chunks, rec = tuning.tuned_exchange(p, mesh, np.float64, "auto", "highest", False,
+                                                lambda cand: pytest.fail("a trial ran"))
+    assert chunks == 1
     assert rec["provenance"] == "model" and rec["trials"] == []
     assert rec["reason"] == "multi-host mesh: tuning requires cross-process agreement"
     assert choice == tp.parallel.policy.resolve_default_for_plan(p)
