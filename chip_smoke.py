@@ -67,16 +67,20 @@ Phases, one JSON line each:
    exchange, a skewed C2C plan (weights 2:1:1:1, z-slabs 70/62/62/62,
    UNBUFFERED), C2C in float64 over a float32 wire (BUFFERED_FLOAT), C2C on
    the ``torch.fft`` engine, and C2C over a one-rank NCCL process group (the
-   collective route, staged). Each is held against the dense oracle, the
-   local blocked plan of the same triplets, its round trip, its staged twin
-   (bitwise), and the NCCL plan against the one without a group (bitwise);
-   its K1 and K2 forms against their plain versions, as in phase 3;
+   collective route, fused: NCCL's kernels captured in each direction's
+   graph). Each is held against the dense oracle, the local blocked plan of
+   the same triplets, its round trip, its staged twin (bitwise; the fused
+   first pair launches twice the twin's kernels, the replayed pair none,
+   one dispatch a direction, bitwise the first), and the NCCL plan against
+   the one without a group (bitwise), with one batched B = 4 program over
+   the group bitwise four looped pairs (``dist_batch``); its K1 and K2 forms
+   against their plain versions, as in phase 3;
 6b. the pencil phase (``PENCIL_PLANS``): ``DistributedTransform`` over
    ``make_fft_mesh2(2, 2)``, four shards stacked on the card, at 256^3 and
    radius 0.659, the triplets split column by column: C2C and R2C with
    ``engine="auto"`` (which must be ``pencil2-mxu``) and DEFAULT,
    UNBUFFERED, C2C in float64 over a float32 wire (BUFFERED_FLOAT), the
-   ``torch.fft`` engine, and C2C over the one-rank NCCL group (staged).
+   ``torch.fft`` engine, and C2C over the one-rank NCCL group (fused).
    Each is held against the dense oracle, its round trip, its staged twin
    (bitwise), its slab plan of phase 6 and the local blocked plan (1e-5),
    the NCCL plan against the plan without a group (bitwise); its K1 forms
@@ -87,8 +91,9 @@ Phases, one JSON line each:
    shards stacked on the card at 256^3, radius 0.659: slab C2C ``mxu``
    BUFFERED at overlap 4, R2C at 2, C2C on the ``torch.fft`` engine at 4,
    the 2 x 2 pencil C2C in float64 over a float32 wire at 4, all fused, and
-   slab C2C at 4 over the one-rank NCCL group (staged, each chunk's
-   collective asynchronous). Each is held against its ``overlap=1`` twin
+   slab C2C at 4 over the one-rank NCCL group (fused: each chunk's
+   asynchronous collective captured on the side stream). Each is held
+   against its ``overlap=1`` twin
    built beside it (bitwise expected on the ``mxu`` engines, else the
    dtype's bar), the dense oracle and its round trip, its staged twin
    (bitwise), the NCCL plan bitwise against the stacked one; no rung; its
@@ -97,7 +102,8 @@ Phases, one JSON line each:
    under torch.profiler the streams its K1 and exchange kernels ran on (the
    staged twin's: the exchange off K1's stream) and the device ms during
    which an exchange kernel and a K1 kernel ran at once; pair and busy ms
-   against the twin, the two taking turns;
+   against the twin and the staged twin, the three taking turns (the NCCL
+   plan's fused pair must show ``ncclDevKernel``);
 7. one pair of every plan and twin under ``torch.profiler``: the device's
    busy share and the kernels that take its time; then the pair times, all
    plans taking turns, for comparisons within the run; each pencil plan's
@@ -1540,18 +1546,20 @@ def expected_dist_launches(t) -> tuple[int, int]:
 def dist_main_path(sp, name, t, twin, values, want, local_space, local_back, bar, ref=None,
                    slab=None):
     """The main path of one distributed plan: the staged twin's pair (the
-    launch counts), the fused plan's first pair (twice the twin's launches)
-    and second (none), against the dense oracle, the local plan's backward,
-    the input values (round trip) and bitwise against the twin; the plan
-    over the process group (staged, no twin) bitwise against ``ref``, the
-    pair of the same plan without a group. Returns the launch counts, the
-    pair's results and the row. ``slab``: a pencil plan's slab plan's
-    space and values (this plan's shards), held to 1e-5 as the local plan's."""
+    launch counts), the fused plan's first pair (twice the twin's launches:
+    the eager run and the capture, over a process group too) and second
+    (none, one dispatch a direction, bitwise the first), against the dense
+    oracle, the local plan's backward, the input values (round trip) and
+    bitwise against the twin; a plan over the process group also bitwise
+    against ``ref``, the staged pair of the same plan without a group.
+    Returns the launch counts, the twin's pair and the row. ``slab``: a
+    pencil plan's slab plan's space and values (this plan's shards), held to
+    1e-5 as the local plan's."""
     import torch
 
     staged = run_pair(sp, twin, values)
-    first = run_pair(sp, t, values) if t is not twin else staged
-    second = run_pair(sp, t, values) if t is not twin else staged
+    first = run_pair(sp, t, values)
+    second = run_pair(sp, t, values)
     space_h = first["space"].cpu().numpy()
     check(space_h.shape == want.shape and np.isfinite(space_h).all(), f"{name} space shape/finite")
     back = first["back"]
@@ -1582,17 +1590,16 @@ def dist_main_path(sp, name, t, twin, values, want, local_space, local_back, bar
         "local_z_lengths": [int(n) for n in t.params.local_z_lengths],
         "oracle_rel_err": oracle_err, "local_plan_rel_err": local_err,
         "local_plan_values_rel_err": local_back_err, "roundtrip_rel_err": rt_err, "bar": bar,
-        "launches": {"complex_matmul": n_k1, "row_gather": n_k2,
-                     "from": "the staged pair" if t is twin else "the staged twin's pair"},
+        "launches": {"complex_matmul": n_k1, "row_gather": n_k2, "from": "the staged twin's pair"},
         "launches_first_fused_pair": total(first["counts"]),
         "launches_second_fused_pair": total(second["counts"]),
         "dispatches": {"staged": staged["dispatches"], "fused_second": second["dispatches"]},
-        "fused_equals_staged": same(first, staged),
+        "fused_equals_staged": same(first, staged), "replay_equals_first": same(second, first),
         "peak_extra_bytes": {"staged_pair": staged["peak_extra_bytes"],
                              "fused_pair": second["peak_extra_bytes"]},
     }
     if ref is not None:
-        row["bitwise_equal_to_the_plan_without_a_group"] = same(staged, ref)
+        row["bitwise_equal_to_the_plan_without_a_group"] = same(first, ref)
     if slab is not None:
         row["slab_plan_rel_err"] = float(np.abs(space_h - slab[0]).max() / np.abs(slab[0]).max())
         row["slab_plan_values_rel_err"] = max(float((b.to(sb.dtype) - sb).abs().max())
@@ -1611,17 +1618,55 @@ def dist_main_path(sp, name, t, twin, values, want, local_space, local_back, bar
     check(n_k1 == want_k1 and n_k2 == want_k2,
           f"{name} launches: {n_k1} K1, {n_k2} K2 (expected {want_k1} and {want_k2})")
     if ref is not None:
-        check(not t.fused and row["bitwise_equal_to_the_plan_without_a_group"],
-              f"{name}: not staged, or not bitwise equal to the plan without a group")
-    else:
-        check(t.fused and not twin.fused, f"{name}: the plan is not fused or its twin not staged")
-        check(row["fused_equals_staged"], f"{name}: fused and staged results differ")
-        check(first["counts"] == twice, f"{name}: first fused pair launched {first['counts']}, "
-              f"not twice the twin's {counts}")
-        check(total(second["counts"]) == 0, f"{name}: a replayed pair launched on the host")
-        check(second["dispatches"] == {"fused:backward": 1, "fused:forward": 1},
-              f"{name}: fused dispatches {second['dispatches']}")
+        check(row["bitwise_equal_to_the_plan_without_a_group"],
+              f"{name}: not bitwise equal to the plan without a group")
+    check(t.fused and not twin.fused and row["staged_because"] is None,
+          f"{name}: the plan is not fused ({row['staged_because']}) or its twin not staged")
+    check(row["fused_equals_staged"], f"{name}: fused and staged results differ")
+    check(row["replay_equals_first"], f"{name}: the replayed pair differs from the first")
+    check(first["counts"] == twice, f"{name}: first fused pair launched {first['counts']}, "
+          f"not twice the twin's {counts}")
+    check(total(second["counts"]) == 0, f"{name}: a replayed pair launched on the host")
+    check(second["dispatches"] == {"fused:backward": 1, "fused:forward": 1},
+          f"{name}: fused dispatches {second['dispatches']}")
     return counts, staged, row
+
+
+def group_batch(sp, name, t, values) -> dict:
+    """``backward_batch``/``forward_batch(FULL)`` of ``BATCH`` requests over
+    the process group, twice (the first batch runs eagerly and captures the
+    graph of B bodies, each with its collectives; the second replays it),
+    against ``BATCH`` looped pairs: bitwise, one batched dispatch a
+    direction, no host launch in the replayed batch."""
+    import torch
+    from spfft_tpu_torch import ir
+
+    full = sp.ScalingType.FULL
+    batch = [[v.roll(b) for v in values] for b in range(BATCH)]
+    loop = []
+    for v in batch:
+        space = t.backward(v)
+        loop.append((space, t.forward(space, full)))
+    runs = []
+    for _ in range(2):
+        torch.cuda.synchronize()
+        clear_counts()
+        spaces = t.backward_batch(batch)
+        backs = t.forward_batch(spaces, full)
+        torch.cuda.synchronize()
+        runs.append({"dispatches": {f"{m}:{d}": n for (m, d), n in ir.dispatches.items()},
+                     "launches": total(launch_counts()),
+                     "bitwise": all(torch.equal(s, ls) and all(torch.equal(x, y) for x, y in
+                                                                zip(b, lb))
+                                    for s, b, (ls, lb) in zip(spaces, backs, loop))})
+    row = {"phase": "dist_batch", "plan": name, "batch": BATCH, "runs": runs,
+           "card": t.report()["batch"]}
+    emit(row)
+    check(all(r["bitwise"] for r in runs), f"{name}: a batch over the group differs from the loop")
+    check(all(r["dispatches"] == {"batched:backward": 1, "batched:forward": 1} for r in runs),
+          f"{name}: batch dispatches {[r['dispatches'] for r in runs]}")
+    check(runs[1]["launches"] == 0, f"{name}: the replayed batch launched on the host")
+    return row
 
 
 def local_results_of(sp, plans, values, names) -> dict:
@@ -1637,7 +1682,7 @@ def local_results_of(sp, plans, values, names) -> dict:
 def dist_phase(sp, data, plans, values, group):
     """Builds and drives every plan of ``DIST_PLANS`` (see the module
     docstring), each against its oracle and local plan; ``group`` the
-    one-rank NCCL group. Returns the plans {name: (plan, twin or None)},
+    one-rank NCCL group. Returns the plans {name: (plan, staged twin)},
     their launch counts, their kernel rows, their per-shard values and
     their results {name: (space on the host, values in the global order)}."""
     import torch
@@ -1657,7 +1702,7 @@ def dist_phase(sp, data, plans, values, group):
             mesh=mesh, engine=engine, exchange_type=getattr(sp.ExchangeType, exchange),
             dtype=dtype, local_z_lengths=lz, **kw)
         t = make()
-        twin = t if over_group else make(fuse=False)
+        twin = make(fuse=False)
         emit({"phase": "dist_plan", "plan": name, "engine": t.engine, "fused": t.fused,
               "exchange": t.exchange_type.name, "describe": t.describe()})
         if engine == "auto":
@@ -1680,7 +1725,9 @@ def dist_phase(sp, data, plans, values, group):
         ref = mains["dist4-c2c"] if over_group else None
         counts[name], mains[name], _ = dist_main_path(
             sp, name, t, twin, vals, want, local_space, local_back, bar, ref)
-        out[name], dvalues[name] = (t, None if over_group else twin), vals
+        if over_group:
+            group_batch(sp, name, t, vals)
+        out[name], dvalues[name] = (t, twin), vals
         back = mains[name]["back"]
         flat = back[0].new_empty(sum(int(b.numel()) for b in back))
         for i, b in zip(where, back):
@@ -1766,7 +1813,7 @@ def pencil_phase(sp, data, plans, values, group, slab_results):
             mesh=mesh, engine=engine, exchange_type=getattr(sp.ExchangeType, exchange),
             dtype=dtype, **kw)
         t = make()
-        twin = t if over_group else make(fuse=False)
+        twin = make(fuse=False)
         emit({"phase": "pencil_plan", "plan": name, "engine": t.engine, "fused": t.fused,
               "exchange": t.exchange_type.name, "describe": t.describe(),
               "plan_card_exchange_policy": t.report().get("exchange_policy")})
@@ -1788,7 +1835,7 @@ def pencil_phase(sp, data, plans, values, group, slab_results):
         counts[name], mains[name], _ = dist_main_path(
             sp, name, t, twin, vals, want, local_space, local_back, bar, ref,
             slab=(slab_space, slab_back))
-        out[name], pvalues[name] = (t, None if over_group else twin), vals
+        out[name], pvalues[name] = (t, twin), vals
     return out, counts, rows, pvalues
 
 # ---- phase 6c: the OVERLAPPED exchange ----------------------------------------------
@@ -1924,6 +1971,7 @@ def stream_profile(sp, t, values_dev) -> dict:
             "exchange_streams": sorted({e["args"].get("stream") for e in xk}),
             "k1_kernels": len(k1), "exchange_kernels": len(xk),
             "exchange_kernels_off_k1_streams": len(side),
+            "nccl_kernels": len(of(("ncclDevKernel",))),
             "exchange_ms": union_us(spans(xk)) / 1e3, "k1_ms": union_us(spans(k1)) / 1e3,
             # an exchange kernel (K2, NCCL) and a K1 kernel at once, on any
             # streams: the overlap won (a replayed CUDA graph's kernels are
@@ -1967,11 +2015,12 @@ def overlap_phase(sp, data, group) -> tuple:
             dtype=dtype, overlap=overlap, **kw)
         t, twin = make(ov), make(1)
         # a replayed CUDA graph's kernels are reported on the graph's own streams
-        st = None if over_group else make(ov, fuse=False)
+        st = make(ov, fuse=False)
         check(t.overlap_chunks == ov and t.exchange_rounds() == ov * (
             2 if layout == "pencil" else 1), f"{name}: {t.overlap_chunks} chunks, "
               f"{t.exchange_rounds()} rounds")
-        check(t.fused == (not over_group), f"{name}: fused {t.fused}")
+        check(t.fused and t.describe()["ir"].get("staged_because") is None and not st.fused,
+              f"{name}: fused {t.fused}, its twin {st.fused}")
         # the kernels at the forms this plan adds, against their plain versions
         if engine == "mxu" and not over_group:
             for form, spec, x, w, want_imag, o in overlap_k1_forms(name, t):
@@ -2014,10 +2063,11 @@ def overlap_phase(sp, data, group) -> tuple:
                "dispatches_second_pair": second["dispatches"],
                "peak_extra_bytes": {"overlapped": second["peak_extra_bytes"],
                                     "overlap1_twin": ref_peak}}
-        if st is not None:
-            staged_pair = run_pair(sp, st, vals)
-            row["fused_equals_staged"] = same(first, staged_pair)
-            check(row["fused_equals_staged"], f"{name}: fused and staged results differ")
+        staged_pair = run_pair(sp, st, vals)
+        row["fused_equals_staged"] = same(first, staged_pair)
+        row["replay_equals_first"] = same(second, first)
+        check(row["fused_equals_staged"], f"{name}: fused and staged results differ")
+        check(row["replay_equals_first"], f"{name}: the replayed pair differs from the first")
         if name in OVERLAP_STACKED:
             row["bitwise_equal_to_" + OVERLAP_STACKED[name]] = same(
                 first, results[OVERLAP_STACKED[name]])
@@ -2025,15 +2075,18 @@ def overlap_phase(sp, data, group) -> tuple:
                   f"{name}: not bitwise the stacked {OVERLAP_STACKED[name]}")
         prof = stream_profile(sp, t, vals)
         row["profile"] = prof
-        streams = stream_profile(sp, st, vals) if st is not None else prof
-        row["profile_staged"] = streams if st is not None else None
-        turns = interleaved_pair_ms(sp, {name: t, "ov1": twin}, {name: vals, "ov1": vals},
-                                    rounds=4, pairs=3)
+        streams = stream_profile(sp, st, vals)
+        row["profile_staged"] = streams
+        turns = interleaved_pair_ms(sp, {name: t, "ov1": twin, "staged": st},
+                                    {name: vals, "ov1": vals, "staged": vals}, rounds=4, pairs=3)
         busy = profile_pair(sp, "ov1:" + name, twin, vals)
         row.update({"pair_ms_in_turns": turns[name], "overlap1_pair_ms_in_turns": turns["ov1"],
+                    "staged_pair_ms_in_turns": turns["staged"],
                     "device_busy_ms": prof["device_busy_ms"],
                     "overlap1_device_busy_ms": busy["device_busy_ms"],
+                    "staged_device_busy_ms": streams["device_busy_ms"],
                     "pair_vs_overlap1": turns[name] / turns["ov1"],
+                    "pair_vs_staged": turns[name] / turns["staged"],
                     "seconds": time.perf_counter() - t1})
         emit(row)
         check(oracle_err <= bar and rt_err <= bar, f"{name}: oracle {oracle_err}, round trip "
@@ -2042,12 +2095,14 @@ def overlap_phase(sp, data, group) -> tuple:
               f"{name}: {row['overlap1_twin_rel_err']} from its overlap=1 twin")
         check(streams["exchange_kernels_off_k1_streams"] > 0,
               f"{name}: no exchange kernel ran off K1's streams {streams}")
-        if not over_group:
-            check(total(second["counts"]) == 0, f"{name}: a replayed pair launched on the host")
+        check(total(second["counts"]) == 0, f"{name}: a replayed pair launched on the host")
+        check(second["dispatches"] == {"fused:backward": 1, "fused:forward": 1},
+              f"{name}: fused dispatches {second['dispatches']}")
+        if over_group:
+            check(prof["nccl_kernels"] > 0, f"{name}: no ncclDevKernel in the fused pair's "
+                  "profile")
         results[name] = first
-        built[name], built[name + "~ov1"] = t, twin
-        if st is not None:
-            built[name + STAGED] = st
+        built[name], built[name + "~ov1"], built[name + STAGED] = t, twin, st
         del first, second, ref
     no_rungs("overlap phase", built)
     emit({"phase": "overlap", "seconds": time.perf_counter() - t0})
@@ -4826,6 +4881,10 @@ def main() -> int:
             "local_device_busy_ms": busy[local]["device_busy_ms"],
             "busy_vs_slab": busy[name]["device_busy_ms"] / busy[slab]["device_busy_ms"],
         }
+    for name, (t, _) in dplans.items():
+        if t._exec.collective:
+            check(busy[name]["nccl_ms"] > 0,
+                  f"{name}: no ncclDevKernel in the fused pair's profile: {busy[name]['top']}")
     emit({"phase": "compare_pencil", "what": "the pencil plans against their slab plan and the "
           "local blocked plan of the same triplets: median ms per pair (host clock, in the same "
           "turns as the compare line), device busy ms of one profiled pair; exchange_A_ms and "
@@ -4879,9 +4938,9 @@ def main() -> int:
             | {"launches": launches}
             | {k: row[k] for k in ("precision", "fp32_bound_ms", "library_math", "library_tf32_ms")
                if k in row})
-    import torch.distributed as dist
-
-    dist.destroy_process_group()
+    # the fused plans over the group hold NCCL's kernels in their graphs:
+    # shutdown_distributed drops them before it destroys the group
+    sp.shutdown_distributed()
     emit({"phase": "done", "seconds": time.perf_counter() - started})
     emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -96,6 +96,7 @@ from .parallel.mesh import (  # noqa: F401
     is_pencil2_mesh,
     make_fft_mesh,
     make_fft_mesh2,
+    shutdown_distributed,
 )
 from .parameters import (  # noqa: F401
     DistributedParameters,

@@ -15,8 +15,11 @@ id. The shards of a process sit stacked on its device:
   the device and each direction runs fused (one CUDA graph on the card);
 * processes joined by a group: each process passes its own shards' values
   (None for the others') and gets its shards' slabs (pencil blocks) back;
-  the exchange is ``torch.distributed.all_to_all_single`` and the plan runs
-  staged.
+  the exchange is ``torch.distributed.all_to_all_single`` and each
+  direction runs fused too (on the card one CUDA graph that holds NCCL's
+  kernels; over a gloo group a CUDA plan runs staged). Every process of the
+  group must make the same calls: a program's first call runs in step
+  (:mod:`~spfft_tpu_torch.ir.compile`).
 
 ``forward`` returns the per-shard packed values (None for another
 process's). Results are tensors on the plan's device.
@@ -688,8 +691,10 @@ class DistributedTransform(_Observed):
     @property
     def fused(self) -> bool:
         """True if each direction runs as one program (on the card one
-        CUDA-graph replay); False on the staged path, which a plan whose
-        exchange is a collective always takes (``describe()["ir"]``)."""
+        CUDA-graph replay, NCCL's kernels inside it over a process group);
+        False on the staged path: ``fuse=False``, a rung, or a CUDA plan
+        over a group whose backend a graph cannot hold
+        (``describe()["ir"]["staged_because"]``)."""
         return self._exec._ir.fused
 
     # ---- the plan card ----------------------------------------------------------------

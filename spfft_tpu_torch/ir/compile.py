@@ -34,10 +34,29 @@ each recorded on the plan card's ``degradations`` and in
 
 The kernels' own typed failures (``GPUSupportError``, ``GPULaunchError``)
 take no rung: they raise. A replay that fails raises
-:class:`~spfft_tpu_torch.errors.GPUError`. A mesh plan whose exchange is a
-``torch.distributed`` collective (NCCL under graph capture is later work)
-runs staged, says so in ``describe()`` (``"staged_because"``), and raises
-on ``fuse=True``.
+:class:`~spfft_tpu_torch.errors.GPUError`.
+
+**Over a process group** a mesh plan runs fused too, as the JAX package's
+``shard_map`` program does: on the card each direction's CUDA graph holds
+NCCL's kernels beside K1 and K2. It stays staged only where a graph cannot
+hold the collective: a CUDA plan whose group's backend is not NCCL (gloo
+runs its collectives on CUDA tensors through the host); ``describe()``
+names that backend (``"staged_because"``) and ``fuse=True`` there raises.
+The invariant over a group: on every call, each process issues the same
+collectives in the same order, whatever path it takes. :func:`schedule`
+is deterministic from the graph, so the fused, staged and legacy paths
+issue one order, once a call. A program's first call over a group runs in
+step (:meth:`EngineIr._run_in_step`): the composed body once, eagerly (it
+issues the call's collectives, creates NCCL's communicator and is the
+call's result), then the capture, which executes nothing, then one
+all-reduce that counts the processes that cannot replay (a capture that
+failed, a plan on another path). If any cannot, every process takes the
+rung and runs staged from then on, so that no process replays a captured
+collective against another's eager one. A batched program agrees first on
+``ir.batch``. The eager run itself takes no rung over a group: running the
+call again would re-issue collectives the other processes have passed, so
+its failure raises :class:`~spfft_tpu_torch.errors.MPIError`, and the
+other processes' collectives fail at the group's timeout.
 
 :data:`dispatches` counts program calls by ``(mode, direction)``: staged adds
 one per node (added once per call), fused one per direction, batched one per
@@ -55,11 +74,12 @@ import collections
 import contextlib
 import gc
 import threading
+import weakref
 
 import torch
 
 from .. import faults, knobs, obs, timing
-from ..errors import GPUError, InvalidParameterError
+from ..errors import GPUError, InvalidParameterError, MPIError
 from ..types import ScalingType
 
 FUSE_ENV = "SPFFT_TPU_FUSE"
@@ -281,22 +301,50 @@ def _stack(items):
 
 
 # One CUDA-graph capture at a time in the process (see _Program._capture).
+# A capture may hold a collective (a plan over an NCCL group): every
+# process of the group captures in step, and a capture executes nothing
+# (no communication waits on a peer under the lock), so holding it there
+# cannot deadlock.
 _CAPTURE_LOCK = threading.Lock()
+
+
+# The programs whose CUDA graph holds a collective. NCCL's communicator
+# cannot be destroyed while a graph holds its kernels (destroy_process_group
+# then waits forever), so release_collective_graphs drops them first.
+_COLLECTIVE_GRAPHS: weakref.WeakSet = weakref.WeakSet()
+
+
+def release_collective_graphs() -> int:
+    """Drop the CUDA graph of every program that captured a collective
+    (:func:`~spfft_tpu_torch.parallel.mesh.shutdown_distributed` calls it
+    before it destroys the process group); such a program's later calls
+    raise :class:`MPIError`. Returns how many graphs were dropped."""
+    released = 0
+    for prog in list(_COLLECTIVE_GRAPHS):
+        released += prog._captured is not None
+        prog._captured, prog._released = None, True
+    _COLLECTIVE_GRAPHS.clear()
+    return released
 
 
 class _Program:
     """One program: ``body`` in one eager call on a CPU plan; on a CUDA plan
     one CUDA graph of ``body``, captured at the first call. ``finish`` turns
-    the body's outputs into the caller's results (new tensors)."""
+    the body's outputs into the caller's results (new tensors).
+    ``collective``: the body issues collectives (a plan over a group)."""
 
-    def __init__(self, body, finish, device, pool, what, stage):
+    def __init__(self, body, finish, device, pool, what, stage, collective=False):
         self.body, self.finish, self.device, self.pool = body, finish, device, pool
         self.what, self.stage = what, stage  # for error reports
+        self.collective = collective
         self._captured = None  # (CUDAGraph, static inputs, static outputs)
+        self._released = False  # release_collective_graphs dropped its graph
 
     def __call__(self, *args):
+        if self._released:
+            raise MPIError(f"{self.what}: its process group was shut down")
         if self.device.type != "cuda":
-            return self.finish(self.body(*args))
+            return self.eager(*args)
         if self._captured is None:
             self._capture(args)
         graph, static_in, static_out = self._captured
@@ -313,29 +361,43 @@ class _Program:
             raise GPUError(f"{self.what}: CUDA graph replay failed: {e}") from e
         return self.finish(static_out)
 
-    def _capture(self, args) -> None:
+    def eager(self, *args):
+        """The body in one eager call on the caller's stream (a CPU plan's
+        every call; over a process group, a program's first call)."""
+        return self.finish(self.body(*args))
+
+    def _capture(self, args, warm=True) -> None:
         """Static inputs holding ``args``, one eager run on a side stream
-        (cuFFT plans, the allocator, the kernels' libraries), then the
-        capture into the plan's pool.
+        (cuFFT plans, the allocator, the kernels' libraries; ``warm=False``
+        where an eager call of the body has just run, as over a process
+        group, where that call also created NCCL's communicator), then the
+        capture into the plan's pool. Nothing on a CPU plan.
 
         The capture is ``thread_local``: other threads may go on allocating,
         building plans and copying results to the host while it runs (a
         serving dispatcher captures a new batch size while its callers read
-        their results), which the default ``global`` mode refuses and which
-        would invalidate the capture. Captures of the process take turns
+        their results; ProcessGroupNCCL's watchdog queries its events),
+        which the default ``global`` mode refuses and which would invalidate
+        the capture. Captures of the process take turns
         (:data:`_CAPTURE_LOCK`): ``torch.cuda.graph`` synchronizes the device
         and empties the allocator's cache before it captures, which must not
-        meet another thread's capture."""
+        meet another thread's capture. A collective captured here (NCCL's
+        kernels, on NCCL's stream, which the collective forks from the
+        capturing stream and its wait joins back) runs at each replay with
+        the split sizes fixed when the plan was built."""
+        if self.device.type != "cuda":
+            return
         with _CAPTURE_LOCK, torch.cuda.device(self.device):
             static_in = [None if a is None else a.to(self.device).clone(
                 memory_format=torch.contiguous_format) for a in args]
             current = torch.cuda.current_stream(self.device)
-            side = torch.cuda.Stream(self.device)
-            side.wait_stream(current)
             try:
-                with torch.cuda.stream(side):
-                    self.body(*static_in)
-                current.wait_stream(side)
+                if warm:
+                    side = torch.cuda.Stream(self.device)
+                    side.wait_stream(current)
+                    with torch.cuda.stream(side):
+                        self.body(*static_in)
+                    current.wait_stream(side)
                 graph = torch.cuda.CUDAGraph()
                 # held across the capture on purpose: captures take turns
                 with no_collection(), torch.cuda.graph(graph, pool=self.pool,  # noqa: SA011
@@ -348,6 +410,8 @@ class _Program:
                 e.add_note(f"{self.what}: CUDA graph capture failed at stage {self.stage()!r}")
                 raise
         self._captured = (graph, static_in, static_out)
+        if self.collective:
+            _COLLECTIVE_GRAPHS.add(self)
 
 
 @contextlib.contextmanager
@@ -376,12 +440,16 @@ class EngineIr:
     :func:`init_engine_ir`."""
 
     def __init__(self, graphs, *, path, requested, device, staged_because=None, sink=None,
-                 engine=None):
+                 engine=None, group=None):
         self.graphs = graphs  # {"backward": g, "forward": {ScalingType: g}}; None: legacy
         self.path = path  # "fused" | "staged" | "legacy"
         self.requested = requested
         self.staged_because = staged_because
         self.device = torch.device(device)
+        # the process group of the exchange's collectives (None: no group);
+        # a program's first call over it runs in step (_run_in_step)
+        self._group = group
+        self._agreed = set()  # program keys whose first call ran in step
         # the plan's live degradations list, kept from the scope the engine
         # was built in, so that a rung taken at a first dispatch lands on it
         self._sink = sink
@@ -445,11 +513,17 @@ class EngineIr:
                 body, finish = fn, (_clone if self.device.type == "cuda" else (lambda out: out))
             else:
                 body, finish = _batched(graph, fn, batch), _stack
-            prog = _Program(body, finish, self.device, self._pool, what, lambda: fn.stage)
+            prog = _Program(body, finish, self.device, self._pool, what, lambda: fn.stage,
+                            collective=self._group is not None)
             self._programs[key] = prog
         return prog
 
     def _run(self, direction, scaling, args):
+        if self._group is not None and (direction, scaling, None) not in self._agreed:
+            return self._run_in_step(direction, scaling, args)
+        return self._dispatch(direction, scaling, args)
+
+    def _dispatch(self, direction, scaling, args):
         if self.path == "legacy":
             e = self._engine
             out = (e._legacy_backward(*args) if direction == "backward"
@@ -470,6 +544,61 @@ class EngineIr:
                 return out
         dispatches[self.path, direction] += 1
         obs.counter("ir_dispatches_total", mode=self.path, direction=direction).inc()
+        return out
+
+    def _agree(self, behind: bool, what: str) -> int:
+        """The processes of the group for which ``behind`` holds, counted in
+        one all-reduce; a failed all-reduce is an :class:`MPIError`."""
+        from ..verify.checks import group_scalar
+
+        try:
+            return int(group_scalar(behind, self._group, self.device))
+        except (RuntimeError, ValueError) as e:
+            raise MPIError(f"{what}: the group's agreement failed: {e}") from e
+
+    def _first_call(self, prog, key, what: str, args):
+        """A fused program's first call over a group: its body, eagerly (the
+        call's collectives; its result), the capture, then the agreement.
+        Returns the result, and the failure that the caller's rung records
+        where any process cannot replay (None: every one can). The eager run
+        takes no rung (module docstring): its failure raises
+        :class:`MPIError`."""
+        try:
+            out = prog.eager(*args)
+        except faults.ENGINE_BUILD_ERRORS as e:
+            raise MPIError(f"{what}: the first call over the process group failed on this "
+                           f"process, which cannot run it again in step: {e}") from e
+        mine = None
+        try:
+            prog._capture(args, warm=False)
+        except faults.ENGINE_BUILD_ERRORS as e:
+            mine = e
+        behind = self._agree(mine is not None, what)
+        self._agreed.add(key)
+        if not behind:
+            self._compiled.add(key)
+            return out, None
+        return out, mine if mine is not None else MPIError(
+            f"{what}: {behind} process(es) of the group cannot replay its graph")
+
+    def _run_in_step(self, direction, scaling, args):
+        """The first call of ``(direction, scaling)`` over a process group,
+        on every path: the call once (fused: :meth:`_first_call`; staged and
+        legacy: as always), then one all-reduce counting the processes that
+        will not replay its graph. If any will not, every fused process takes
+        ``fuse_compile_failed`` and runs staged from then on."""
+        what = f"ir[{direction}{'' if scaling is None else ', ' + scaling.name}]"
+        if self.path != "fused":
+            out = self._dispatch(direction, scaling, args)
+            self._agree(True, what)
+            self._agreed.add((direction, scaling, None))
+            return out
+        out, failed = self._first_call(self._program(direction, scaling),
+                                       (direction, scaling, None), what, args)
+        dispatches["fused", direction] += 1
+        obs.counter("ir_dispatches_total", mode="fused", direction=direction).inc()
+        if failed is not None:
+            self._degrade_to_staged(failed)
         return out
 
     def run_backward(self, *args):
@@ -504,6 +633,8 @@ class EngineIr:
             return None
         batch = int(args[0].shape[0])
         key = (direction, scaling, batch)
+        if self._group is not None and key not in self._agreed:
+            return self._run_batch_in_step(direction, scaling, batch, args)
         if (direction, scaling) not in self._batch_keys:
             try:  # the fault site of this layer refusing to build
                 faults.site("ir.batch")
@@ -521,6 +652,34 @@ class EngineIr:
                 self._batch_degrade(e)
                 return None
             self._compiled.add(key)
+        self._batch_sizes.add(batch)
+        dispatches["batched", direction] += 1
+        obs.counter("ir_dispatches_total", mode="batched", direction=direction).inc()
+        return out
+
+    def _run_batch_in_step(self, direction, scaling, batch, args):
+        """A batched program's first call over a process group: the
+        processes agree on ``ir.batch`` before the batch issues a
+        collective (a process that loops would interleave its calls' own
+        all-reduces differently), then run it as :meth:`_run_in_step`; a
+        capture that fails anywhere turns every process's batch axis off."""
+        what = f"ir[{direction}, batch {batch}]"
+        mine = None
+        if (direction, scaling) not in self._batch_keys:
+            try:
+                faults.site("ir.batch")
+            except faults.ENGINE_BUILD_ERRORS as e:
+                mine = e
+            behind = self._agree(mine is not None, what)
+            if behind:
+                self._batch_degrade(mine if mine is not None else MPIError(
+                    f"{what}: {behind} process(es) of the group refused the batched program"))
+                return None
+            self._batch_keys.add((direction, scaling))
+        out, failed = self._first_call(self._program(direction, scaling, batch),
+                                       (direction, scaling, batch), what, args)
+        if failed is not None:
+            self._batch_degrade(failed)
         self._batch_sizes.add(batch)
         dispatches["batched", direction] += 1
         obs.counter("ir_dispatches_total", mode="batched", direction=direction).inc()
@@ -583,24 +742,37 @@ def _batched(graph, fn, batch: int):
     return body
 
 
-COLLECTIVE_STAGED = ("the exchange is a torch.distributed collective, which this port "
-                     "does not capture into a CUDA graph")
+def capture_refusal(engine):
+    """Why ``engine``'s exchange cannot run inside a CUDA graph, or None: a
+    CUDA plan over a process group whose backend is not NCCL (gloo runs its
+    collectives on CUDA tensors through the host, outside any stream)."""
+    if not getattr(engine, "collective", False) or torch.device(engine.device).type != "cuda":
+        return None
+    from ..parallel.mesh import _ask_group
+
+    backend = str(_ask_group("get_backend", engine.mesh.group))
+    if backend == "nccl":
+        return None
+    return (f"the exchange runs over a {backend} process group, whose collectives a CUDA "
+            "graph cannot hold (NCCL's can)")
 
 
 def init_engine_ir(engine, fuse=None) -> EngineIr:
     """Lower ``engine``, validate its graphs and choose its path: fused
-    unless ``fuse=False`` or ``SPFFT_TPU_FUSE=0``, and staged for a mesh
-    engine whose exchange is a collective (``fuse=True`` there raises). The
-    rungs (module docstring) record on the plan being built, through the
-    ambient :func:`spfft_tpu_torch.faults.collecting` sink."""
+    unless ``fuse=False`` or ``SPFFT_TPU_FUSE=0``, over a process group too;
+    staged where :func:`capture_refusal` names a reason (``fuse=True``
+    there raises). The rungs (module docstring) record on the plan being
+    built, through the ambient :func:`spfft_tpu_torch.faults.collecting`
+    sink."""
     from .lower import lower_engine
 
     fused, requested = resolve_fuse(fuse)
-    because = None
-    if getattr(engine, "collective", False):
+    because = capture_refusal(engine)
+    if because is not None:
         if fused and requested == "kwarg":
-            raise InvalidParameterError(f"fuse=True: {COLLECTIVE_STAGED} (it runs staged)")
-        fused, because = False, COLLECTIVE_STAGED
+            raise InvalidParameterError(f"fuse=True: {because} (it runs staged)")
+        fused = False
+    group = engine.mesh.group if getattr(engine, "collective", False) else None
     sink = faults.current_sink()
     # the IR's own refusals (validation, no lowering) are rungs too
     rung_errors = faults.ENGINE_BUILD_ERRORS + (InvalidParameterError,)
@@ -613,7 +785,7 @@ def init_engine_ir(engine, fuse=None) -> EngineIr:
     except rung_errors as e:
         faults.record_degradation("ir_lower_failed", faults.summarize(e))
         return EngineIr(None, path="legacy", requested=requested, device=engine.device,
-                        engine=engine)
+                        engine=engine, group=group)
     path = "staged"
     if fused:
         try:
@@ -622,6 +794,6 @@ def init_engine_ir(engine, fuse=None) -> EngineIr:
         except rung_errors as e:
             faults.record_degradation("fuse_compile_failed", faults.summarize(e))
     ir = EngineIr(graphs, path=path, requested=requested, device=engine.device,
-                  staged_because=because, sink=sink)
+                  staged_because=because, sink=sink, group=group)
     obs.trace.event("decision", what="fuse", choice=ir.path)
     return ir

@@ -509,7 +509,7 @@ def _split_pencil_forward(g, e, edge, pair):
                   (*table, *edge(f"y{sfx}")), out, name=f"exchange A overlapped{sfx}")
             table = out
     if collective:
-        g.add("unpack A", e._st_unpacks, tuple(pending), edge("s"))
+        g.add("unpack A", e._st_unpack_windows, tuple(pending), edge("s"))
     g.nodes = g.toposort()
 
 

@@ -201,7 +201,17 @@ def init_distributed(coordinator_address: str | None = None, num_processes: int 
     requirement, src/mpi_util/mpi_init_handle.hpp:43-48). ``backend`` None
     is ``"nccl"`` where CUDA is available, else ``"gloo"``; the coordinator
     becomes ``tcp://host:port``. Returns the default process group, which
-    :func:`make_fft_mesh` takes as ``group``."""
+    :func:`make_fft_mesh` takes as ``group``.
+
+    A fused plan over an NCCL group captures its collectives in each
+    direction's CUDA graph. No setting of NCCL or torch is changed for that:
+    it relies on NCCL's default ``NCCL_GRAPH_MIXING_SUPPORT=1`` (eager
+    collectives on the communicator, such as guard's and verify's
+    all-reduces, mix with captured ones) and on ``TORCH_NCCL_BLOCKING_WAIT``
+    being off (a blocking wait cannot be captured). A replay that waits on
+    a lost peer is not the watchdog's: ``SPFFT_TPU_FENCE_BUDGET_S`` bounds
+    it (``docs/torch/details.md``). Leave with :func:`shutdown_distributed`:
+    NCCL's communicator cannot be destroyed while such a graph lives."""
     import torch.distributed as dist
 
     validate_distributed_args(coordinator_address, num_processes, process_id)
@@ -212,3 +222,20 @@ def init_distributed(coordinator_address: str | None = None, num_processes: int 
         backend, init_method=init, rank=-1 if process_id is None else int(process_id),
         world_size=-1 if num_processes is None else int(num_processes), **kwargs)
     return dist.group.WORLD
+
+
+def shutdown_distributed() -> None:
+    """Leave a multi-process run: drop the CUDA graph of every fused plan
+    that captured a collective (those plans' later calls raise
+    :class:`MPIError`), then ``torch.distributed.destroy_process_group``.
+    NCCL's communicator cannot be destroyed while a graph holds its kernels:
+    ``destroy_process_group`` called with such a plan alive waits forever."""
+    import torch.distributed as dist
+
+    from ..ir.compile import release_collective_graphs
+
+    if torch.cuda.is_available() and torch.cuda.is_initialized():
+        torch.cuda.synchronize()
+    release_collective_graphs()
+    if dist.is_initialized():
+        dist.destroy_process_group()

@@ -255,7 +255,7 @@ class BlockExchange:
         got = self._gather(parts, self._index, out)
         return _wire_round_trip(got, self.wire)
 
-    # the collective route's three steps, the nodes of a staged plan
+    # the collective route's three steps, each a node of the plan's graph
     def pack(self, parts):
         """K2 writes plane ``q`` into column block ``q`` of one send buffer."""
         w = parts[0].shape[1]

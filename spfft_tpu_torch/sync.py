@@ -11,7 +11,10 @@ streams is not waited for, as ``torch.cuda.synchronize`` would. CPU tensors
 are complete when the call that made them returns, so they need no wait.
 
 With ``SPFFT_TPU_FENCE_BUDGET_S`` > 0 the wait polls ``event.query()`` and
-raises :class:`FenceTimeout` once the budget has passed. The whole fence is
+raises :class:`FenceTimeout` once the budget has passed. On a fused plan over
+an NCCL group that budget is what ends a replay whose captured collective
+waits on a lost peer: ProcessGroupNCCL's watchdog times out only the eager
+work it enqueued. The whole fence is
 a ``fence`` span of the flight recorder (:mod:`spfft_tpu_torch.obs.trace`).
 
 Not ported, by design: the JAX package's scalar probes of "advisory"

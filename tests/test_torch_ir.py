@@ -272,7 +272,8 @@ def _runs(stages):
 @pytest.mark.parametrize("engine", ["xla", "mxu"])
 def test_pencil_engines_lower_with_jax_stage_names(engine, r2c):
     """Both pencil engines lower: over a process group (a one-rank gloo
-    group) into the JAX package's pencil stage lists; stacked, each
+    group, where the plan runs fused as the JAX package's does) into the JAX
+    package's pencil stage lists; stacked, each
     exchange's pack, exchange and unpack are one "exchange A"/"exchange B"
     gather. (JAX's backward lists "x transform" twice, its x stage and the
     slab assembly.)"""
@@ -298,7 +299,7 @@ def test_pencil_engines_lower_with_jax_stage_names(engine, r2c):
         t = tp.DistributedTransform(tp.ProcessingUnit.HOST, int(r2c), 8, 9, 10, trip,
                                     mesh=tp.make_fft_mesh2(2, 2, device="cpu", group=group),
                                     engine=engine)
-        assert t.describe()["ir"]["stages"] == want and not t.fused
+        assert t.describe()["ir"]["stages"] == want and t.fused
         rng = np.random.default_rng(3)
         vals = [rng.standard_normal(stacked.num_local_elements(r)) + 0j for r in range(4)]
         assert torch.equal(t.backward(vals), stacked.backward(vals))

@@ -418,7 +418,7 @@ def _free_port() -> int:
 @pytest.mark.parametrize("world", [4, 2], ids=["world4x1", "world2x2"])
 def test_process_group_equals_stacked(world, r2c):
     """Spawned gloo processes on a 2 x 2 mesh: their blocks and values
-    equal the stacked plan's to 1e-13, staged, with JAX's stage names."""
+    equal the stacked plan's to 1e-13, fused, with JAX's stage names."""
     per, vals = _pg_problem(r2c)
     want = [_pg_run(tp.make_fft_mesh2(2, 2, device="cpu"), r2c, e, x, per, vals)
             for e, x in PG_PLANS]
@@ -441,7 +441,7 @@ def test_process_group_equals_stacked(world, r2c):
     for rank, results, _ in got:
         mine = range(rank * per_proc, (rank + 1) * per_proc)
         for (space, back, fused, stages, wire), (t, want_space, want_back) in zip(results, want):
-            assert not fused and wire == t.exchange_wire_bytes()
+            assert fused and wire == t.exchange_wire_bytes()
             assert [s for s in stages if s.endswith(("A", "B"))] == [
                 "pack A", "exchange A", "unpack A", "pack B", "exchange B", "unpack B"]
             for r in range(4):

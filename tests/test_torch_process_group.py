@@ -4,6 +4,9 @@ Spawned CPU processes (world 4 x 1 shard, world 2 x 2 shards) each build the
 plan over a process group and pass only their own shards' values; their
 slabs and forward values must equal the single-process P = 4 plan's to
 1e-13 (float64; both run the same stages, the exchange only moves data).
+A plan over the group runs fused by default and takes ``fuse=True``; each
+case builds it with ``fuse`` (the default, or staged) and its twin with the
+other path (staged, or ``fuse=True``), and the two must agree bitwise.
 Each spawn gets a free port and its own join timeout, so that a hang fails
 its test and not the suite.
 """
@@ -39,9 +42,10 @@ def _problem(r2c):
     return per, vals, (3, 2, 2, 2)
 
 
-def _run(mesh, r2c, engine, exchange, per, vals, lz):
+def _run(mesh, r2c, engine, exchange, per, vals, lz, fuse=None):
     t = tp.DistributedTransform(tp.ProcessingUnit.HOST, int(r2c), *DIMS, per, mesh=mesh,
-                                engine=engine, exchange_type=exchange, local_z_lengths=lz)
+                                engine=engine, exchange_type=exchange, local_z_lengths=lz,
+                                fuse=fuse)
     mine = set(mesh.local_shards)
     space = t.backward([v if r in mine else None for r, v in enumerate(vals)])
     back = t.forward(scaling=tp.ScalingType.FULL)
@@ -52,7 +56,11 @@ def _run(mesh, r2c, engine, exchange, per, vals, lz):
         [None if b is None else b.numpy() for b in back]
 
 
-def _worker(rank, world, port, r2c, queue):
+def _same(a, b) -> bool:
+    return all((x is None and y is None) or np.array_equal(x, y) for x, y in zip(a, b))
+
+
+def _worker(rank, world, port, r2c, fuse, queue):
     import torch.distributed as dist
 
     try:
@@ -61,17 +69,15 @@ def _worker(rank, world, port, r2c, queue):
         per, vals, lz = _problem(r2c)
         results = []
         for engine, exchange in PLANS:
-            t, space, back = _run(mesh, r2c, engine, exchange, per, vals, lz)
-            results.append((space, back, t.fused, t.describe()["ir"].get("staged_because")))
-        try:
-            tp.DistributedTransform(tp.ProcessingUnit.HOST, int(r2c), *DIMS, per, mesh=mesh,
-                                    fuse=True)
-            fuse_raised = False
-        except tp.InvalidParameterError:
-            fuse_raised = True
-        queue.put((rank, results, fuse_raised, None))
+            t, space, back = _run(mesh, r2c, engine, exchange, per, vals, lz, fuse)
+            # the twin on the other path: staged, or fused by the kwarg
+            twin, tspace, tback = _run(mesh, r2c, engine, exchange, per, vals, lz,
+                                       fuse is False)
+            results.append((space, back, t.fused, t.describe()["ir"].get("staged_because"),
+                            twin.fused, _same(space, tspace) and _same(back, tback)))
+        queue.put((rank, results, None))
     except Exception as e:  # reported to the parent, which fails the test
-        queue.put((rank, None, None, repr(e)))
+        queue.put((rank, None, repr(e)))
     finally:
         if dist.is_initialized():
             dist.destroy_process_group()
@@ -83,16 +89,17 @@ def _free_port() -> int:
         return s.getsockname()[1]
 
 
+@pytest.mark.parametrize("fuse", [None, False], ids=["fused", "staged"])
 @pytest.mark.parametrize("r2c", [False, True], ids=["c2c", "r2c"])
 @pytest.mark.parametrize("world", [4, 2], ids=["world4x1", "world2x2"])
-def test_process_group_equals_single_process(world, r2c):
+def test_process_group_equals_single_process(world, r2c, fuse):
     per, vals, lz = _problem(r2c)
     want = [_run(tp.make_fft_mesh(4, device="cpu"), r2c, e, x, per, vals, lz)[1:]
             for e, x in PLANS]
     ctx = multiprocessing.get_context("spawn")
     queue = ctx.Queue()
     port = _free_port()
-    procs = [ctx.Process(target=_worker, args=(rank, world, port, r2c, queue))
+    procs = [ctx.Process(target=_worker, args=(rank, world, port, r2c, fuse, queue))
              for rank in range(world)]
     for p in procs:
         p.start()
@@ -105,11 +112,14 @@ def test_process_group_equals_single_process(world, r2c):
                 p.kill()
     assert all(err is None for *_, err in got), [err for *_, err in got]
     per_proc = 4 // world
-    for rank, results, fuse_raised, _ in got:
-        assert fuse_raised
+    for rank, results, _ in got:
         mine = range(rank * per_proc, (rank + 1) * per_proc)
-        for (space, back, fused, because), (want_space, want_back) in zip(results, want):
-            assert not fused and because
+        for (space, back, fused, because, twin_fused, same), (want_space, want_back) in zip(
+                results, want):
+            # a group plan is fused unless asked not to be, and never says why not
+            assert fused == (fuse is not False) and twin_fused == (not fused)
+            assert because is None
+            assert same  # bitwise its twin on the other path
             for r in range(4):
                 if r not in mine:
                     assert space[r] is None and back[r] is None
