@@ -126,7 +126,9 @@ Phases, one JSON line each:
    versions, as in phase 3; the per-stage device times of each mesh
    configuration's staged twin under the ``obs.STAGES`` names (the
    exchange's measured share among them; the profiler's first step is an
-   untraced warm-up); the perf model's balance fitted to those per-stage
+   untraced warm-up; where three profiles in the process lack a stage
+   range, the twin is profiled again in a fresh process,
+   ``--stage-profile``); the perf model's balance fitted to those per-stage
    device ms at ``FIT_CONFIGS`` (``balance_fit``: the fit, and each mesh
    configuration's exchange share measured beside the model's at the JAX
    default, at the fit and at ``obs.perf.CUDA_FLOP_PER_BYTE``); the 512^3
@@ -198,7 +200,7 @@ Phases, one JSON line each:
    must run 8 times the staged twin's K1 and K2 kernels, and a steady 1 C
    step of a service gives the card's busy share. Then the cells, through ``spfft_tpu_torch.programs.loadgen``'s
    ``main()`` with the launch counts set to 0 before the first:
-   ``serve-128-c2c`` open-loop at 0.5, 1 and 2 C, 2 s a step, batch-fused
+   ``serve-128-c2c`` open-loop at 0.5, 1 and 2 C, 1.5 s a step, batch-fused
    (each step: the accounting identity, the queue within its cap, 8 sampled
    results bitwise a single call of a separately built plan, one within
    1e-5 of the complex128 dense oracle, no rung; in the 1 C step a geometry
@@ -244,11 +246,33 @@ Phases, one JSON line each:
    in every mode, the results of 16 fixed payloads bitwise equal across all
    four processes, each armed report's locks, edges and blocking waits
    printed and ``--lockdep-check`` exiting 0 on it, and the transforms a
-   second of a 3 s closed loop per mode, armed against unarmed; then two
+   second of a 2 s closed loop per mode, armed against unarmed; then two
    ``serve_worker`` hosts spawned with ``spawn_workers(lockdep_dir=)``
    behind a ``ClusterFront``, whose per-host reports, written at their clean
    shutdown, cross-check alone and merged;
-15. the ``kernels`` line; last, the ``{"ok": true, "device": ...}`` line.
+15. compiled-program statistics and the installed C library
+   (``compiled_phase``, between the compare lines and the obs phase, and
+   ``packaging_phase``, after phase 14): ``report(include_compiled=True)``
+   on ``COMPILED_PLANS`` (local blocked C2C and R2C, the stacked slab and
+   pencil plans, the plan over the one-rank NCCL group), each card valid,
+   its ``hlo_op_classes`` K1/K2 counts and its CUDA graph's K1/K2 kernel
+   nodes both equal to the K1/K2 launches of the staged twin's backward
+   call, as element-granular ops only decompress's ``index_copy_`` into the
+   flat stick table (one a plane; ``ops/compression.py``), whose device ms,
+   with compress's, is printed beside its bytes bound and the fused pair's
+   ms, NCCL's kernel nodes in the group plan's graph, ``compile_seconds``
+   and ``memory_analysis`` printed, the card
+   under ``hlo.stats=raise`` without the section and with the
+   ``hlo_stats_unavailable`` degradation, and the plan's pair bitwise the
+   same after the reports as before; then, where ``cmake`` exists, the
+   port's CMake tree installed into a scratch prefix, the consumer project
+   built against it and run, the benchmark program built against the
+   installed ``spfft_tpu_torch.pc`` and run at 256^3 dense C2C in turns with
+   phase 11's in-checkout build (phase 11's run, installed, in-checkout:
+   results bitwise by the benchmark's checksum, each ``ms_per_pair`` and
+   the installed one over the in-checkout mean printed); a line says so
+   where ``cmake`` is missing;
+16. the ``kernels`` line; last, the ``{"ok": true, "device": ...}`` line.
 
 Exits non-zero, with no result line, when there is no CUDA device or any
 check fails.
@@ -267,6 +291,7 @@ import io
 import json
 import math
 import os
+import pickle
 import re
 import shutil
 import socket
@@ -2125,7 +2150,7 @@ def set_obs(layers) -> None:
         (module.enable if layer in layers else module.disable)()
 
 
-def overhead_phase(sp, plans, values, rounds: int = 8, pairs: int = 10) -> dict:
+def overhead_phase(sp, plans, values, rounds: int = 6, pairs: int = 10) -> dict:
     """ms per host-facing pair of each plan of ``plans`` (name -> plan: the
     fused plan and its staged twin, whose hooks run once per node) in each
     of ``OBS_MODES`` (all off, each layer alone, all on), taking turns (the
@@ -2204,16 +2229,37 @@ def stage_profile(sp, name, t) -> dict:
     the profiler also draws as a range on the device's timeline; per stage
     label, the busy time of the kernels inside those ranges. (The CPU
     range's own ``device_time_total`` misses the kernels that the ctypes
-    wrappers launch, so the device-side range is what is read.)"""
+    wrappers launch, so the device-side range is what is read.) Where three
+    profiles in this process lack stage ranges, the twin is profiled in a
+    fresh process (:func:`stage_profile_fresh`): late in the full script the
+    profiler lost whole stage ranges on every attempt, as it lost K1/K2
+    records in phases 12 and 13."""
+    twin = sp.DistributedTransform.from_parameters(
+        t.processing_unit, t.params, mesh=t.mesh, exchange_type=t.exchange_type,
+        dtype=t.dtype, engine=t.engine, precision=t.precision, fuse=False)
+    row = profile_stages(sp, name, twin)
+    del twin
+    if not row["complete"]:
+        lost = row["ranges"]
+        row = stage_profile_fresh(name, t)
+        row["in_process_ranges"] = lost
+    emit(row)
+    check(row["complete"], f"{name}: stage ranges {row['ranges']}, want {row['runs']}")
+    check(0.5 < row["stages_cover"] <= 1.0 + 1e-9,
+          f"{name}: the stage ranges hold {row['stages_cover']} of the busy time")
+    return row
+
+
+def profile_stages(sp, name, twin) -> dict:
+    """:func:`stage_profile`'s reading of the staged plan ``twin`` in this
+    process: its row, with ``complete`` false where the profile kept lacks
+    a stage range or holds one too few or too many times."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile, schedule
 
     from spfft_tpu_torch.obs import STAGES
 
-    twin = sp.DistributedTransform.from_parameters(
-        t.processing_unit, t.params, mesh=t.mesh, exchange_type=t.exchange_type,
-        dtype=t.dtype, engine=t.engine, precision=t.precision, fuse=False)
     pair = random_pair(twin, SEED + 7)
     twin.backward_pair(*pair)
     twin.forward_pair(sp.ScalingType.FULL)
@@ -2230,7 +2276,7 @@ def stage_profile(sp, name, t) -> dict:
     # stage ranges of the backward missing, or late in a long process whole
     # stages): one pair runs as the schedule's warm-up step, untraced, and the
     # pair after it is the one read; a profile that still lacks a stage range
-    # is taken again, up to three times; the check below holds the one kept
+    # is taken again, up to three times; the check holds the one kept
     for attempt in range(1, 4):
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
                      schedule=schedule(wait=0, warmup=1, active=1)) as prof:
@@ -2248,24 +2294,71 @@ def stage_profile(sp, name, t) -> dict:
                 inside = [(max(a, lo), min(b, hi)) for a, b in kernels if b > lo and a < hi]
                 stage_ms[e.name] = stage_ms.get(e.name, 0.0) + union_us(sorted(inside)) / 1e3
                 ranges[e.name] = ranges.get(e.name, 0) + 1
-        if want <= set(ranges) and all(ranges[s] == runs[s] for s in want):
+        complete = want <= set(ranges) and all(ranges[s] == runs[s] for s in want)
+        if complete:
             break
     busy = union_us(kernels) / 1e3
-    row = {"phase": "obs_stage_profile", "plan": name + STAGED, "busy_ms": busy,
-           "attempts": attempt,
-           "nccl_ms": sum((e.time_range.end - e.time_range.start) / 1e3
-                          for e in device_kernels(prof) if "ncclDevKernel" in e.name),
-           "ranges": ranges, "device_ms_by_stage": stage_ms,
-           "stages_cover": sum(stage_ms.values()) / busy if busy else 0.0, "stages": sorted(want),
-           "exchange_share": sum(v for k, v in stage_ms.items() if k.startswith("exchange"))
-           / busy if busy else None}
-    emit(row)
-    check(want <= set(ranges) and all(ranges[s] == runs[s] for s in want),
-          f"{name}: stage ranges {ranges}, want {runs}")
-    check(0.5 < row["stages_cover"] <= 1.0 + 1e-9,
-          f"{name}: the stage ranges hold {row['stages_cover']} of the busy time")
+    return {"phase": "obs_stage_profile", "plan": name + STAGED, "busy_ms": busy,
+            "attempts": attempt, "process": os.getpid(), "complete": complete,
+            "nccl_ms": sum((e.time_range.end - e.time_range.start) / 1e3
+                           for e in device_kernels(prof) if "ncclDevKernel" in e.name),
+            "ranges": ranges, "runs": runs, "device_ms_by_stage": stage_ms,
+            "stages_cover": sum(stage_ms.values()) / busy if busy else 0.0,
+            "stages": sorted(want),
+            "exchange_share": sum(v for k, v in stage_ms.items() if k.startswith("exchange"))
+            / busy if busy else None}
+
+
+def stage_profile_fresh(name, t) -> dict:
+    """:func:`profile_stages` of ``t``'s staged twin in a fresh process
+    (``--stage-profile``): the plan's parameters and options go over in a
+    pickle under ``REPORTS``; a plan over a process group gets a one-rank
+    NCCL group of its own there."""
+    mesh = t.mesh
+    spec = {"name": name, "params": t.params, "exchange_type": t.exchange_type,
+            "dtype": t.dtype, "engine": t.engine, "precision": t.precision,
+            "shape": mesh.shape, "num_shards": mesh.num_shards,
+            "group": mesh.group is not None}
+    check(mesh.world == 1, f"{name}: a fresh process cannot join a group of {mesh.world}")
+    os.makedirs(REPORTS, exist_ok=True)
+    path = os.path.join(REPORTS, f"stage-profile-{os.getpid()}.pkl")
+    with open(path, "wb") as f:
+        pickle.dump(spec, f)
+    proc = subprocess.run([sys.executable, os.path.abspath(__file__), "--stage-profile", path],
+                          capture_output=True, text=True, timeout=300)
+    os.remove(path)
+    check(proc.returncode == 0, f"{name}: the stage-profile process failed: "
+          f"{proc.stderr[-3000:]}")
+    return json.loads(proc.stdout.strip().splitlines()[-1])
+
+
+def stage_profile_worker(path: str) -> int:
+    """``--stage-profile <pickle>``: :func:`stage_profile_fresh`'s process.
+    Rebuilds the plan's staged twin on the card from the pickled spec and
+    prints :func:`profile_stages`'s row as its last line."""
+    import torch
+
+    import spfft_tpu_torch as sp
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    with open(path, "rb") as f:
+        spec = pickle.load(f)
+    group = None
+    if spec["group"]:
+        with socket.socket() as sock:
+            sock.bind(("localhost", 0))
+            port = sock.getsockname()[1]
+        group = sp.init_distributed(f"localhost:{port}", 1, 0, backend="nccl")
+    mesh = (sp.make_fft_mesh2(*spec["shape"], group=group) if spec["shape"]
+            else sp.make_fft_mesh(spec["num_shards"], group=group))
+    twin = sp.DistributedTransform.from_parameters(
+        sp.ProcessingUnit.GPU, spec["params"], mesh=mesh, exchange_type=spec["exchange_type"],
+        dtype=spec["dtype"], engine=spec["engine"], precision=spec["precision"], fuse=False)
+    row = profile_stages(sp, spec["name"], twin)
     del twin
-    return row
+    sp.shutdown_distributed()
+    print(json.dumps(row), flush=True)
+    return 0
 
 
 def staging_phase(sp, name, t) -> dict:
@@ -2898,7 +2991,7 @@ def faults_phase(sp, data) -> None:
         make, values, _ = fault_maker(sp, name, kind, triplets, vals)
         variants, results, row = clean_config(sp, name, make, values)
         row = {"phase": "faults_costs", "plan": name,
-               **costs(sp, name, variants, values, rounds=5, pairs=4),
+               **costs(sp, name, variants, values, rounds=4, pairs=4),
                "seconds": time.perf_counter() - t1}
         emit(row)
         kept[name] = (make, variants if name == "c2c-blocked" else None, values, results)
@@ -2942,7 +3035,7 @@ def faults_phase(sp, data) -> None:
     check(rows and all(r["verdict"] == "pass" for r in rows), f"{FAULT_BENCH}: verdicts {rows}")
     no_rungs(f"faults_clean {FAULT_BENCH}", variants, before)
     emit({"phase": "faults_costs", "plan": FAULT_BENCH,
-          **costs(sp, FAULT_BENCH, variants, values, rounds=3, pairs=3),
+          **costs(sp, FAULT_BENCH, variants, values, rounds=2, pairs=3),
           "seconds": time.perf_counter() - t1})
     del variants, values, field, space_off, back_off, space_on, back_on
     gc.collect()
@@ -3546,11 +3639,13 @@ def capi_verify_group(sp, data, group, before) -> dict:
             "allreduces_per_call": calls}
 
 
-def capi_phase(sp, data, group) -> None:
+def capi_phase(sp, data, group) -> dict:
     """Phase 11 (module docstring): the C library built from the checkout
     and loaded into this process, the local and the 512^3 distributed plans
     through the C ABI against the Python API, the programs on the library,
-    and verification over the one-rank NCCL group."""
+    and verification over the one-rank NCCL group. Returns the in-checkout
+    benchmark's 256^3 report and the directory of its build (phase 15 holds
+    the installed one to it, in turns with it)."""
     from spfft_tpu_torch import _build
     from spfft_tpu_torch.native import abi
 
@@ -3567,9 +3662,192 @@ def capi_phase(sp, data, group) -> None:
         emit(capi_local(sp, api, name, kind, dtype, triplets, vals))
     emit(capi_dist(sp, api))
     no_rungs("capi phase", {}, before)
-    emit({"phase": "capi_programs", **capi_programs(built)})
+    programs = capi_programs(built)
+    emit({"phase": "capi_programs", **programs})
     emit(capi_verify_group(sp, data, group, before))
     emit({"phase": "capi", "seconds": time.perf_counter() - started})
+    return {**programs["capi-bench-256"], "dir": built}
+
+
+# ---- phase 15: compiled-program statistics, and the installed C library ---------------
+
+COMPILED_PLANS = ("c2c-blocked", "r2c-blocked", "dist4-c2c", "pencil2x2-c2c", "dist4-c2c-nccl1")
+PACKAGE_DIR = os.path.join("build", "smoke", "package")
+# phase 11's capi-bench-256: 256^3 dense C2C; a run takes ~17 s (mostly the
+# embedded interpreter's start and the dense plan's construction), so the
+# turns are phase 11's run, then one run of each build here
+PACKAGE_BENCH = CAPI_BENCH[0][1]
+
+
+def staged_backward_launches(twin, values_dev) -> tuple[int, int]:
+    """(K1, K2) launches of one backward call of a staged twin."""
+    import torch
+
+    torch.cuda.synchronize()
+    clear_counts()
+    twin.backward(values_dev)
+    torch.cuda.synchronize()
+    return k_launches(launch_counts())
+
+
+def compiled_phase(sp, plans) -> None:
+    """Phase 15, its first part (module docstring): the compiled cards of
+    ``COMPILED_PLANS``; ``plans`` {name: (plan, staged twin, values on the
+    card)}."""
+    from spfft_tpu_torch import faults
+    from spfft_tpu_torch.obs import hlo
+
+    started = time.perf_counter()
+    rows = {}
+    for name in COMPILED_PLANS:
+        t, twin, vals = plans[name]
+        before = run_pair(sp, t, vals)
+        k1, k2 = staged_backward_launches(twin, vals)
+        t0 = time.perf_counter()
+        card = t.report(include_compiled=True)
+        report_s = time.perf_counter() - t0
+        check(sp.obs.validate_plan_card(card) == [],
+              f"{name}: invalid compiled card {sp.obs.validate_plan_card(card)}")
+        compiled = card.get("compiled")
+        check(compiled is not None, f"{name}: no compiled section: {card['degradations']}")
+        classes, nodes = compiled["hlo_op_classes"], compiled["graph_nodes"]
+        kernels = nodes["kernels"]
+        check(classes.get("k1", 0) == k1 and kernels["k1"] == k1,
+              f"{name}: K1 {classes.get('k1', 0)} classes, {kernels['k1']} graph nodes, "
+              f"{k1} staged launches")
+        check(classes.get("k2", 0) == k2 and kernels["k2"] == k2,
+              f"{name}: K2 {classes.get('k2', 0)} classes, {kernels['k2']} graph nodes, "
+              f"{k2} staged launches")
+        grains = hlo.element_granular_ops(hlo.record_program(t)[0])
+        check(compiled["element_granular_ops"] == len(grains) and all(
+            op == "index_copy_" and operand.count("x") == 1 for op, operand, _ in grains),
+            f"{name}: {compiled['element_granular_ops']} element-granular ops {grains}, "
+            "not decompress's alone")
+        if getattr(t._exec, "collective", False):
+            check(kernels["nccl"] > 0, f"{name}: no NCCL kernel node in its graph: {nodes}")
+        # the armed report's rung is this check's, not a rung of the plan: the
+        # metrics registry is off for it, so the later phases' rung counters
+        # read 0 as before
+        sp.obs.disable()
+        try:
+            with faults.inject("hlo.stats=raise"):
+                faulted = t.report(include_compiled=True)
+        finally:
+            sp.obs.enable()
+        check("compiled" not in faulted and any(
+            d["event"] == "hlo_stats_unavailable" for d in faulted["degradations"]),
+            f"{name}: hlo.stats=raise gave {sorted(faulted)} {faulted['degradations']}")
+        after = run_pair(sp, t, vals)
+        check(same(before["space"], after["space"]) and same(before["back"], after["back"]),
+              f"{name}: the plan's results changed after its compiled report")
+        rows[name] = {"report_s": report_s, "compile_seconds": compiled["compile_seconds"],
+                      "memory_analysis": compiled["memory_analysis"], "graph_nodes": nodes,
+                      "staged_backward_k1": k1, "staged_backward_k2": k2,
+                      "hlo_op_classes": classes, "element_granular": grains}
+        print(f"{name}: compile_seconds {compiled['compile_seconds']:.4f} memory_analysis "
+              f"{compiled['memory_analysis']} graph nodes {nodes['total']} {kernels}", flush=True)
+    no_rungs("compiled phase", {name: plans[name][0] for name in COMPILED_PLANS})
+    emit({"phase": "compiled", "seconds": time.perf_counter() - started, "rows": rows})
+    emit(compression_ms(sp, *plans["c2c-blocked"][::2]))
+
+
+def compression_ms(sp, t, vals) -> dict:
+    """Device ms of the element ops the compiled cards flag, at ``t``'s
+    shapes: decompress (``index_copy_`` into the zeroed stick table) and
+    compress (``index_select`` out of it), each on the two float32 planes
+    as the ``mxu`` engine runs them; their bytes bounds (values, indices
+    and table each once); and the fused pair's ms beside them."""
+    import torch
+    from spfft_tpu_torch.ops import compression
+
+    ex = t._exec
+    vi, rows, z = ex._vi, ex._table_rows, ex.params.dim_z
+    n, size = vi.numel(), ex._table_rows * ex.params.dim_z
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    planes = [torch.randn(n, device="cuda", generator=gen) for _ in range(2)]
+    tables = [torch.randn(rows, z, device="cuda", generator=gen) for _ in range(2)]
+    decompress = lambda: [compression.decompress(v, vi, rows, z) for v in planes]
+    compress = lambda: [compression.compress(tab, vi) for tab in tables]
+    for got, want in zip(decompress(), planes):  # the scatter is the gather's inverse
+        check(torch.equal(compression.compress(got, vi), want), "decompress/compress disagree")
+    bound = lambda nbytes: nbytes / PEAK_BYTES * 1e3
+    row = {"phase": "compression_ops", "plan": "c2c-blocked", "values": n, "table": size,
+           "decompress_ms": device_ms(decompress), "compress_ms": device_ms(compress),
+           "decompress_bound_ms": bound(2 * (4 * n + 8 * n + 4 * size)),
+           "compress_bound_ms": bound(2 * (4 * n + 8 * n + 4 * n)),
+           "pair_ms": call_ms(lambda: (t.backward(vals), t.forward(scaling=sp.ScalingType.FULL)))}
+    print(f"compression ops (c2c-blocked): decompress {row['decompress_ms']:.4f} ms (bound "
+          f"{row['decompress_bound_ms']:.4f}), compress {row['compress_ms']:.4f} ms (bound "
+          f"{row['compress_bound_ms']:.4f}), the fused pair {row['pair_ms']:.4f} ms", flush=True)
+    return row
+
+
+def packaging_phase(checkout) -> None:
+    """Phase 15, its second part (module docstring): the port's CMake tree
+    installed and consumed, and the benchmark built against the installed
+    ``.pc``, run at the arguments of ``checkout``, phase 11's report of the
+    in-checkout build, and held bitwise to it."""
+    from spfft_tpu_torch import _build
+
+    started = time.perf_counter()
+    cmake = shutil.which("cmake")
+    if cmake is None:
+        print("packaging: cmake is missing on this machine; the installed tree is not built",
+              flush=True)
+        emit({"phase": "packaging", "cmake": None})
+        return
+    root = os.path.abspath(PACKAGE_DIR)
+    shutil.rmtree(root, ignore_errors=True)
+    build, prefix = os.path.join(root, "build"), os.path.join(root, "prefix")
+    source = os.path.join("spfft_tpu_torch", "native")
+    run = lambda cmd, **kw: subprocess.run(cmd, check=True, capture_output=True, text=True,
+                                           timeout=300, **kw)
+    run([cmake, "-S", source, "-B", build, "-DCMAKE_BUILD_TYPE=Release",
+         "-DSPFFT_TPU_TORCH_BUILD_TESTS=OFF", f"-DPython3_EXECUTABLE={sys.executable}",
+         f"-DCMAKE_INSTALL_PREFIX={prefix}"])
+    run([cmake, "--build", build, "--parallel", "8"])
+    run([cmake, "--install", build])
+    libdir = next(os.path.join(prefix, d) for d in ("lib", "lib64")
+                  if os.path.exists(os.path.join(prefix, d, "pkgconfig", "spfft_tpu_torch.pc")))
+    installed_s = time.perf_counter() - started
+    consumer = os.path.join(root, "consumer")
+    run([cmake, "-S", os.path.join(source, "tests", "consumer"), "-B", consumer,
+         f"-DCMAKE_PREFIX_PATH={prefix}"])
+    run([cmake, "--build", consumer])
+    env = _build.native_env()
+    env["LD_LIBRARY_PATH"] = os.pathsep.join(p for p in (libdir, env.get("LD_LIBRARY_PATH"))
+                                             if p)
+    out = run([os.path.join(consumer, "consumer")], env=env).stdout
+    check("consumer link OK" in out, f"the consumer printed {out!r}")
+    pc_env = {**os.environ, "PKG_CONFIG_PATH": os.path.join(libdir, "pkgconfig")}
+    flags = run(["pkg-config", "--cflags", "--libs", "spfft_tpu_torch"], env=pc_env).stdout.split()
+    bench = os.path.join(root, "benchmark_installed")
+    run([_build._c_compiler()[0], "-O2", "-o", bench,
+         os.path.join(source, "programs", "benchmark.c"), *flags, f"-Wl,-rpath,{libdir}", "-lm"])
+    check(checkout["args"] == PACKAGE_BENCH, f"phase 11 ran {checkout['args']}")
+
+    def bench_run(binary, cwd) -> dict:
+        result = subprocess.run([binary, *PACKAGE_BENCH], env=_build.native_env(), cwd=cwd,
+                                capture_output=True, text=True, timeout=300)
+        check(result.returncode == 0, f"{binary} exited {result.returncode}: "
+              f"{result.stdout[-1000:]} {result.stderr[-2000:]}")
+        return json.loads(result.stdout[result.stdout.index("{"):])["results"]
+
+    installed = bench_run(bench, root)
+    again = bench_run(str(checkout["dir"] / "benchmark"), checkout["dir"])
+    checkout_ms = [checkout["ms_per_pair"], again["ms_per_pair"]]
+    ratio = installed["ms_per_pair"] / statistics.mean(checkout_ms)
+    print(f"packaging: ms_per_pair in turns: in-checkout (phase 11) {checkout_ms[0]}, installed "
+          f"{installed['ms_per_pair']}, in-checkout {checkout_ms[1]}; installed over the "
+          f"in-checkout mean {ratio:.4f}", flush=True)
+    for got in (installed, again):
+        check(got["values_fnv1a"] == checkout["results"]["values_fnv1a"],
+              f"the installed and in-checkout benchmarks differ: {got} {checkout['results']}")
+    emit({"phase": "packaging", "cmake": cmake, "installed_s": installed_s,
+          "consumer": out.strip(), "pkg_config": flags, "args": PACKAGE_BENCH,
+          "installed": installed, "checkout": checkout["results"], "checkout_again": again,
+          "checkout_ms_per_pair": checkout_ms, "installed_over_checkout": ratio,
+          "seconds": time.perf_counter() - started})
 
 
 # ---- phase 12: serving on the card --------------------------------------------------
@@ -3580,7 +3858,7 @@ SERVE_RADIUS = 0.659
 SERVE_MIX = (192, 192, 192, 0.5)  # gbench's second geometry, for the mixed cell
 SERVE_LATE_RADIUS = 0.5  # the 128^3 geometry that arrives in the middle of the 1·C step
 SERVE_TENANTS = 3
-SERVE_STEP_S = 2.0
+SERVE_STEP_S = 1.5
 SERVE_SUBMITTERS = 4  # loadgen's submitting threads
 SERVE_SAMPLE = 8  # results per step held bitwise to a separately built plan's single call
 SERVE_RTOL = 1e-5  # one sample per step against the complex128 dense oracle ("highest")
@@ -4403,7 +4681,7 @@ def programs_phase(sp) -> tuple:
 
 # ---- phase 14: the static-analysis gate and runtime lockdep ------------------------------
 
-LOCKDEP_SERVE_S = 3.0  # closed-loop seconds per mode in each serving process
+LOCKDEP_SERVE_S = 2.0  # closed-loop seconds per mode in each serving process
 LOCKDEP_WINDOW = 16  # requests in flight in the closed loop (and the fixed payloads hashed)
 LOCKDEP_TURNS = ("armed", "unarmed", "armed", "unarmed")  # serving processes, in this order
 LOCKDEP_FLEET = 4  # requests through the two lockdep-armed serve_worker hosts
@@ -4891,6 +5169,10 @@ def main() -> int:
           "exchange_B_ms the device ms of the staged twin's pack, exchange and unpack ranges "
           "of each exchange (obs_stage_profile)", **pencil_rows})
 
+    # ---- phase 15, its first part: the compiled cards on the card ----
+    compiled_phase(sp, {n: ((plans[n][0], twins[n]) if n in plans else dplans[n]) + (values[n],)
+                        for n in COMPILED_PLANS})
+
     # ---- the obs phase: the cost of observability, then the benchmark program ----
     t0 = time.perf_counter()
     overhead_phase(sp, {"c2c-blocked": plans["c2c-blocked"][0],
@@ -4912,7 +5194,7 @@ def main() -> int:
     counts.update(tcounts)
 
     # ---- the C ABI on the card, and verification over the process group ----
-    capi_phase(sp, fdata, group)
+    capi_bench = capi_phase(sp, fdata, group)
     del fdata
 
     # ---- serving on the card: the service, the cluster front, the fleet ----
@@ -4927,6 +5209,9 @@ def main() -> int:
 
     # ---- the static-analysis gate, and lockdep-armed serving on the card ----
     lockdep_phase(sp, card)
+
+    # ---- phase 15, its second part: the installed C library ----
+    packaging_phase(capi_bench)
 
     kernels = []
     for row, name, kernel, key in rows:
@@ -4957,6 +5242,8 @@ if __name__ == "__main__":
         sys.exit(serve_profile_worker(float(sys.argv[2])))
     if sys.argv[1:2] == ["--programs-profile"]:
         sys.exit(programs_profile_worker())
+    if sys.argv[1:2] == ["--stage-profile"]:
+        sys.exit(stage_profile_worker(sys.argv[2]))
     if sys.argv[1:2] == ["--lockdep-serve"]:
         sys.exit(lockdep_serve_worker(sys.argv[2]))
     sys.exit(main())

@@ -1,7 +1,10 @@
 """Builds the CUDA sources under ``csrc/`` with ``nvcc`` and loads them with ctypes.
 
-Each ``csrc/<name>.cu`` becomes ``build/spfft_tpu_torch/<name>-<hash>.so`` at
-the root of the checkout, where ``<hash>`` is the content hash of the source
+Each ``csrc/<name>.cu`` becomes ``<name>-<hash>.so`` in :data:`BUILD_DIR`:
+``build/spfft_tpu_torch/`` at the root of a checkout (the directory that
+holds ``pyproject.toml`` beside the package), or, for an installed copy
+(``pip install .``), ``~/.cache/spfft_tpu_torch/``, a directory the user can
+write where site-packages may not be. ``<hash>`` is the content hash of the source
 and of every ``csrc/`` header it includes: a changed source or header builds
 anew, an unchanged one loads the library already there. Beside the library,
 ``<name>-<hash>.log`` keeps what ``nvcc`` printed (ptxas's registers, shared
@@ -15,7 +18,11 @@ host compilers (``g++``, the C compiler, ``gfortran`` where there is one):
 running interpreter (``sysconfig``), and the programs that link it (the C
 and C++ API tests, the benchmark, the examples), into
 ``build/spfft_tpu_torch/native/<hash>/``, keyed by the content of every
-source and header and the interpreter's build, like the kernels.
+source and header and the interpreter's build, like the kernels. It is
+what the tests and ``chip_smoke.py`` build with. The installable route is the
+CMake tree ``native/CMakeLists.txt`` (``cmake --install``, then
+``find_package(SpFFTTPUTorch)`` or ``pkg-config spfft_tpu_torch``), which
+builds the same sources with the same flags.
 """
 from __future__ import annotations
 
@@ -32,7 +39,17 @@ from pathlib import Path
 from .errors import GPUSupportError
 
 CSRC = Path(__file__).resolve().parent / "csrc"
-BUILD_DIR = Path(__file__).resolve().parent.parent / "build" / "spfft_tpu_torch"
+
+
+def _build_dir() -> Path:
+    """The checkout's ``build/spfft_tpu_torch/``, else the user's cache."""
+    root = Path(__file__).resolve().parent.parent
+    if (root / "pyproject.toml").is_file():
+        return root / "build" / "spfft_tpu_torch"
+    return Path.home() / ".cache" / "spfft_tpu_torch"
+
+
+BUILD_DIR = _build_dir()
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",

@@ -727,7 +727,9 @@ class DistributedTransform(_Observed):
         """The plan card (:mod:`spfft_tpu_torch.obs.plancard`), schema
         ``spfft_tpu.obs.plan_card/1``: the local card's keys, the shards,
         mesh and decomposition, the exchange and the DEFAULT policy's
-        alternatives. ``include_compiled=True`` raises: there is no HLO."""
+        alternatives. ``include_compiled=True`` adds the ``compiled`` section
+        (:mod:`spfft_tpu_torch.obs.hlo`); over a process group every process
+        reports together, as it calls the plan."""
         return obs.plan_card(self, include_compiled=include_compiled)
 
     # ---- accessors ----------------------------------------------------------------------

@@ -19,8 +19,12 @@ The port of ``spfft_tpu/faults/ladder.py``. The rungs the port takes:
    (:mod:`spfft_tpu_torch.tuning.wisdom`), ``sched_place_failed`` and
    ``host_lost`` (:mod:`spfft_tpu_torch.sched`).
 
-The JAX package's ``hlo.stats`` rung waits for its subsystem. Every rung
-lands in the plan's ``degradations`` list (the plan card) and counts
+5. **Compiled-program statistics**: ``hlo_stats_unavailable``
+   (:mod:`spfft_tpu_torch.obs.plancard`, fault site ``hlo.stats``): the card
+   without its ``compiled`` section.
+
+Every rung lands in the plan's ``degradations`` list (the plan card; the
+card's own copy for ``hlo_stats_unavailable``) and counts
 ``degradations_total{event}``.
 """
 from __future__ import annotations

@@ -12,8 +12,8 @@ ladder's response.
 ``ir.compile``, ``ir.batch``, ``sync.fence``, ``verify.check``,
 ``tuning.trial``, ``wisdom.load``, ``wisdom.save``, ``sched.place``,
 ``sched.run``, and the serving sites ``serve.admit``, ``serve.batch``,
-``serve.dispatch``, ``host.heartbeat`` and ``rpc.submit``; ``hlo.stats``
-names a subsystem that has no counterpart yet and is reached by no call.
+``serve.dispatch``, ``host.heartbeat``, ``rpc.submit`` and ``hlo.stats``
+(the compiled-program statistics of ``report(include_compiled=True)``).
 
 **Kinds** (:data:`KINDS`): ``raise`` raises :class:`InjectedFault`;
 ``nan`` / ``corrupt`` poison the site's payload (tensors multiplied by NaN /

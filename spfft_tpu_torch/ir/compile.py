@@ -387,31 +387,48 @@ class _Program:
         the split sizes fixed when the plan was built."""
         if self.device.type != "cuda":
             return
-        with _CAPTURE_LOCK, torch.cuda.device(self.device):
-            static_in = [None if a is None else a.to(self.device).clone(
-                memory_format=torch.contiguous_format) for a in args]
-            current = torch.cuda.current_stream(self.device)
-            try:
-                if warm:
-                    side = torch.cuda.Stream(self.device)
-                    side.wait_stream(current)
-                    with torch.cuda.stream(side):
-                        self.body(*static_in)
-                    current.wait_stream(side)
-                graph = torch.cuda.CUDAGraph()
-                # held across the capture on purpose: captures take turns
-                with no_collection(), torch.cuda.graph(graph, pool=self.pool,  # noqa: SA011
-                                                       capture_error_mode="thread_local"):
-                    static_out = self.body(*static_in)
-            except Exception as e:  # the class is kept: EngineIr decides the rung
-                # a capture that fails inside torch.cuda.graph leaves its
-                # stream current: the caller's comes back
-                torch.cuda.set_stream(current)
-                e.add_note(f"{self.what}: CUDA graph capture failed at stage {self.stage()!r}")
-                raise
-        self._captured = (graph, static_in, static_out)
+        self._captured = capture(self.body, args, self.device, self.pool, warm=warm,
+                                 where=lambda: f"{self.what}: CUDA graph capture failed at "
+                                               f"stage {self.stage()!r}")
         if self.collective:
             _COLLECTIVE_GRAPHS.add(self)
+
+
+def capture(body, args, device, pool, *, warm=True, where=None, graph=None,
+            around=contextlib.nullcontext):
+    """``(graph, static inputs, static outputs)``: ``body`` captured over
+    static inputs holding ``args`` into the memory pool ``pool``, after one
+    eager run on a side stream unless ``warm`` is False (see
+    :meth:`_Program._capture`). ``graph`` is the ``torch.cuda.CUDAGraph`` to
+    capture into (a new one by default); ``around()`` is entered around the
+    captured call alone (the compiled-program statistics' recorder,
+    :mod:`spfft_tpu_torch.obs.hlo`). A failure keeps its class and gets the
+    note ``where()``."""
+    with _CAPTURE_LOCK, torch.cuda.device(device):
+        static_in = [None if a is None else a.to(device).clone(
+            memory_format=torch.contiguous_format) for a in args]
+        current = torch.cuda.current_stream(device)
+        try:
+            if warm:
+                side = torch.cuda.Stream(device)
+                side.wait_stream(current)
+                with torch.cuda.stream(side):
+                    body(*static_in)
+                current.wait_stream(side)
+            graph = torch.cuda.CUDAGraph() if graph is None else graph
+            # held across the capture on purpose: captures take turns
+            with no_collection(), torch.cuda.graph(graph, pool=pool,  # noqa: SA011
+                                                   capture_error_mode="thread_local"):
+                with around():
+                    static_out = body(*static_in)
+        except Exception as e:  # the class is kept: EngineIr decides the rung
+            # a capture that fails inside torch.cuda.graph leaves its
+            # stream current: the caller's comes back
+            torch.cuda.set_stream(current)
+            if where is not None:
+                e.add_note(where())
+            raise
+    return graph, static_in, static_out
 
 
 @contextlib.contextmanager
@@ -500,6 +517,19 @@ class EngineIr:
 
     def _graph(self, direction, scaling):
         return self.graphs["backward"] if direction == "backward" else self.graphs["forward"][scaling]
+
+    def body(self, direction, scaling=None):
+        """A fresh function of one direction's program, as its fused program
+        runs it: :func:`compose` of the direction's graph, or on the legacy
+        path the engine's stage bodies in order. The plan's own programs and
+        their graphs are untouched (the compiled-program statistics,
+        :mod:`spfft_tpu_torch.obs.hlo`)."""
+        if self.graphs is None:
+            e = self._engine
+            if direction == "backward":
+                return e._legacy_backward
+            return lambda *args: e._legacy_forward(ScalingType(scaling), *args)
+        return compose(self._graph(direction, scaling), self.side)
 
     def _program(self, direction, scaling, batch=None):
         key = (direction, scaling, batch)

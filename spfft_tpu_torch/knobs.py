@@ -206,8 +206,9 @@ REGISTRY = {k.name: k for k in (
          "own)"),
     # ---- test-only ----
     Knob("SPFFT_TPU_FUZZ_SEED", "int", 0,
-         "test-only: seed offset of the scheduler's fuzzed task graphs "
-         "(tests/test_torch_sched.py)", internal=True),
+         "test-only: seed offset of the fuzzed task graphs and engine plans "
+         "(tests/test_torch_sched.py, tests/test_torch_engine_parity_fuzz.py)",
+         internal=True),
 )}
 
 _TRUE_WORDS = ("1", "true", "on")

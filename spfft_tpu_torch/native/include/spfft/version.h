@@ -3,7 +3,7 @@
  * feature-test against (the reference exposes its version through CMake's
  * PROJECT_VERSION in SpFFT.pc / SpFFTConfigVersion.cmake; these macros make
  * it available to the preprocessor as well). Keep in sync with the VERSION in
- * native/CMakeLists.txt.
+ * spfft_tpu_torch/native/CMakeLists.txt.
  */
 #ifndef SPFFT_TPU_VERSION_H
 #define SPFFT_TPU_VERSION_H

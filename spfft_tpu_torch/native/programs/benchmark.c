@@ -204,6 +204,7 @@ int main(int argc, char** argv) {
   double* freq[MAX_TRANSFORMS];
   double t_backward = 0.0, t_forward = 0.0, t0, t_total;
   double pair_ms, gflops, flops;
+  unsigned long long checksum;
   FILE* out;
 
   if (!parse_args(argc, argv, &o)) return 2;
@@ -320,6 +321,17 @@ int main(int argc, char** argv) {
     }
   }
 
+  /* FNV-1a over the bytes of the first transform's final values: two
+   * builds of the library agree bitwise where their checksums do */
+  {
+    const unsigned char* bytes = (const unsigned char*)freq[0];
+    size_t b;
+    checksum = 14695981039346656037ull;
+    for (b = 0; b < (size_t)2 * (size_t)n * sizeof(double); ++b) {
+      checksum = (checksum ^ bytes[b]) * 1099511628211ull;
+    }
+  }
+
   pair_ms = 1e3 * t_total / (o.repeats * o.num_transforms);
   flops = 2.0 * 5.0 * (double)o.dims[0] * o.dims[1] * o.dims[2] *
           log2((double)o.dims[0] * o.dims[1] * o.dims[2]);
@@ -335,14 +347,15 @@ int main(int argc, char** argv) {
              " \"num_transforms\": %d, \"shards\": %d, \"exchange\": \"%s\","
              " \"num_sticks\": %d, \"num_values\": %lld, \"repeats\": %d},\n"
              "  \"results\": {\"ms_per_pair\": %.3f, \"gflops\": %.1f,"
-             " \"backward_ms\": %.3f, \"forward_ms\": %.3f},\n"
+             " \"backward_ms\": %.3f, \"forward_ms\": %.3f,"
+             " \"values_fnv1a\": \"%016llx\"},\n"
              "  \"harness\": \"native-c\"\n"
              "}\n",
              o.dims[0], o.dims[1], o.dims[2], o.sparsity, o.r2c ? "r2c" : "c2c",
              o.pu, o.num_transforms, o.shards, o.shards > 1 ? o.exchange : "none",
              num_sticks, n, o.repeats, pair_ms, gflops,
              1e3 * t_backward / (o.repeats * o.num_transforms),
-             1e3 * t_forward / (o.repeats * o.num_transforms));
+             1e3 * t_forward / (o.repeats * o.num_transforms), checksum);
     fputs(buf, stdout);
     if (out) {
       fputs(buf, out);

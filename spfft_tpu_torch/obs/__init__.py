@@ -21,10 +21,12 @@ The layers, coarse to fine, as in the JAX package:
 6. **Fleet aggregation** (:mod:`.fleet`): every serving host's snapshot
    merged into one host-labeled document (``spfft_tpu.obs.fleet/1``).
 
-The JAX package's HLO statistics (``obs/hlo.py``, which has no counterpart
-without HLO) are not ported: what is left of ROADMAP queue A item 8b.
+7. **Compiled-program statistics** (:mod:`.hlo`, ``report(include_compiled=True)``):
+   the backward program's op classes from a dispatch record, its
+   element-granular gathers and scatters, and on the card a fresh capture
+   of its CUDA graph with the graph's nodes by kind and kernel.
 """
-from . import fleet, perf, trace  # noqa: F401
+from . import fleet, hlo, perf, trace  # noqa: F401
 from .registry import (  # noqa: F401
     HISTOGRAM_BUCKETS,
     METRICS_ENV,

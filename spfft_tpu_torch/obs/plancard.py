@@ -17,8 +17,13 @@ appears in a later card. ``verification`` is the supervisor's own record
 decision record (:mod:`spfft_tpu_torch.tuning`), ``placement`` the record of
 a plan that the scheduler's placement pass built (:mod:`spfft_tpu_torch.sched`);
 each is absent otherwise, as in the JAX card.
-``include_compiled=True`` (HLO statistics, ``obs/hlo.py``) has no
-counterpart without HLO and raises.
+``include_compiled=True`` adds the ``compiled`` section
+(:func:`spfft_tpu_torch.obs.hlo.compiled_stats`: the backward program's op
+classes, its element-granular gathers and scatters, its compile time and
+memory, and on a CUDA plan its CUDA graph's nodes). It is optional: a
+failure there (fault site ``hlo.stats``) gives the card without it and the
+``hlo_stats_unavailable`` degradation, never a failed report. Over a process
+group every process reports together, as it calls the plan.
 """
 from __future__ import annotations
 
@@ -70,6 +75,8 @@ TRIAL_RESULT_KEYS = ("ms", "error")
 PLACEMENT_KEYS = ("provenance", "hit", "reason", "choice", "device", "device_index")
 # the IR section (spfft_tpu_torch/ir/compile.py IR_KEYS) and the batch section
 IR_SECTION_KEYS = ("fused", "path", "requested", "stages", "donation")
+# the compiled section (obs.hlo.compiled_stats); a CUDA plan adds graph_nodes
+COMPILED_KEYS = ("compile_seconds", "hlo_op_classes", "element_granular_ops", "memory_analysis")
 BATCH_SECTION_KEYS = ("enabled", "requested", "sizes", "failed")
 
 
@@ -160,13 +167,8 @@ def _platform(device) -> str:
 
 def plan_card(transform, *, include_compiled: bool = False) -> dict:
     """Build the card of a local or distributed plan (module docstring)."""
-    from ..errors import InvalidParameterError
     from ..types import TransformType, wire_dtype
 
-    if include_compiled:
-        raise InvalidParameterError(
-            "include_compiled=True: the port has no compiled-program (HLO) statistics "
-            "to report (obs/hlo.py, what is left of ROADMAP queue A item 8b)")
     ex = transform._exec
     distributed = getattr(transform, "_mesh", None) is not None
     p = transform._params
@@ -219,6 +221,17 @@ def plan_card(transform, *, include_compiled: bool = False) -> dict:
                 card["exchange_policy"] = costs
         else:
             card["exchange_policy"] = _exchange_policy(transform)
+    if include_compiled:
+        from ..faults import InjectedFault, record_degradation, summarize
+        from .hlo import compiled_stats
+
+        # Compiled introspection is optional (ladder rung 5): a record,
+        # capture or stats failure (fault site hlo.stats) degrades to a card
+        # without the "compiled" section, recorded; never a failed report().
+        try:
+            card["compiled"] = compiled_stats(transform)
+        except (InjectedFault, RuntimeError, OSError) as e:
+            card["degradations"].append(record_degradation("hlo_stats_unavailable", summarize(e)))
     if getattr(transform, "_tuning", None) is not None:
         card["tuning"] = transform._tuning
     if getattr(transform, "_placement", None) is not None:
@@ -275,6 +288,8 @@ def validate_plan_card(card: dict) -> list:
         missing.extend(f"batch.{k}" for k in BATCH_SECTION_KEYS if k not in rec)
         if rec.get("requested") not in ("env", "default"):
             missing.append(f"batch.requested (unknown: {rec.get('requested')!r})")
+    if "compiled" in card:
+        missing.extend(f"compiled.{k}" for k in COMPILED_KEYS if k not in card["compiled"])
     if "placement" in card:
         rec = card["placement"]
         missing.extend(f"placement.{k}" for k in PLACEMENT_KEYS if k not in rec)

@@ -40,6 +40,7 @@ import torch
 
 from .. import _build
 from ..errors import GPULaunchError, InvalidParameterError
+from ..obs import hlo
 
 # Launches of the CUDA kernel, keyed by (batch, M, K, N, a_imag, b_imag,
 # want_imag, precision). The wrapper adds one where it launches and nowhere else.
@@ -321,6 +322,7 @@ def _check_out(out, batch, m, n, want_imag, like):
             )
 
 
+@hlo.kernel_entry
 def complex_matmul(ar, ai, br, bi, want_imag: bool = True, constant: Constant | None = None,
                    precision: str = "highest", out=None):
     """``C[b] = A[b] @ B[b]`` -> ``(cr, ci)`` of shape ``(batch, M, N)``.
@@ -342,22 +344,23 @@ def complex_matmul(ar, ai, br, bi, want_imag: bool = True, constant: Constant | 
         raise InvalidParameterError(f"the {BF16_CONSTANT!r} form needs its prepared constant")
     if out is not None:
         _check_out(out, batch, m, n, want_imag, ar)
+    if ar.device.type not in ("cpu", "cuda"):
+        raise InvalidParameterError(f"complex_matmul runs on cpu or cuda, not {ar.device}")
+    if out is None and (ar.device.type == "cuda" or batch == 0 or m == 0 or n == 0):
+        cr = torch.empty((batch, m, n), dtype=ar.dtype, device=ar.device)
+        out = (cr, torch.empty_like(cr) if want_imag else None)
+    if batch == 0 or m == 0 or n == 0:  # nothing to compute, on either device
+        return out[0], out[1]
     if ar.device.type == "cpu":
         result = complex_matmul_plain(ar, ai, br, bi, want_imag)
+        hlo.kernel_ran(hlo.K1, ar)  # where the card launches the kernel
         if out is None:
             return result
         for o, r in zip(out, result):
             if o is not None:
                 o.copy_(r)
         return out
-    if ar.device.type != "cuda":
-        raise InvalidParameterError(f"complex_matmul runs on cpu or cuda, not {ar.device}")
-    if out is None:
-        cr = torch.empty((batch, m, n), dtype=ar.dtype, device=ar.device)
-        out = (cr, torch.empty_like(cr) if want_imag else None)
     cr, ci = out
-    if batch == 0 or m == 0 or n == 0:
-        return cr, ci
     if not supports(batch, m, k, n, ar.dtype):
         raise InvalidParameterError(
             f"complex_matmul kernel does not take batch={batch} M={m} K={k} N={n} {ar.dtype}"
@@ -374,6 +377,7 @@ def complex_matmul(ar, ai, br, bi, want_imag: bool = True, constant: Constant | 
     if err:
         raise GPULaunchError(f"complex_matmul launch failed: cudaError {err}")
     launches[(batch, m, k, n, ai is not None, bi is not None, want_imag, precision)] += 1
+    hlo.kernel_ran(hlo.K1, ar)
     return cr, ci
 
 

@@ -21,6 +21,7 @@ import torch
 
 from .. import _build
 from ..errors import GPULaunchError, InvalidParameterError
+from ..obs import hlo
 
 # Launches of the CUDA kernel, keyed by (n_rows, n_src, width, planes). The
 # wrapper adds one where it launches and nowhere else.
@@ -45,6 +46,7 @@ def _row_strided(t) -> bool:
         t.shape[0] <= 1 or t.stride(0) >= t.shape[1])
 
 
+@hlo.kernel_entry
 def row_gather(src_re, src_im, idx, out=None):
     """Gather rows of the ``(n_src, W)`` planes ``src_re`` and (unless None)
     ``src_im`` by the int32 table ``idx`` -> ``(out_re, out_im)`` of shape
@@ -76,22 +78,23 @@ def row_gather(src_re, src_im, idx, out=None):
             and idx.is_contiguous()):
         raise InvalidParameterError(
             "row_gather takes row-strided planes of one row stride and a contiguous index")
+    if src_re.device.type not in ("cpu", "cuda"):
+        raise InvalidParameterError(f"row_gather runs on cpu or cuda, not {src_re.device}")
+    if out is None and (src_re.device.type == "cuda" or n_rows == 0 or width == 0):
+        out = [torch.empty((n_rows, width), dtype=src_re.dtype, device=src_re.device)
+               for _ in planes]
+    if n_rows == 0 or width == 0:  # nothing to gather, on either device
+        return out[0], (out[1] if src_im is not None else None)
     if src_re.device.type == "cpu":
         got = [None if t is None else row_gather_plain(t, idx) for t in (src_re, src_im)]
+        hlo.kernel_ran(hlo.K2, src_re)  # where the card launches the kernel
         if out is None:
             return tuple(got)
         for o, g in zip(out, got):
             if o is not None:
                 o.copy_(g)
         return tuple(out)
-    if src_re.device.type != "cuda":
-        raise InvalidParameterError(f"row_gather runs on cpu or cuda, not {src_re.device}")
-    if out is None:
-        out = [torch.empty((n_rows, width), dtype=src_re.dtype, device=src_re.device)
-               for _ in planes]
     out_re, out_im = out[0], (out[1] if src_im is not None else None)
-    if n_rows == 0 or width == 0:
-        return out_re, out_im
     lib = _library()
     ld_src = src_re.stride(0) if n_src > 1 else width
     ld_out = out_re.stride(0) if n_rows > 1 else width
@@ -106,6 +109,7 @@ def row_gather(src_re, src_im, idx, out=None):
     if err:
         raise GPULaunchError(f"row_gather launch failed: cudaError {err}")
     launches[(n_rows, n_src, width, len(planes))] += 1
+    hlo.kernel_ran(hlo.K2, src_re)
     return out_re, out_im
 
 

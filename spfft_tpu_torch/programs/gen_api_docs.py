@@ -223,13 +223,16 @@ def installation_page() -> str:
 
         ## Python package
 
-        The port is Python over PyTorch; put the repository root on
-        `PYTHONPATH` and `import spfft_tpu_torch`. Dependencies: `torch`
-        (built for CUDA on the card), `numpy`. Its kernels (K1, the complex
-        matrix product, and K2, the row gather: `spfft_tpu_torch/csrc/*.cu`,
-        CUDA C++ for `sm_90a`) are built with `nvcc` into the checkout's
-        `build/spfft_tpu_torch/` on first use; on CPU tensors each kernel's
-        plain PyTorch version runs instead, and nothing is built.
+        The port is Python over PyTorch: put the repository root on
+        `PYTHONPATH`, or `pip install .` (the package ships its CUDA and
+        C/C++ sources as package data), and `import spfft_tpu_torch`.
+        Dependencies: `torch` (built for CUDA on the card), `numpy`. Its
+        kernels (K1, the complex matrix product, and K2, the row gather:
+        `spfft_tpu_torch/csrc/*.cu`, CUDA C++ for `sm_90a`) are built with
+        `nvcc` on first use, into the checkout's `build/spfft_tpu_torch/`, or
+        for an installed copy (no `pyproject.toml` beside the package) into
+        `~/.cache/spfft_tpu_torch/`; on CPU tensors each kernel's plain
+        PyTorch version runs instead, and nothing is built.
 
         ## Native library
 
@@ -243,6 +246,25 @@ def installation_page() -> str:
         headers and Fortran module (`spfft_tpu_torch/native/include/spfft/`).
         The embedded interpreter needs the checkout and the environment's
         site-packages on `PYTHONPATH` (the command prints it).
+
+        ## Installing the native library (CMake)
+
+        ```sh
+        cmake -S spfft_tpu_torch/native -B build/cmake \\
+              -DPython3_EXECUTABLE=$(which python3) -DCMAKE_INSTALL_PREFIX=$PREFIX
+        cmake --build build/cmake && cmake --install build/cmake
+        ```
+
+        The same three sources with the same flags, installed with the
+        `spfft/*` headers, a CMake package config and a pkg-config file: a
+        consumer finds it with `find_package(SpFFTTPUTorch)` (the imported
+        target `SpFFTTPUTorch::spfft_tpu_torch`) or `pkg-config
+        spfft_tpu_torch` (`-lspfft_tpu_torch`; the interpreter's link flags
+        under `Libs.private`; the installed library keeps libpython's path).
+        `-DSPFFT_TPU_TORCH_BUILD_TESTS=OFF` leaves out the C and C++ API test
+        programs; the benchmark program is always built. The consumer project
+        `spfft_tpu_torch/native/tests/consumer/` is the smallest such caller
+        (`tests/test_torch_packaging.py` builds it against a scratch prefix).
 
         ## Verifying
 
@@ -321,7 +343,7 @@ def obs_page() -> str:
     run metrics) and the `spfft_tpu_torch.obs.trace` flight recorder, one page —
     they share the run-ID join key."""
     from spfft_tpu_torch import obs
-    from spfft_tpu_torch.obs import trace
+    from spfft_tpu_torch.obs import hlo, trace
 
     metrics = class_page(
         "Observability",
@@ -365,7 +387,22 @@ def obs_page() -> str:
             trace.suppressed_dumps,
         ],
     )
-    return metrics + "\n" + tracing
+    compiled = class_page(
+        "Compiled-program statistics (`spfft_tpu_torch.obs.hlo`)",
+        doc(hlo),
+        [hlo.Record],
+        [
+            hlo.compiled_stats,
+            hlo.record_program,
+            hlo.recording,
+            hlo.kernel_entry,
+            hlo.kernel_ran,
+            hlo.element_granular_ops,
+            hlo.hlo_op_class_counts,
+            hlo.graph_node_counts,
+        ],
+    )
+    return metrics + "\n" + tracing + "\n" + compiled
 
 
 def perf_page() -> str:

@@ -8,10 +8,11 @@ one round trip did (transforms executed, bytes staged, dispatch and wait
 latencies). The document is validated (``obs.validate_report``) before it is
 written; a missing key exits 1.
 
-The port has no compiled-program statistics, so a card is always built
-without them (``plan_card(include_compiled=True)`` raises); ``--no-compiled``
-is accepted for the JAX program's command lines. Plans run on the card
-unless ``--device cpu`` is given.
+The card carries the ``compiled`` section (``report(include_compiled=True)``,
+:mod:`spfft_tpu_torch.obs.hlo`: the backward program's op classes, its
+element-granular gathers and scatters, and on the card its CUDA graph's
+nodes) unless ``--no-compiled`` is given, as in the JAX program. Plans run
+on the card unless ``--device cpu`` is given.
 
     python -m spfft_tpu_torch.programs.report -d 32 32 32 --device cpu
     python -m spfft_tpu_torch.programs.report -d 256 256 256 -s 0.15 --shards 4
@@ -60,7 +61,7 @@ def main(argv=None) -> int:
     ap.add_argument("--exchange", default="DEFAULT",
                     help="exchange discipline name (distributed plans)")
     ap.add_argument("--no-compiled", action="store_true",
-                    help="accepted; the port's card has no compiled-program section")
+                    help="skip the compiled-program statistics (a fresh capture)")
     ap.add_argument("--no-roundtrip", action="store_true",
                     help="emit the card without executing a transform pair")
     ap.add_argument("-o", default=None, help="write the report JSON here")
@@ -72,7 +73,7 @@ def main(argv=None) -> int:
     from spfft_tpu_torch import ScalingType, obs
 
     plan = build_plan(args, pu)
-    card = plan.report()
+    card = plan.report(include_compiled=not args.no_compiled)
     if not args.no_roundtrip:
         # one round trip, so that the snapshot carries real run counters
         values = random_values(plan, np.random.default_rng(0), bool(args.shards > 1 or args.pencil))

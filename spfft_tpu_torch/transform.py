@@ -783,7 +783,8 @@ class Transform(_Observed):
     def report(self, *, include_compiled: bool = False) -> dict:
         """The plan card (:mod:`spfft_tpu_torch.obs.plancard`): this plan's
         decisions under schema ``spfft_tpu.obs.plan_card/1``.
-        ``include_compiled=True`` raises: there is no HLO to report."""
+        ``include_compiled=True`` adds the ``compiled`` section: the backward
+        program's statistics (:mod:`spfft_tpu_torch.obs.hlo`)."""
         return obs.plan_card(self, include_compiled=include_compiled)
 
 

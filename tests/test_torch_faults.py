@@ -54,6 +54,20 @@ def _clean(monkeypatch):
         o.trace.disable()
 
 
+def test_hlo_stats_degrades_report():
+    """The twin of the JAX package's test: ``hlo.stats=raise`` gives the
+    card without its compiled section and with the degradation."""
+    trip, _, _ = problem()
+    t = plan(tp, trip)
+    with faults.inject("hlo.stats=raise"):
+        card = t.report(include_compiled=True)
+    assert "compiled" not in card
+    assert card["degradations"][0]["event"] == "hlo_stats_unavailable"
+    assert obs.validate_plan_card(card) == []
+    # fault-free report still carries the compiled section
+    assert "compiled" in t.report(include_compiled=True)
+
+
 def problem(seed=3):
     trip = np.asarray(tp.create_spherical_cutoff_triplets(DIM, DIM, DIM, 0.8))
     rng = np.random.default_rng(seed)

@@ -192,11 +192,18 @@ def test_grid_report_matches():
         assert pcard == jcard
 
 
-def test_include_compiled_raises_typed():
+def test_local_plan_card_compiled_stats():
+    """The twin of the JAX package's test: a local card with its compiled
+    section, valid under both packages' rules and JSON-stable."""
     per, _, _ = problem(False, 1)
-    t = make_plan(tp, False, 1, per)
-    with pytest.raises(tp.InvalidParameterError, match="8b"):
-        t.report(include_compiled=True)
+    card = make_plan(tp, False, 1, per).report(include_compiled=True)
+    assert obs.validate_plan_card(card) == []
+    assert jplancard.validate_plan_card(card) == []
+    compiled = card["compiled"]
+    assert compiled["compile_seconds"] > 0
+    assert isinstance(compiled["hlo_op_classes"], dict) and compiled["hlo_op_classes"]
+    assert isinstance(compiled["element_granular_ops"], int)
+    assert json.loads(json.dumps(card)) == card
 
 
 def test_vocabularies_are_the_jax_packages():
