@@ -1381,15 +1381,16 @@ def interleaved_pair_ms(sp, plans, values, rounds: int = 6, pairs: int = 4, raw=
 
 
 def device_kernels(prof) -> list:
-    """The profiler's device events but for the stage ranges that the staged
-    path's ``trace_annotation`` draws on the device timeline: the kernels
-    and copies."""
+    """The profiler's device events but for the ranges drawn on the device
+    timeline (the staged path's ``trace_annotation`` stage ranges and the
+    ``timing.scoped`` ``spfft:<label>`` ranges): the kernels and copies."""
     from torch.autograd import DeviceType
 
+    from spfft_tpu_torch import timing
     from spfft_tpu_torch.obs import STAGES
 
     return [e for e in prof.events() if e.device_type == DeviceType.CUDA
-            and e.name not in STAGES]
+            and e.name not in STAGES and not e.name.startswith(timing.RANGE_PREFIX)]
 
 
 def union_us(spans) -> float:

@@ -64,9 +64,12 @@ batch and direction; the metrics registry's ``ir_dispatches_total{mode,
 direction}`` counts the same. On the staged path each node runs under
 ``timing.trace_annotation(<its stage label>)``, so a ``torch.profiler``
 trace names each stage's device time; with no profiler running that is the
-shared no-op scope. Every count, scope and span sits
-outside the captured region: host code inside a capture runs once at capture
-and never at a replay.
+shared no-op scope. A CUDA program's call after its capture is timed in
+three ``timing.scoped`` scopes: "copy in" (the caller's tensors into the
+static inputs), "replay" (``graph.replay()``) and "copy out" (``finish``:
+the clone, or the batch's stack); a CPU plan's eager call has none. Every
+count, scope and span sits outside the captured region: host code inside a
+capture runs once at capture and never at a replay.
 """
 from __future__ import annotations
 
@@ -348,18 +351,22 @@ class _Program:
         if self._captured is None:
             self._capture(args)
         graph, static_in, static_out = self._captured
-        for buf, a in zip(static_in, args):
-            if (buf is None) != (a is None) or (buf is not None and buf.shape != a.shape):
-                raise InvalidParameterError(
-                    f"{self.what}: inputs differ from those the graph was captured on"
-                )
-            if buf is not None:
-                buf.copy_(a)
-        try:
-            graph.replay()
-        except RuntimeError as e:
-            raise GPUError(f"{self.what}: CUDA graph replay failed: {e}") from e
-        return self.finish(static_out)
+        # the replay's host scopes, after the capture and outside it
+        with timing.scoped("copy in"):
+            for buf, a in zip(static_in, args):
+                if (buf is None) != (a is None) or (buf is not None and buf.shape != a.shape):
+                    raise InvalidParameterError(
+                        f"{self.what}: inputs differ from those the graph was captured on"
+                    )
+                if buf is not None:
+                    buf.copy_(a)
+        with timing.scoped("replay"):
+            try:
+                graph.replay()
+            except RuntimeError as e:
+                raise GPUError(f"{self.what}: CUDA graph replay failed: {e}") from e
+        with timing.scoped("copy out"):
+            return self.finish(static_out)
 
     def eager(self, *args):
         """The body in one eager call on the caller's stream (a CPU plan's

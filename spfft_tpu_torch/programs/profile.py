@@ -40,13 +40,17 @@ TRACE_FILE = "spfft_trace.json"
 
 def stage_kernels(prof, pairs: int) -> dict:
     """Per ``STAGES`` range on the device's timeline: the device ms a pair
-    of the kernels that run inside it, and their names with counts."""
+    of the kernels that run inside it, and their names with counts. The
+    ``timing.scoped`` ranges (``spfft:<label>``) are drawn there too, and
+    are no kernels."""
     from torch.autograd import DeviceType
 
+    from spfft_tpu_torch import timing
     from spfft_tpu_torch.obs import STAGES
 
     device = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
-    kernels = [e for e in device if e.name not in STAGES]
+    kernels = [e for e in device if e.name not in STAGES
+               and not e.name.startswith(timing.RANGE_PREFIX)]
     out = {}
     for rng in (e for e in device if e.name in STAGES):
         lo, hi = rng.time_range.start, rng.time_range.end

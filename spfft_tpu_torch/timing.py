@@ -12,10 +12,19 @@ under the :func:`trace_annotation` ranges that the staged path opens around
 each node. Every scope sits outside any captured CUDA graph, so its counts
 are per call.
 
-The gate is at run time: :func:`enable`/:func:`disable`. Disabled (the
-default), :func:`scoped` hands out one shared no-op context manager. Each
-scope is also a ``phase`` span of the flight recorder
-(:mod:`spfft_tpu_torch.obs.trace`) when that is armed.
+The pair path (``backward_pair``/``forward_pair``) has the same
+"backward"/"forward", "input staging" and "dispatch" scopes, and on the card
+the IR runtime's "copy in" (the caller's tensors into the CUDA graph's static
+inputs), "replay" (``graph.replay()``) and "copy out" (the clone of the
+static outputs) inside its "dispatch".
+
+One scope feeds three sinks, each with its own run-time gate: the timing
+tree (:func:`enable`/:func:`disable`), the flight recorder's ``phase`` spans
+(:mod:`spfft_tpu_torch.obs.trace`, when armed) and, while a
+``torch.profiler`` runs, a ``record_function`` range named
+``RANGE_PREFIX + label`` (``spfft:dispatch``) on the profiler's timeline,
+on the same clock as the device's activities. With all three off (the
+default), :func:`scoped` hands out one shared no-op context manager.
 
 The processed tree reports rt_graph's statistics: count, total, mean, median,
 quartiles, min, max, percentage of the top-level total and of the parent
@@ -33,8 +42,15 @@ from dataclasses import dataclass, field
 
 import numpy as np
 import torch
+from torch.autograd import profiler as _profiler
 
 from .obs import trace
+
+# the prefix of the profiler ranges that :func:`scoped`, :func:`start` and
+# :func:`stop` open: it tells them apart from the staged path's stage ranges
+# (:data:`~spfft_tpu_torch.obs.STAGES`, :func:`trace_annotation`) and from a
+# caller's own ranges
+RANGE_PREFIX = "spfft:"
 
 
 class _Node:
@@ -255,9 +271,9 @@ def is_enabled() -> bool:
 
 
 class _JoinedScope:
-    """Compose the timing-tree scope with the trace phase span, so one
-    :func:`scoped` call feeds both layers (timing report AND flight
-    recorder) without the call sites knowing which are armed."""
+    """Compose the scopes of the armed sinks, so one :func:`scoped` call
+    feeds the timing tree, the flight recorder and the profiler's timeline
+    without the call sites knowing which are armed."""
 
     __slots__ = ("_scopes",)
 
@@ -275,25 +291,36 @@ class _JoinedScope:
         return False
 
 
+def _profiler_range(label: str):
+    """The ``torch.profiler`` range of a scope, or None with no profiler
+    running (the check :func:`trace_annotation` makes)."""
+    if not _profiler._is_profiler_enabled:
+        return None
+    return torch.profiler.record_function(RANGE_PREFIX + label)
+
+
 def scoped(label: str):
     """Scoped timing region (the HOST_TIMING_SCOPED macro,
-    reference: src/timing/timing.hpp:34-62). No-op when disabled. When the
-    flight recorder is armed (:mod:`spfft_tpu_torch.obs.trace`), the same scope
-    additionally emits a run-ID-stamped ``phase`` begin/end span — the host
-    timing tree and the execution trace share one instrumentation point."""
-    tspan = trace.span("phase", label=label) if trace.enabled() else None
-    if not _enabled:
-        return _NOOP if tspan is None else tspan
-    scope = global_timer.scoped(label)
-    return scope if tspan is None else _JoinedScope(scope, tspan)
+    reference: src/timing/timing.hpp:34-62). It feeds every armed sink: the
+    timing tree when enabled; a run-ID-stamped ``phase`` begin/end span when
+    the flight recorder (:mod:`spfft_tpu_torch.obs.trace`) is armed; a
+    ``spfft:<label>`` range while a ``torch.profiler`` runs. With none armed
+    it is the shared no-op scope."""
+    if not (_enabled or _profiler._is_profiler_enabled or trace.enabled()):
+        return _NOOP
+    scopes = [s for s in (global_timer.scoped(label) if _enabled else None,
+                          trace.span("phase", label=label) if trace.enabled() else None,
+                          _profiler_range(label)) if s is not None]
+    return scopes[0] if len(scopes) == 1 else _JoinedScope(*scopes)
 
 
 # Each start() records whether it actually opened a scope, so a stop() after an
 # enable/disable toggle stays balanced instead of corrupting the global tree.
-# The parallel _trace_spans stack keeps the flight-recorder phase spans
-# balanced across toggles the same way.
+# The parallel _trace_spans and _ranges stacks keep the flight-recorder phase
+# spans and the profiler ranges balanced across toggles the same way.
 _start_flags: list[bool] = []
 _trace_spans: list = []
+_ranges: list = []
 
 
 def start(label: str) -> None:
@@ -306,9 +333,16 @@ def start(label: str) -> None:
         _trace_spans.append(tspan)
     else:
         _trace_spans.append(None)
+    prange = _profiler_range(label)
+    if prange is not None:
+        prange.__enter__()
+    _ranges.append(prange)
 
 
 def stop(label: str) -> None:
+    prange = _ranges.pop() if _ranges else None
+    if prange is not None:
+        prange.__exit__(None, None, None)
     tspan = _trace_spans.pop() if _trace_spans else None
     if tspan is not None:
         tspan.__exit__(None, None, None)
@@ -332,6 +366,6 @@ def trace_annotation(label: str):
     package's ``jax.profiler.TraceAnnotation`` does. With no profiler
     running it hands out the shared no-op scope: ``record_function`` itself
     costs microseconds a call, once per node of every staged call."""
-    if not torch.autograd.profiler._is_profiler_enabled:
+    if not _profiler._is_profiler_enabled:
         return _NOOP
     return torch.profiler.record_function(label)

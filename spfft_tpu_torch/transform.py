@@ -428,21 +428,30 @@ class Transform(_Observed):
     def backward_pair(self, values_re, values_im):
         """(re, im) values in, space out in the engine's native layout
         (:attr:`space_domain_layout`): the (re, im) pair for C2C, the real
-        tensor for R2C. The result is retained for :meth:`forward_pair`."""
-        put = lambda v: torch.as_tensor(v, dtype=self._exec.torch_dtype,
-                                        device=self._device).reshape(-1)
-        re, im = put(values_re), put(values_im)
-        self._checked_values(re)
-        self._checked_values(im)
-        self._space_data = self._exec.backward_pair(re, im)
-        return self._space_data
+        tensor for R2C. The result is retained for :meth:`forward_pair`.
+        An ``execute`` operation, timed in "backward", "input staging" and
+        "dispatch", as :meth:`backward` is; it waits for nothing."""
+        with self._execute("backward"):
+            with timing.scoped("input staging"):
+                put = lambda v: torch.as_tensor(v, dtype=self._exec.torch_dtype,
+                                                device=self._device).reshape(-1)
+                re, im = put(values_re), put(values_im)
+                self._checked_values(re)
+                self._checked_values(im)
+            with timing.scoped("dispatch"):
+                self._space_data = self._exec.backward_pair(re, im)
+            return self._space_data
 
     def forward_pair(self, scaling: ScalingType = ScalingType.NONE):
-        """Forward over the retained native space; returns the (re, im) values."""
-        if self._space_data is None:
-            raise InvalidParameterError("no space domain data: run backward first")
-        return self._exec.forward_pair(*self._space_parts(self._space_data),
-                                       ScalingType(scaling))
+        """Forward over the retained native space; returns the (re, im) values.
+        Observed as :meth:`backward_pair` is, in "forward"."""
+        with self._execute("forward"):
+            with timing.scoped("input staging"):
+                if self._space_data is None:
+                    raise InvalidParameterError("no space domain data: run backward first")
+            with timing.scoped("dispatch"):
+                return self._exec.forward_pair(*self._space_parts(self._space_data),
+                                               ScalingType(scaling))
 
     # ---- batches of one plan (SPFFT_TPU_BATCH_FUSE) -----------------------------------
 
