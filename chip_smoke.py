@@ -9,8 +9,8 @@ Phases, one JSON line each:
 
 1. the card (``nvidia-smi`` name and power limit), the kernel build (K1 at
    its three float32 precisions, in its bfloat16-constant form
-   ``complex_matmul_tf32x2`` and in float64, and K2, one ``nvcc`` each, in
-   parallel), and what ptxas reports for each kernel (registers, spills) and
+   ``complex_matmul_tf32x2`` and in float64, K2 and the line FFT, one
+   ``nvcc`` each, in parallel), and what ptxas reports for each kernel (registers, spills) and
    how many tensor-core instructions (``HGMMA``, ``HMMA``, the float64
    library's ``DMMA``) ``cuobjdump -sass`` finds;
 2. the plans, all at 256^3 (``PLANS``): in float32, C2C and R2C at the
@@ -44,7 +44,14 @@ Phases, one JSON line each:
    (``run_k2_odd``: widths 1 to 512, float32 and float64, misaligned and
    packed planes, sentinel indices and past them, one row and more vectors
    than the card's resident threads), bitwise, and its first call inside a
-   CUDA-graph capture in a fresh process;
+   CUDA-graph capture in a fresh process; the line FFT (``line_fft_phase``)
+   at every form of the float32 "highest" plans (z rows both ways, the x
+   stage to and from the space, C2R and R2C), bitwise against its plain
+   version, with ``k1_ms`` (K1 at the same form, with the constant the
+   engine would make for it), ``library_ms`` (``torch.fft``, cuFFT, at the
+   stage's dense shape) and ``bound_ms`` (the form's bytes, read once and
+   written once, over the HBM rate), and at the forms of ``LINE_FFT_PLANS``
+   (the benchmark's 512^3 R2C plan, and 128^3 and 64^3, where it meets K1);
 4. the main path at full width: ``Transform(ProcessingUnit.GPU, ...)`` for
    every plan, backward then forward(FULL), against a complex128 dense oracle
    on the host (one per transform and radius), at the bar of the plan's
@@ -329,7 +336,7 @@ TC_PASSES = {"highest": 3, "high": 3, "default": 1, "highest-bf16": 2}
 OTHER = {"highest": "high", "high": "highest"}  # the precision a K1 row must not pass as
 PEAK_BYTES = 3.35e12
 LIBRARIES = ["complex_matmul", "complex_matmul_bf16x3", "complex_matmul_bf16x1",
-             "complex_matmul_f64", "row_gather", "complex_matmul_tf32x2"]
+             "complex_matmul_f64", "row_gather", "complex_matmul_tf32x2", "line_fft"]
 BLOCKS_OFF = {"SPFFT_TPU_SPARSE_Y_BLOCKS": "0"}
 F32, F64 = np.float32, np.float64
 # (name, transform, radius, precision, knobs while the plan is made, y plan, dtype)
@@ -598,15 +605,16 @@ def k1_forms(name, t):
     r2c = ex.is_r2c
     forms = []
     if ex.y_plan == "dense" or ex.k1_precision != "highest" or f64:
-        forms.append((f"{name}/z", "sz,zk->sk", pair(S, Z), ex._wz_b, True, None))
+        if ex._z_lines is None:  # else the line FFT runs the z stage
+            forms.append((f"{name}/z", "sz,zk->sk", pair(S, Z), ex._wz_b, True, None))
         if ex.y_plan == "dense":
             forms.append((f"{name}/y", "yxz,yk->kxz", pair(Y, A, Z), ex._wy_b, True, None))
-        if r2c:
+        if ex._x_lines is None and r2c:  # else the line FFT runs the x stage
             forms.append((f"{name}/x_backward_real_out", "kxz,xl->klz", pair(Y, A, Z), ex._wx_b,
                           False, None))
             forms.append((f"{name}/x_forward_real_in", "yxz,xk->ykz", (rnd(Y, X, Z), None),
                           ex._wx_f, True, None))
-        else:
+        elif ex._x_lines is None:
             forms.append((f"{name}/x_backward", "kxz,xl->klz", pair(Y, A, Z), ex._wx_b, True, None))
             forms.append((f"{name}/x_forward", "yxz,xk->ykz", pair(Y, X, Z), ex._wx_f, True, None))
     if ex.y_plan == "per-slot":
@@ -1086,6 +1094,179 @@ def k2_forms(name, t, gen):
     return []
 
 
+# The line FFT's forms beyond the main path's plans (float32 "highest", radius
+# 0.659, a 15 % sphere): the 512^3 R2C plan of the benchmark's
+# r2c-512-s15 cell, and 128^3 and 64^3, where it meets K1 (ops/line_fft.MIN_N)
+LINE_FFT_PLANS = [("r2c-512", "r2c", 512), ("c2c-128", "c2c", 128), ("c2c-64", "c2c", 64)]
+
+
+def line_fft_stages(ex) -> int:
+    """How many of the z and x stages of engine ``ex`` run on the line FFT."""
+    return ((getattr(ex, "_z_lines", None) is not None)
+            + (getattr(ex, "_x_lines", None) is not None))
+
+
+def line_fft_forms(name, t):
+    """Every line FFT form plan ``name`` launches: (row name, kernel call,
+    plain call, the K1 product it replaces, ``torch.fft`` at the stage's
+    dense shape, operand sets, bytes). Each call takes one operand set
+    ``(re, im, library input)``; there are :func:`l2_copies` sets. K1 runs
+    with the plan constant the engine makes where the rule leaves a stage on
+    K1. The bytes are the planes read once and written once: z every row in
+    and out; the x backward the grid's live slots in (it never reads a
+    padding slot) and the space out; the x forward the space in and every
+    slot of the grid out (a padding slot is written zero)."""
+    import torch
+    from spfft_tpu_torch.ops import complex_matmul as k1
+    from spfft_tpu_torch.ops import fft as offt
+    from spfft_tpu_torch.ops import line_fft as lf
+    from spfft_tpu_torch.types import ScalingType
+
+    ex, p = t._exec, t.params
+    R, Y, X, Z, A = ex._table_rows, p.dim_y, p.dim_x, p.dim_z, ex.num_x_active
+    r2c = ex.is_r2c
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 3)
+    rnd = lambda *shape: torch.randn(shape, generator=gen, device="cuda")
+    const = lambda w: k1.Constant(*(torch.from_numpy(np.ascontiguousarray(q)).cuda() for q in w),
+                                  "highest")
+    sets = lambda nbytes, make: [make() for _ in range(l2_copies(nbytes))]
+    forms = []
+    if ex._z_lines is not None:
+        zl, scale = ex._z_lines, 1.0 / p.total_size
+        wz_b, _, _, wz_f = offt.zy_stage_matrices(Z, Y, p.total_size, np.float32)
+        wb, wf = const(wz_b), const(wz_f[ScalingType.FULL])
+        nbytes = 2 * 8 * R * Z
+
+        def z_set():
+            re, im = rnd(R, Z), rnd(R, Z)
+            return re, im, torch.complex(re, im)
+
+        ops = sets(nbytes, z_set)
+        forms.append((f"{name}/z_backward", lambda x: lf.rows(x[0], x[1], zl, +1),
+                      lambda x: lf.rows_plain(x[0], x[1], zl, +1),
+                      lambda x: offt.complex_matmul(x[0], x[1], *wb.pair, "sz,zk->sk", constant=wb),
+                      lambda x: torch.fft.ifft(x[2], dim=1, norm="forward"), ops, nbytes))
+        forms.append((f"{name}/z_forward", lambda x: lf.rows(x[0], x[1], zl, -1, scale),
+                      lambda x: lf.rows_plain(x[0], x[1], zl, -1, scale),
+                      lambda x: offt.complex_matmul(x[0], x[1], *wf.pair, "sz,zk->sk", constant=wf),
+                      lambda x: torch.fft.fft(x[2], dim=1), ops, nbytes))
+    if ex._x_lines is not None:
+        xl = ex._x_lines
+        live = int((xl.ux >= 0).sum().item())
+        wx_b, wx_f = (const(w) for w in offt.x_stage_matrices(X, ex._slot_x, A, r2c, np.float32))
+        space_bytes = (4 if r2c else 8) * Y * X * Z
+        back_bytes, fwd_bytes = 8 * Y * live * Z + space_bytes, space_bytes + 8 * Y * A * Z
+        xf = X // 2 + 1 if r2c else X
+
+        def grid_set():
+            return rnd(Y, A, Z), rnd(Y, A, Z), torch.complex(rnd(Y, xf, Z), rnd(Y, xf, Z))
+
+        def space_set():
+            re, im = rnd(Y, X, Z), None if r2c else rnd(Y, X, Z)
+            return re, im, re if r2c else torch.complex(re, im)
+
+        gsets, ssets = sets(back_bytes, grid_set), sets(fwd_bytes, space_set)
+        if r2c:
+            k1_b = lambda x: offt.real_out_matmul(x[0], x[1], *wx_b.pair, "kxz,xl->klz",
+                                                  constant=wx_b, precision="highest")
+            k1_f = lambda x: offt.real_in_matmul(x[0], *wx_f.pair, "yxz,xk->ykz", constant=wx_f,
+                                                 precision="highest")
+            lib_b = lambda x: torch.fft.irfft(x[2], n=X, dim=1, norm="forward")
+            lib_f = lambda x: torch.fft.rfft(x[2], dim=1)
+        else:
+            k1_b = lambda x: offt.complex_matmul(x[0], x[1], *wx_b.pair, "kxz,xl->klz",
+                                                 constant=wx_b)
+            k1_f = lambda x: offt.complex_matmul(x[0], x[1], *wx_f.pair, "yxz,xk->ykz",
+                                                 constant=wx_f)
+            lib_b = lambda x: torch.fft.ifft(x[2], dim=1, norm="forward")
+            lib_f = lambda x: torch.fft.fft(x[2], dim=1)
+        forms.append((f"{name}/x_backward{'_real_out' if r2c else ''}",
+                      lambda x: lf.to_space(x[0], x[1], xl, real_out=r2c),
+                      lambda x: lf.to_space_plain(x[0], x[1], xl, real_out=r2c), k1_b, lib_b,
+                      gsets, back_bytes))
+        forms.append((f"{name}/x_forward{'_real_in' if r2c else ''}",
+                      lambda x: lf.from_space(x[0], x[1], xl),
+                      lambda x: lf.from_space_plain(x[0], x[1], xl), k1_f, lib_f, ssets,
+                      fwd_bytes))
+    return forms
+
+
+def run_line_fft(name, kernel, plain, k1_call, library, ops, nbytes, seen=()):
+    """The line FFT at one form against its plain version, bitwise, and the
+    K1 product it replaces and ``torch.fft`` beside it: ``ms``, ``k1_ms``
+    and ``library_ms`` on :func:`graph_ms`'s clock over the operand sets,
+    ``plain_ms`` on :func:`device_ms`'s (one call, replayed three times: its
+    temporaries are large), ``bound_ms`` the form's bytes over the HBM rate.
+    Returns the row and the form's launch-count key, or None where that key
+    is in ``seen``."""
+    import torch
+    from spfft_tpu_torch.ops import line_fft as lf
+
+    as_tuple = lambda r: r if isinstance(r, tuple) else (r,)
+    lf.launches.clear()
+    got = as_tuple(kernel(ops[0]))
+    keys = list(lf.launches)
+    check(len(keys) == 1, f"line_fft:{name}: one call counted {keys}")
+    if keys[0] in seen:
+        return None
+    want = as_tuple(plain(ops[0]))
+    torch.cuda.synchronize()
+    parts = [(g, w) for g, w in zip(got, want) if w is not None]
+    exact = len(got) == len(want) and all(torch.equal(g, w) for g, w in parts)
+    err = max((g - w).abs().max().item() for g, w in parts)
+    mode, n, lines, sign, real = keys[0]
+    row = {
+        "name": f"line_fft:{name}", "route": "cuda", "source": "spfft_tpu_torch/csrc/line_fft.cu",
+        "replaces": "no TPU kernel: K1's z and x stages (spfft_tpu/ops/pallas_fft.py:95)",
+        "precision": "float32",
+        "shape": {"mode": mode, "n": n, "lines": lines, "sign": sign, "real": real},
+        "max_abs_err": err, "bitwise_equal": exact,
+        "ms": graph_ms([lambda x=x: kernel(x) for x in ops]),
+        "k1_ms": graph_ms([lambda x=x: k1_call(x) for x in ops]),
+        "plain_ms": device_ms(lambda: plain(ops[0]), replays=3),
+        "library_ms": graph_ms([lambda x=x: library(x) for x in ops]),
+        "library_math": "cuFFT complex64 (torch.fft)",
+        "replay_ms": device_ms(lambda: kernel(ops[0])),
+        "call_ms": call_ms(lambda: kernel(ops[0])),
+        "copies": len(ops), "bytes": nbytes,
+        "bound_ms": 1e3 * nbytes / PEAK_BYTES, "bound_by": "bytes",
+    }
+    row["bound_share"] = row["bound_ms"] / row["ms"]
+    torch.cuda.empty_cache()
+    emit({"phase": "kernel", **row})
+    check(exact, f"{row['name']} is not bitwise equal to its plain version: {err}")
+    return row, keys[0]
+
+
+def line_fft_phase(sp, plans) -> list:
+    """The line FFT at every form of the main path's plans (each launch-count
+    key once), then at the forms of ``LINE_FFT_PLANS``; returns (row, plan,
+    kernel, key) of the main path's forms."""
+    import torch
+
+    out, seen = [], set()
+    for name, (t, _, _) in plans.items():
+        if t.engine != "mxu":
+            continue
+        for form in line_fft_forms(name, t):
+            done = run_line_fft(*form, seen=seen)
+            if done is not None:
+                row, key = done
+                seen.add(key)
+                out.append((row, name, "line_fft", key))
+    for name, kind, n in LINE_FFT_PLANS:
+        trip = sp.create_spherical_cutoff_triplets(n, n, n, 0.659,
+                                                   hermitian_symmetry=kind == "r2c")
+        t = sp.Transform(sp.ProcessingUnit.GPU, getattr(sp.TransformType, kind.upper()), n, n, n,
+                         indices=trip, dtype=F32, engine="mxu")
+        check(line_fft_stages(t._exec) == 2, f"{name}: {t.describe()}")
+        for form in line_fft_forms(name, t):
+            run_line_fft(*form)
+        del t, form
+        torch.cuda.empty_cache()
+    return out
+
+
 def storage(idx, dim):
     return np.where(idx < 0, idx + dim, idx)
 
@@ -1121,29 +1302,36 @@ def oracle(kind, radius):
     return triplets, values, want
 
 
-def expected_launches(ex) -> tuple[int, int]:
-    """(K1, K2) launches of one backward+forward pair of the engine's y plan."""
+def expected_launches(ex) -> tuple[int, int, int]:
+    """(K1, K2, line FFT) launches of one backward+forward pair of the
+    engine's y plan: a z or x stage on the line FFT (a local float32
+    "highest" plan) launches it once a direction in place of K1."""
+    fft = 2 * line_fft_stages(ex)
     if ex.y_plan == "dense":
-        return 6, 2
+        return 6 - fft, 2, fft
     if ex.y_plan == "per-slot":
-        return 6, 0
-    return 2 * len(ex.buckets) + 4, 2
+        return 6 - fft, 0, fft
+    return 2 * len(ex.buckets) + 4 - fft, 2, fft
 
 
 def launch_counts():
     from spfft_tpu_torch.ops import complex_matmul as k1
+    from spfft_tpu_torch.ops import line_fft as lf
     from spfft_tpu_torch.ops import row_gather as k2
 
-    return {"complex_matmul": dict(k1.launches), "row_gather": dict(k2.launches)}
+    return {"complex_matmul": dict(k1.launches), "row_gather": dict(k2.launches),
+            "line_fft": dict(lf.launches)}
 
 
 def clear_counts() -> None:
     from spfft_tpu_torch import ir
     from spfft_tpu_torch.ops import complex_matmul as k1
+    from spfft_tpu_torch.ops import line_fft as lf
     from spfft_tpu_torch.ops import row_gather as k2
 
     k1.launches.clear()
     k2.launches.clear()
+    lf.launches.clear()
     ir.dispatches.clear()
 
 
@@ -1219,6 +1407,7 @@ def main_path(sp, name, t, twin, precision, values, want):
     rt_err = float(np.abs(back_h - values).max() / np.abs(values).max())
     counts = staged["counts"]
     n_k1, n_k2 = sum(counts["complex_matmul"].values()), sum(counts["row_gather"].values())
+    n_fft = sum(counts["line_fft"].values())
     precisions = sorted({key[-1] for key in counts["complex_matmul"]})
     ex = t._exec
     twice = {k: {key: 2 * n for key, n in c.items()} for k, c in counts.items()}
@@ -1231,7 +1420,8 @@ def main_path(sp, name, t, twin, precision, values, want):
         "num_values": len(values), "num_sticks": t.params.num_sticks,
         "num_x_active": t.num_x_active, "oracle_rel_err": oracle_err, "roundtrip_rel_err": rt_err,
         "bar": ORACLE_F64_RTOL if f64 else ORACLE_RTOL[precision],
-        "launches": {"complex_matmul": n_k1, "row_gather": n_k2, "from": "the staged twin's pair"},
+        "launches": {"complex_matmul": n_k1, "row_gather": n_k2, "line_fft": n_fft,
+                     "from": "the staged twin's pair"},
         "launches_first_fused_pair": total(first["counts"]),
         "launches_second_fused_pair": total(second["counts"]),
         "dispatches": {"staged": staged["dispatches"], "fused_first": first["dispatches"],
@@ -1259,9 +1449,10 @@ def main_path(sp, name, t, twin, precision, values, want):
         return counts, values_dev
     check(first["counts"] == twice,
           f"{name}: first fused pair launched {first['counts']}, not twice the twin's {counts}")
-    want_k1, want_k2 = expected_launches(ex)
-    check(n_k1 == want_k1 and n_k2 == want_k2,
-          f"{name} launches: {n_k1} K1, {n_k2} K2 (expected {want_k1} and {want_k2})")
+    want_k1, want_k2, want_fft = expected_launches(ex)
+    check(n_k1 == want_k1 and n_k2 == want_k2 and n_fft == want_fft,
+          f"{name} launches: {n_k1} K1, {n_k2} K2, {n_fft} line FFT (expected {want_k1}, "
+          f"{want_k2} and {want_fft})")
     check(precisions == [precision], f"{name} ran K1 at {precisions}, not {precision}")
     return counts, values_dev
 
@@ -2531,7 +2722,11 @@ def bench_phase(sp) -> tuple:
               f"{name}: perf report {obs.perf.validate_perf_report(perf)}")
         check(res["roundtrip_residual"] <= bar,
               f"{name}: round-trip residual {res['roundtrip_residual']} above {bar}")
-        check(all(n > 0 for n in launched.values()), f"{name}: a kernel was not launched")
+        # K1 and K2 in every plan, the line FFT where it runs a stage
+        fft = line_fft_stages(t._exec) > 0
+        check(launched["complex_matmul"] > 0 and launched["row_gather"] > 0
+              and (launched["line_fft"] > 0) == fft,
+              f"{name}: launches {launched}, line FFT stages {line_fft_stages(t._exec)}")
         # the kernels at this configuration's forms, against their plain versions
         forms = (pencil_k1_forms(name, t) if pencil
                  else dist_k1_forms(name, t, every=True) if card["kind"] == "distributed"
@@ -3680,15 +3875,16 @@ PACKAGE_DIR = os.path.join("build", "smoke", "package")
 PACKAGE_BENCH = CAPI_BENCH[0][1]
 
 
-def staged_backward_launches(twin, values_dev) -> tuple[int, int]:
-    """(K1, K2) launches of one backward call of a staged twin."""
+def staged_backward_launches(twin, values_dev) -> tuple[int, int, int]:
+    """(K1, K2, line FFT) launches of one backward call of a staged twin."""
     import torch
 
     torch.cuda.synchronize()
     clear_counts()
     twin.backward(values_dev)
     torch.cuda.synchronize()
-    return k_launches(launch_counts())
+    counts = launch_counts()
+    return (*k_launches(counts), sum(counts["line_fft"].values()))
 
 
 def compiled_phase(sp, plans) -> None:
@@ -3703,7 +3899,7 @@ def compiled_phase(sp, plans) -> None:
     for name in COMPILED_PLANS:
         t, twin, vals = plans[name]
         before = run_pair(sp, t, vals)
-        k1, k2 = staged_backward_launches(twin, vals)
+        k1, k2, fft = staged_backward_launches(twin, vals)
         t0 = time.perf_counter()
         card = t.report(include_compiled=True)
         report_s = time.perf_counter() - t0
@@ -3719,6 +3915,9 @@ def compiled_phase(sp, plans) -> None:
         check(classes.get("k2", 0) == k2 and kernels["k2"] == k2,
               f"{name}: K2 {classes.get('k2', 0)} classes, {kernels['k2']} graph nodes, "
               f"{k2} staged launches")
+        check(classes.get("fft", 0) == fft and kernels["fft"] == fft,
+              f"{name}: line FFT {classes.get('fft', 0)} classes, {kernels['fft']} graph nodes, "
+              f"{fft} staged launches")
         grains = hlo.element_granular_ops(hlo.record_program(t)[0])
         check(compiled["element_granular_ops"] == len(grains) and all(
             op == "index_copy_" and operand.count("x") == 1 for op, operand, _ in grains),
@@ -3744,6 +3943,7 @@ def compiled_phase(sp, plans) -> None:
         rows[name] = {"report_s": report_s, "compile_seconds": compiled["compile_seconds"],
                       "memory_analysis": compiled["memory_analysis"], "graph_nodes": nodes,
                       "staged_backward_k1": k1, "staged_backward_k2": k2,
+                      "staged_backward_line_fft": fft,
                       "hlo_op_classes": classes, "element_granular": grains}
         print(f"{name}: compile_seconds {compiled['compile_seconds']:.4f} memory_analysis "
               f"{compiled['memory_analysis']} graph nodes {nodes['total']} {kernels}", flush=True)
@@ -4369,7 +4569,8 @@ def program_run(runs, total, name, fn):
         for key, n in by_key.items():
             total[kernel][key] = total[kernel].get(key, 0) + n
     k1, k2 = k_launches(counts)
-    runs[name] = {"seconds": seconds, "k1_launches": k1, "k2_launches": k2}
+    runs[name] = {"seconds": seconds, "k1_launches": k1, "k2_launches": k2,
+                  "line_fft_launches": sum(counts["line_fft"].values())}
     check(k1 + k2 > 0, f"{name}: ran on the card and launched neither K1 nor K2")
     return result, out.getvalue()
 
@@ -4407,9 +4608,12 @@ def programs_profile_worker() -> int:
         report, prof = out["report"], out["profile"]
         kernels = lambda rng, what: sum(n for k, n in rng["kernels"].items()  # noqa: E731
                                         if any(w in k for w in what))
+        stages = out["transform"].describe()
         rows[label] = {
             "seconds": seconds, "y_plan": out["transform"]._exec.y_plan,
+            "z_stage": stages["z_stage"], "x_stage": stages["x_stage"],
             "launches": list(k_launches(launch_counts())),
+            "line_fft_launches": sum(launch_counts()["line_fft"].values()),
             "seconds_per_pair": report["seconds_per_pair"],
             "stages_sum_s": sum(r["seconds"] for r in report["stages"]),
             "flop_per_byte": report["attribution"]["flop_per_byte"],
@@ -4417,7 +4621,8 @@ def programs_profile_worker() -> int:
             "trace_bytes": os.path.getsize(prof["trace"]),
             "ranges": {s: {"device_ms": v["device_ms"],
                            "k1_kernels": kernels(v, ("tc_kernel", "dmma_kernel")),
-                           "k2_kernels": kernels(v, ("row_gather_kernel",))}
+                           "k2_kernels": kernels(v, ("row_gather_kernel",)),
+                           "fft_kernels": kernels(v, ("line_fft_kernel",))}
                        for s, v in prof["stages"].items()},
             "model_s": {r["stage"]: r["seconds"] for r in report["stages"]},
         }
@@ -4490,7 +4695,7 @@ def programs_phase(sp) -> tuple:
 
     started = time.perf_counter()
     os.makedirs(REPORTS, exist_ok=True)
-    runs, total = {}, {"complex_matmul": {}, "row_gather": {}}
+    runs, total = {}, {"complex_matmul": {}, "row_gather": {}, "line_fft": {}}
     run = lambda name, fn: program_run(runs, total, name, fn)  # noqa: E731
     path = lambda name: os.path.join(REPORTS, name)  # noqa: E731
     before = rung_counters()
@@ -4648,9 +4853,11 @@ def programs_phase(sp) -> tuple:
               and abs(row["stages_sum_s"] - row["seconds_per_pair"])
               <= 1e-9 * row["seconds_per_pair"], f"profile {label}: the perf report")
         check(row["flop_per_byte"] == obs.perf.CUDA_FLOP_PER_BYTE, f"profile {label}: balance")
-        for stage in ("z transform", y, "x transform"):
-            check(ranges.get(stage, {}).get("k1_kernels", 0) > 0,
-                  f"profile {label}: no K1 kernel under {stage!r}: {ranges}")
+        # each DFT stage's kernel: K1, or the line FFT where it runs z or x
+        dft = {"z transform": row["z_stage"], y: "k1", "x transform": row["x_stage"]}
+        for stage, kernel in dft.items():
+            check(ranges.get(stage, {}).get(f"{kernel}_kernels", 0) > 0,
+                  f"profile {label}: no {kernel} kernel under {stage!r}: {ranges}")
         k2_ranges = ("expand", "pack") if row["y_plan"] == "dense" else (y,)
         for stage in k2_ranges:
             check(ranges.get(stage, {}).get("k2_kernels", 0) > 0,
@@ -5057,6 +5264,7 @@ def main() -> int:
         run_k1_odd(f"kernel_f32_odd_{precision}", torch.float32, K1_RTOL, precision)
     run_k1_odd("kernel_f64", torch.float64, K1_F64_RTOL)
     run_k2_odd()
+    rows += line_fft_phase(sp, plans)
 
     # ---- the main path, every plan and its twin with the counts set to 0 just before ----
     counts, values = {}, {}
@@ -5222,8 +5430,8 @@ def main() -> int:
             "name", "route", "source", "replaces", "max_abs_err", "ms", "plain_ms",
             "bound_ms", "bound_by", "library_ms", "call_ms", "bound_share")}
             | {"launches": launches}
-            | {k: row[k] for k in ("precision", "fp32_bound_ms", "library_math", "library_tf32_ms")
-               if k in row})
+            | {k: row[k] for k in ("precision", "fp32_bound_ms", "library_math", "library_tf32_ms",
+                                   "k1_ms") if k in row})
     # the fused plans over the group hold NCCL's kernels in their graphs:
     # shutdown_distributed drops them before it destroys the group
     sp.shutdown_distributed()

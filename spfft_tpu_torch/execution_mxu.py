@@ -10,7 +10,13 @@ no transpose anywhere in the pipeline.
   "uniqueXIndices" optimisation, src/execution/execution_host.cpp:138-144),
 * every DFT stage is one launch of kernel K1 at the plan's precision
   (``"highest"``: FP32-accurate 3xTF32, ``"high"``: bf16x3, ``"default"``:
-  one bf16 pass; float64 ignores it), on strided views,
+  one bf16 pass; float64 ignores it), on strided views, but for the z and
+  x stages of a float32 plan whose K1 form is ``"highest"``: each of them
+  whose length (Z, X) is a power of two that the line FFT takes
+  (``ops/line_fft.supports``) is one launch of that kernel, an O(N log N)
+  FFT in FP32 bound by HBM bytes, in place of K1's dense N x N product
+  (``describe()``: ``z_stage``, ``x_stage``). The mesh engines, which fold
+  a z permutation into their z matrix, keep K1,
 * the y stage has three plans, chosen by the JAX package's policy
   (``ops/fft.py``: ``plan_sparse_y``, ``plan_sparse_y_blocked`` and their knobs):
 
@@ -33,8 +39,9 @@ no transpose anywhere in the pipeline.
 
 Backward: decompress -> stick symmetry (R2C) -> z -> y (with its plane
 symmetry for R2C) -> x (C2R for R2C). Forward reverses it; the FULL scaling
-rides the forward-z matrix. Each step is a stage body (``_st_*``, ``_expand``,
-``_pack``, ``_compress``) that ``ir.lower`` makes a node of.
+rides the forward-z matrix, or the line FFT's store. Each step is a stage
+body (``_st_*``, ``_expand``, ``_pack``, ``_compress``) that ``ir.lower``
+makes a node of.
 """
 from __future__ import annotations
 
@@ -42,7 +49,7 @@ import numpy as np
 import torch
 
 from .execution import ExecutionBase
-from .ops import compression, symmetry
+from .ops import compression, line_fft, symmetry
 from .ops import fft as offt
 from .ops.complex_matmul import Constant
 from .ops.row_gather import row_gather
@@ -58,6 +65,10 @@ class MxuLocalExecution(ExecutionBase):
     tensors are ``(Y, X, Z)`` native."""
 
     NATIVE_LAYOUT = "yxz"
+    # The z and x stages' line FFTs (ops/line_fft.py): None where K1 runs the
+    # stage, as it does on every mesh engine.
+    _z_lines = None
+    _x_lines = None
 
     def __init__(self, params: LocalParameters, real_dtype, device, precision="highest",
                  fuse=None):
@@ -68,6 +79,7 @@ class MxuLocalExecution(ExecutionBase):
         self.k1_precision = offt.k1_form(self.precision, self.real_dtype)
         self.twiddle_dtype = offt.twiddle_dtype(self.real_dtype)
         self._zs = Z  # the z extent of the (Y, A, Z) grid
+        fft = self.k1_precision == "highest" and self.real_dtype == np.dtype(np.float32)
 
         if S:
             ux = np.unique(np.asarray(p.stick_x, dtype=np.int64))
@@ -77,9 +89,14 @@ class MxuLocalExecution(ExecutionBase):
             xslot = np.zeros(0, dtype=np.int64)
         self.num_x_active = offt.compact_x_extent(ux.size, p.dim_x_freq)
 
-        wz_b, _, _, wz_f = offt.zy_stage_matrices(Z, p.dim_y, p.total_size, self.real_dtype)
-        self._wz_b = self._const(wz_b)
-        self._wz_f = {s: self._const(w) for s, w in wz_f.items()}
+        if fft and line_fft.supports(Z):
+            self._z_lines = line_fft.Lines(Z, self.device)
+        else:
+            wz_b, _, _, wz_f = offt.zy_stage_matrices(Z, p.dim_y, p.total_size, self.real_dtype)
+            self._wz_b = self._const(wz_b)
+            self._wz_f = {s: self._const(w) for s, w in wz_f.items()}
+        if fft and line_fft.supports(p.dim_x):
+            self._x_lines = line_fft.Lines(p.dim_x, self.device)  # its slots: _plan_y
 
         xslot, row_of_stick = self._plan_y(xslot, p.stick_y, ux, S,
                                            has_x0=bool(S) and int(ux[0]) == 0)
@@ -124,6 +141,8 @@ class MxuLocalExecution(ExecutionBase):
             "num_x_active": int(self.num_x_active),
             "dim_x_freq": int(self.params.dim_x_freq),
             "sparse_y": offt.describe_sparse_y(bool(self.sy), self.buckets, self.sy),
+            "z_stage": "k1" if self._z_lines is None else "fft",
+            "x_stage": "k1" if self._x_lines is None else "fft",
         }
 
     # ---- the y plan and the x matrices (shared with the mesh engine) -----------
@@ -146,7 +165,9 @@ class MxuLocalExecution(ExecutionBase):
         ``row_of_stick`` is each stick's table row (per-slot) or bucket flat
         row (blocked), else None. A blocked plan also leaves
         ``_bucket_rows_np``: every bucket's stick per row, ``num_sticks`` for
-        none."""
+        none. ``_slot_x`` is the x of each slot in the plan's order: the x
+        stage's matrices fold it, or the line FFT's slot maps where
+        ``_x_lines`` runs that stage."""
         A, Y, rt = self.num_x_active, self.params.dim_y, self.real_dtype
         self.sy = 0  # per-slot: sticks per slot; 0 otherwise
         self.buckets = None  # blocked: per bucket (Ag, Syg, backward V, forward V)
@@ -178,8 +199,12 @@ class MxuLocalExecution(ExecutionBase):
         if not self.sy and self.buckets is None:
             self._wy_b = self._const(offt.matrix_pair(offt.c2c_matrix(Y, +1), rt))
             self._wy_f = self._const(offt.matrix_pair(offt.c2c_matrix(Y, -1), rt))
-        wx_b, wx_f = offt.x_stage_matrices(self.params.dim_x, ux, A, self.is_r2c, rt)
-        self._wx_b, self._wx_f = self._const(wx_b), self._const(wx_f)
+        self._slot_x = np.asarray(ux)
+        if self._x_lines is None:
+            wx_b, wx_f = offt.x_stage_matrices(self.params.dim_x, ux, A, self.is_r2c, rt)
+            self._wx_b, self._wx_f = self._const(wx_b), self._const(wx_f)
+        else:
+            self._x_lines.place(ux, A)
         # the x == 0 plane's slot, in the plan's slot order, where dense-y
         # R2C plane symmetry acts
         x0 = np.flatnonzero(np.asarray(ux) == 0) if has_x0 else np.empty(0)
@@ -209,6 +234,8 @@ class MxuLocalExecution(ExecutionBase):
         return sre, sim
 
     def _st_z_backward(self, sre, sim):
+        if self._z_lines is not None:
+            return line_fft.rows(sre, sim, self._z_lines, +1)
         return self._mm(sre, sim, self._wz_b, "sz,zk->sk")
 
     def _expand(self, sre, sim):
@@ -259,6 +286,8 @@ class MxuLocalExecution(ExecutionBase):
 
     def _st_x_backward(self, gre, gim):
         """The (Y, A, Z) grid -> (Y, X, Z) space: (re, im), or real for R2C."""
+        if self._x_lines is not None:
+            return line_fft.to_space(gre, gim, self._x_lines, real_out=self.is_r2c)
         w = self._wx_b
         if self.is_r2c:
             return offt.real_out_matmul(gre, gim, *w.pair, "kxz,xl->klz", constant=w,
@@ -267,6 +296,8 @@ class MxuLocalExecution(ExecutionBase):
 
     def _st_x_forward(self, space_re, space_im):
         """(Y, X, Z) space (``space_im`` None for R2C) -> the (Y, A, Z) grid."""
+        if self._x_lines is not None:
+            return line_fft.from_space(space_re, space_im, self._x_lines)
         w = self._wx_f
         if self.is_r2c:
             return offt.real_in_matmul(space_re, *w.pair, "yxz,xk->ykz", constant=w,
@@ -307,7 +338,12 @@ class MxuLocalExecution(ExecutionBase):
         return fre, fim
 
     def _st_z_forward(self, sre, sim, scaling):
-        """The z-DFT, with the FULL scaling in its matrix."""
+        """The z-DFT, with the FULL scaling in its matrix (in the line FFT's
+        store)."""
+        if self._z_lines is not None:
+            full = ScalingType(scaling) == ScalingType.FULL
+            return line_fft.rows(sre, sim, self._z_lines, -1,
+                                 1.0 / self.params.total_size if full else 1.0)
         return self._mm(sre, sim, self._wz_f[ScalingType(scaling)], "sz,zk->sk")
 
     def _compress(self, sre, sim):

@@ -11,16 +11,17 @@ CUDA plan into one CUDA graph. Its text is two records:
 * **The op record** (:func:`recording`): one call of the program body under
   a ``TorchDispatchMode`` that keeps every aten (and ``c10d``) op with its
   operand and index shapes. The port's own kernels are counted at their
-  entry points, as the classes :data:`K1` (``ops/complex_matmul.py``) and
-  :data:`K2` (``ops/row_gather.py``), with what runs inside them muted: so
-  a CPU plan, whose wrappers run the plain versions, records the same
-  classes as the plan on the card, as StableHLO is the same on every
-  backend. :func:`hlo_op_class_counts` and :func:`element_granular_ops`
-  read it.
+  entry points, as the classes :data:`K1` (``ops/complex_matmul.py``),
+  :data:`K2` (``ops/row_gather.py``) and :data:`FFT` (``ops/line_fft.py``),
+  with what runs inside them muted: so a CPU plan, whose wrappers run the
+  plain versions, records the same classes as the plan on the card, as
+  StableHLO is the same on every backend. :func:`hlo_op_class_counts` and
+  :func:`element_granular_ops` read it.
 * **The CUDA graph** (a CUDA plan): a fresh capture of the body into the
   plan's memory pool, with the CUDA runtime's DOT dump of the graph, whose
   nodes :func:`graph_node_counts` counts by kind and by kernel (K1's, K2's,
-  NCCL's and PyTorch's own). The plan's cached graphs are not touched.
+  the line FFT's, NCCL's and PyTorch's own). The plan's cached graphs are
+  not touched.
 
 The detector is the library home of the guard of
 ``tests/test_torch_rowgranular.py``, the twin of the JAX package's
@@ -64,6 +65,7 @@ METADATA_ELEMS = 4096
 # The op classes of the port's kernels, counted at their wrappers' entry.
 K1 = "k1"
 K2 = "k2"
+FFT = "fft"
 # How long a process waits for the rest of its group to report with it.
 AGREE_SECONDS = 60.0
 
@@ -235,16 +237,19 @@ def hlo_op_class_counts(record) -> dict:
 
 _NODE_RE = re.compile(r'label="\{([A-Z_]+)')
 _KERNEL_RE = re.compile(r'label="\{KERNEL\s*\n\| \{ID \| \d+ \(topoId: \d+\) \| ([^\n\\]+)')
-# kernel classes by a part of the (mangled) name: the source file of K1's and
-# K2's CUDA kernels, NCCL's device kernels; every other kernel is PyTorch's
-KERNEL_CLASSES = ((K1, "complex_matmul"), (K2, "row_gather"), ("nccl", "nccl"))
+# kernel classes by a part of the (mangled) name: the source file of K1's, K2's
+# and the line FFT's CUDA kernels, NCCL's device kernels; every other kernel
+# is PyTorch's
+KERNEL_CLASSES = ((K1, "complex_matmul"), (K2, "row_gather"), (FFT, "line_fft"),
+                  ("nccl", "nccl"))
 
 
 def graph_node_counts(dot: str) -> dict:
     """``{"total", "kinds", "kernels"}`` of a CUDA graph's DOT dump
     (``cudaGraphDebugDotPrint``): its nodes by kind (``kernel``, ``memcpy``,
     ``memset``, ``event_record``, ``wait_event``, ``empty``, ...), and its
-    kernel nodes by class: :data:`K1`, :data:`K2`, ``nccl`` and ``torch``."""
+    kernel nodes by class: :data:`K1`, :data:`K2`, :data:`FFT`, ``nccl`` and
+    ``torch``."""
     kinds: dict = {}
     for kind in _NODE_RE.findall(dot):
         kinds[kind.lower()] = kinds.get(kind.lower(), 0) + 1

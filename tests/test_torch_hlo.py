@@ -212,10 +212,13 @@ def test_graph_node_counts_reads_a_dot_dump():
         '| {ID | 3 (topoId: 0) | _ZN2at6native29vectorized_elementwise_kernelILi4E\\<\\<\\<8,128,0'
         '\\>\\>\\>}', '}"];',
         '"graph_1_node_4"[style="solid" shape="record" label="{MEMCPY', '| {ID | 4} }"];',
+        '"graph_1_node_5"[style="bold" shape="record" label="{KERNEL',
+        '| {ID | 5 (topoId: 4) | _ZN44_GLOBAL__N__1ce87a65_11_line_fft_cu_91bb56bc15line_fft_'
+        'kernelILi256ELi0ELi1EEEvNS_4ArgsE\\<\\<\\<1399,512,0\\>\\>\\>}', '}"];',
         '}', '}'])
     got = hlo.graph_node_counts(dot)
-    assert got["kernels"] == {"k1": 1, "k2": 1, "nccl": 1, "torch": 1}
-    assert got["kinds"] == {"kernel": 4, "memcpy": 1} and got["total"] == 5
+    assert got["kernels"] == {"k1": 1, "k2": 1, "fft": 1, "nccl": 1, "torch": 1}
+    assert got["kinds"] == {"kernel": 5, "memcpy": 1} and got["total"] == 6
 
 
 # ---- over a gloo group of two processes -------------------------------------------------
