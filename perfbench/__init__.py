@@ -4,5 +4,7 @@
 runs one cell of ``BENCHMARK.json`` once. Configurations (``configs/``),
 traffic mixes (``traffic/``) and metrics (``metrics/``) are files found by
 name; the yardstick (the generator, the reference, the comparison, the
-trace's reduction) lives here and imports nothing of the JAX package.
+trace's reduction) lives here and imports nothing of the JAX package. A
+configuration with ``ranks`` runs over a process group, one process a card
+(``ranks.py``, ``shards.py``).
 """

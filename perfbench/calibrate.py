@@ -6,10 +6,12 @@
 Each seed is one run of the cell through the harness's own path
 (:func:`perfbench.run.execute`: set-up, warm-up sweep, a ``--seconds``
 window, the check and its verdict by :func:`perfbench.check.judge`), each
-with its own plan. ``--seeds`` runs the port as the configuration states it
-(the lower readings: sound runs); ``--control-seeds`` runs the control, the
-port's own path one precision step down (:data:`CONTROL`), which the check
-must find not correct (the upper readings). One JSON line per run.
+with its own plan; a cell over ranks makes them all in one set of workers
+(:func:`perfbench.ranks.execute_runs`). ``--seeds`` runs the port as the
+configuration states it (the lower readings: sound runs);
+``--control-seeds`` runs the control, the port's own path one precision
+step down (:data:`CONTROL`), which the check must find not correct (the
+upper readings). One JSON line per run.
 """
 from __future__ import annotations
 
@@ -37,7 +39,7 @@ def main(argv=None) -> int:
 
     import torch
 
-    from perfbench import spec
+    from perfbench import ranks, spec
     from perfbench.run import execute
 
     if not torch.cuda.is_available():
@@ -46,8 +48,13 @@ def main(argv=None) -> int:
     cell = spec.cell(args.workload)
     runs = [("program", s, None) for s in args.seeds]
     runs += [("control", s, CONTROL) for s in args.control_seeds]
-    for side, seed, precision in runs:
-        out = execute(cell, seed, args.seconds, False, "cuda", precision=precision)
+    if "ranks" in cell.config:  # one set of workers makes every run, each its own plan
+        outs = ranks.execute_runs(cell, [(seed, precision) for _, seed, precision in runs],
+                                  args.seconds, False, "cuda")
+    else:
+        outs = (execute(cell, seed, args.seconds, False, "cuda", precision=precision)
+                for _, seed, precision in runs)
+    for (side, seed, precision), out in zip(runs, outs):
         row = {"workload": args.workload, "side": side, "seed": seed,
                "precision": precision or cell.config["precision"], "correct": out["correct"],
                "failed": out["failed"], "attempted": out["attempted"],

@@ -126,5 +126,10 @@ class Sweep:
             self.block()
             pairs += self.fence_every
             elapsed = time.perf_counter() - t0
-            if elapsed >= seconds:
+            if self.over(elapsed, seconds):
                 return {"pairs": pairs, "seconds": elapsed}
+
+    def over(self, elapsed: float, seconds: float) -> bool:
+        """Whether the window closes after the block just fenced (the
+        ranks of a group agree on it: :class:`perfbench.ranks.RankSweep`)."""
+        return elapsed >= seconds

@@ -8,6 +8,10 @@ from __future__ import annotations
 
 import statistics
 
+# NVLink 4 on the H100 SXM: 18 links of 25 GB/s each way, 450 GB/s a
+# direction (NVIDIA's data sheet: 900 GB/s in both directions together)
+NVLINK_BYTES_PER_S = 450e9
+
 
 def per_pair_ms(profile, us_of) -> float | None:
     """``us_of(profile)`` µs of the stretch, per pair, in ms."""

@@ -14,6 +14,11 @@ metrics instead of the end-to-end ones. Once the window has closed and the
 peak memory is read, the port's plan is freed and what the window produced
 is held to the plain reference (:mod:`perfbench.check`).
 
+A configuration with ``ranks`` runs over a process group, one process a
+card, each holding one slab of a ``spfft_tpu_torch.DistributedTransform``
+(:mod:`perfbench.ranks`); this process starts them and prints rank 0's
+result.
+
 The run fails, and prints no result, where there is no CUDA device (it
 never falls back to the CPU), where the cell needs more cards than there
 are, and where ``jax``, ``jaxlib``, ``flax`` or ``spfft_tpu`` is loaded once
@@ -95,6 +100,10 @@ def execute(cell, seed: int, seconds: float, trace: bool, device="cuda", t0=None
     """One run of ``cell``; returns the result (``check`` last). ``precision``
     builds the plan at another precision than the configuration's (the
     control, ``perfbench/calibrate.py``); the limits stay the configuration's."""
+    if "ranks" in cell.config:
+        from perfbench import ranks
+
+        return ranks.execute(cell, seed, seconds, trace, device, t0, precision)
     import torch
 
     from perfbench import check, drive, inputs, spec
@@ -142,24 +151,49 @@ def execute(cell, seed: int, seconds: float, trace: bool, device="cuda", t0=None
     correct, failed, shown = check.judge(numbers, cfg["check"]["limits"])
 
     ctx = SimpleNamespace(setup_s=setup_s, window=window, profile=profile, cell=cell)
+    busy = (profile.busy_us(), profile.window_us) if profile is not None else None
+    return result(correct, attempted, failed, read_metrics(cell, trace, ctx),
+                  device_info(device, 1, peak), profile, busy,
+                  {p: b - a for p, a, b in zip(parts, stamps, stamps[1:])}, shown)
+
+
+def read_metrics(cell, trace: bool, ctx) -> dict:
+    """The run's metrics by name, each reader's number with its unit; a
+    metric whose reader finds nothing is left out."""
+    from perfbench import spec
+
     metrics = {}
     for m in cell.metrics(trace):
         value = spec.reader(m["name"])(ctx)
         if value is not None:
             metrics[m["name"]] = {"value": value, "unit": m["unit"]}
+    return metrics
+
+
+def device_info(device, count: int, peak: int) -> dict:
+    import torch
+
     cuda = device.type == "cuda"
-    dev = {"platform": "gpu" if cuda else "cpu",
-           "kind": torch.cuda.get_device_name(device) if cuda else "cpu",
-           "count": 1, "memory_peak_bytes": peak,
-           "power_limit_w": power_limit_w() if cuda else None}
+    return {"platform": "gpu" if cuda else "cpu",
+            "kind": torch.cuda.get_device_name(device) if cuda else "cpu",
+            "count": count, "memory_peak_bytes": peak,
+            "power_limit_w": power_limit_w() if cuda else None}
+
+
+def result(correct, attempted, failed, metrics, dev, profile, busy, setup_parts_s, shown,
+           **extra) -> dict:
+    """The result line's object (``check`` last). ``busy``: the device's busy
+    and traced µs, ``(busy_us, window_us)``, where ``profile`` is the traced
+    stretch's (whose breakdown the line carries)."""
     out = {"correct": correct, "attempted": attempted, "failed": failed, "metrics": metrics,
            "device": dev}
     if profile is not None:
-        dev["busy_s"] = profile.busy_us() / 1e6
-        dev["window_s"] = profile.window_us / 1e6
+        dev["busy_s"] = busy[0] / 1e6
+        dev["window_s"] = busy[1] / 1e6
         out["breakdown"] = {"device_ops": profile.device_ops_s(),
                             "idle_gaps": profile.idle_by_host_s()}
-    out["setup_parts_s"] = {p: b - a for p, a, b in zip(parts, stamps, stamps[1:])}
+    out["setup_parts_s"] = setup_parts_s
+    out.update(extra)
     out["check"] = shown
     return out
 

@@ -11,6 +11,7 @@ from types import SimpleNamespace
 import pytest
 
 from perfbench import spec
+from spfft_tpu_torch import ExchangeType
 
 ROOT = Path(__file__).resolve().parents[2]
 BENCH = json.loads((ROOT / "BENCHMARK.json").read_text())
@@ -66,6 +67,14 @@ def test_workloads():
         assert NAME.match(w["name"]) and NAME.match(w["traffic"]) and w["chips"] in (1, 4)
         assert LINE.match(w["why"])
         assert (ROOT / "perfbench" / "traffic" / f"{w['traffic']}.json").is_file()
+
+
+def test_a_cell_over_more_chips_runs_one_slab_rank_a_chip():
+    for w in BENCH["workloads"]:
+        cfg = spec.cell(w["name"], BENCH).config
+        if w["chips"] > 1 or "ranks" in cfg:
+            assert cfg["ranks"] == w["chips"] and cfg["decomposition"] == "slab"
+            assert cfg["exchange"].upper() in ExchangeType.__members__
 
 
 def test_metrics():
